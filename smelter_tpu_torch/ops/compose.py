@@ -1,0 +1,587 @@
+"""Layout compositing: the static-rect (region-local) paths of
+`smelter_tpu/ops/compose.py`.
+
+The working canvas is channel-major (4, H, W) premultiplied f32. Layouts
+blend in paint order with premultiplied OVER. Each layout whose rect is
+planner-stable (`static_rect` set) renders region-locally:
+  - colour and box-shadow layers as an analytic rounded-rect SDF over their
+    footprint (rotation is a coordinate rotation);
+  - texture layers as a GEMM resize of the source crop placed at an integer
+    origin, with SDF edges, borders and parent masks; a stable rotation
+    goes through the barrel-shear `rotate_static_cm`.
+A run of such layouts that opens the canvas paints its colour and shadow
+members in one pass of kernel K1 (`ops/hopper/scene_assembly.py`), which
+creates the canvas; the textures then blend in coalesced union groups.
+
+Layouts with animating geometry (traced position, size or rotation), the
+full-canvas colour runs of kernel K3 and the sampled full-canvas pass are
+not ported yet: they raise NotImplementedError naming their ROADMAP item.
+
+Scalar parameters are 0-d f32 tensors, as the reference's traced scalars
+are f32, so that every intermediate rounds as it does there.
+
+Corner-radius order is [top_left, top_right, bottom_right, bottom_left].
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from smelter_tpu_torch.ops.resample import resize_matmul
+from smelter_tpu_torch.ops.rotate import rotate_static_cm, rotated_bbox
+
+MAX_MASKS_COUNT = 20
+
+_TRACED_GEOMETRY = (
+    "layouts off the static-rect paths (animating position, size or "
+    "rotation, and the sampled full-canvas pass) are not ported yet: "
+    "ROADMAP Queue 1 item 6"
+)
+
+
+@dataclass(frozen=True)
+class LayoutStatic:
+    """Static (structure) part of one render layout; the fields are those of
+    the reference's LayoutStatic, so the two convert field for field."""
+
+    content: str  # "texture" | "color" | "box_shadow"
+    source_index: int = -1  # node texture index for content == "texture"
+    n_masks: int = 0
+    # per-mask flag: the mask rotates with the rotated ancestor that owns it
+    rotated_masks: Tuple[bool, ...] = ()
+    has_rotation: bool = False
+    has_border: bool = False  # border_width can be > 0
+    # planner-stable integer placement rect + source crop: region-local path
+    static_rect: Optional[Tuple[int, int, int, int]] = None  # top, left, h, w
+    static_crop: Optional[Tuple[int, int, int, int]] = None  # top, left, h, w
+    static_blur: float = 0.0  # box-shadow blur (needs static render region)
+    no_radius: bool = False  # every corner radius is 0 at plan time
+    static_color: Optional[Tuple[int, int, int, int]] = None
+    # planner-stable rotation (degrees): barrel-shear path for textures
+    static_rotation: Optional[float] = None
+    traced_rotation_q: Optional[int] = None
+    traced_position: bool = False
+    traced_size_buf: Optional[Tuple[int, int]] = None
+
+
+@dataclass
+class LayoutParams:
+    """Numeric parameters of one render layout: 0-d or small f32 tensors,
+    all on the compose device."""
+
+    top: torch.Tensor
+    left: torch.Tensor
+    width: torch.Tensor
+    height: torch.Tensor
+    rotation_degrees: torch.Tensor
+    border_radius: torch.Tensor  # (4,) [tl, tr, br, bl]
+    border_width: torch.Tensor
+    border_color: torch.Tensor  # (4,) straight alpha [0,1]
+    color: torch.Tensor  # (4,) straight alpha (color / shadow content)
+    crop: torch.Tensor  # (4,) [top, left, width, height] in source pixels
+    blur_radius: torch.Tensor
+    # (n_masks, 9): [radius_tl, tr, br, bl, top, left, width, height,
+    # rotation_rad]; the rotation applies only to masks flagged rotated
+    masks: torch.Tensor
+
+
+def smoothstep(e0, e1, x):
+    span = e1 - e0
+    span = torch.clamp(span, min=1e-6) if torch.is_tensor(span) else max(span, 1e-6)
+    t = torch.clamp((x - e0) / span, 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def rounded_rect_sdf(dx, dy, half_w, half_h, radius):
+    """Signed distance to a rounded rect centered at origin.
+
+    dx, dy: offsets from the rect center, x right / y down, pixels.
+    radius: (4,) corner radii [tl, tr, br, bl].
+    Negative inside, positive outside.
+    """
+    r_top = torch.where(dx < 0.0, radius[0], radius[1])
+    r_bottom = torch.where(dx < 0.0, radius[3], radius[2])
+    r = torch.where(dy < 0.0, r_top, r_bottom)
+    qx = torch.abs(dx) - half_w + r
+    qy = torch.abs(dy) - half_h + r
+    qx_pos = torch.clamp(qx, min=0.0)
+    qy_pos = torch.clamp(qy, min=0.0)
+    return (
+        torch.clamp(torch.maximum(qx, qy), max=0.0)
+        + torch.sqrt(qx_pos * qx_pos + qy_pos * qy_pos)
+        - r
+    )
+
+
+def _premultiply(color: torch.Tensor) -> torch.Tensor:
+    """(4,) straight-alpha -> (4, 1, 1) premultiplied."""
+    return torch.cat([color[:3] * color[3], color[3:4]])[:, None, None]
+
+
+def _mask_alpha(px, py, params: LayoutParams, n_masks: int,
+                rotated: Tuple[bool, ...] = ()) -> torch.Tensor:
+    alpha = torch.ones(px.shape, dtype=torch.float32, device=px.device)
+    for i in range(n_masks):
+        m = params.masks[i]
+        radius, top, left, w, h = m[0:4], m[4], m[5], m[6], m[7]
+        cx = left + w * 0.5
+        cy = top + h * 0.5
+        dx, dy = px - cx, py - cy
+        if i < len(rotated) and rotated[i]:
+            # rotate the offset into the local frame of the mask, which
+            # rotates with the parent that introduced it
+            ang = m[8]
+            ca, sa = torch.cos(ang), torch.sin(ang)
+            dx, dy = ca * dx + sa * dy, -sa * dx + ca * dy
+        d = rounded_rect_sdf(dx, dy, w * 0.5, h * 0.5, radius)
+        alpha = alpha * smoothstep(-0.5, 0.5, -d)
+    return alpha
+
+
+def _over(layer: torch.Tensor, under: torch.Tensor) -> torch.Tensor:
+    """Premultiplied OVER for channel-major (4, h, w) layers."""
+    return layer + under * (1.0 - layer[3:4])
+
+
+def _src_tile_cm(src, crop, out_h: int, out_w: int) -> torch.Tensor:
+    """Channel-major (4, out_h, out_w) f32 tile: the source's `crop` window
+    resized by GEMMs. Deferred planar-YUV sources crop and resize their
+    subsampled planes directly (color_convert.yuv_tile_rgba_cm); an (H, W, 4)
+    RGBA source (or a mip list, level 0 used) resizes its crop."""
+    if hasattr(src, "tile_cm"):
+        return src.tile_cm(crop, out_h, out_w)
+    img = src[0] if isinstance(src, (list, tuple)) else src
+    ct, cl, chh, cww = crop
+    patch = img[ct : ct + chh, cl : cl + cww]
+    return resize_matmul(patch.permute(2, 0, 1), out_h, out_w)
+
+
+def render_single_layout(
+    static: LayoutStatic,
+    params: LayoutParams,
+    sources: Sequence,
+    px: torch.Tensor,  # (H, W) output pixel-center x coords
+    py: torch.Tensor,  # (H, W) output pixel-center y coords
+) -> torch.Tensor:
+    """The layout's premultiplied RGBA contribution (4, H, W): the colour and
+    box-shadow branches. Sampled textures belong to the full-canvas pass,
+    not ported yet."""
+    if static.content not in ("color", "box_shadow"):
+        raise NotImplementedError(_TRACED_GEOMETRY)
+    w = params.width
+    h = params.height
+    cx = params.left + w * 0.5
+    cy = params.top + h * 0.5
+    dx = px - cx
+    dy = py - cy
+    if static.has_rotation:
+        ang = params.rotation_degrees * (math.pi / 180.0)
+        cos_a = torch.cos(ang)
+        sin_a = torch.sin(ang)
+        # rotate the offset into the rect's local (unrotated) frame
+        rdx = cos_a * dx + sin_a * dy
+        rdy = -sin_a * dx + cos_a * dy
+        dx, dy = rdx, rdy
+
+    mask_alpha = _mask_alpha(px, py, params, static.n_masks, static.rotated_masks)
+    edge = -rounded_rect_sdf(dx, dy, w * 0.5, h * 0.5, params.border_radius)
+
+    if static.content == "box_shadow":
+        blur = torch.clamp(params.blur_radius, min=1.0)
+        a = smoothstep(-blur * 0.5, blur * 0.5, edge) * mask_alpha
+        return _premultiply(params.color) * a[None]
+
+    content = _premultiply(params.color).expand((4,) + tuple(px.shape))
+    if not static.has_border:
+        a = smoothstep(-0.5, 0.5, edge) * mask_alpha
+        return content * a[None]
+
+    bw = params.border_width
+    border_color = _premultiply(params.border_color)
+    border_alpha = smoothstep(bw, bw + 1.0, edge)
+    inner = border_color + (content - border_color) * border_alpha[None]
+    content_alpha = smoothstep(-0.5, 0.5, edge)
+    outer = border_color * content_alpha[None]
+    out = torch.where((edge > bw * 0.5)[None], inner, outer)
+    return out * mask_alpha[None]
+
+
+def _layer_region(static: LayoutStatic) -> Tuple[int, int, int, int]:
+    """Unclipped canvas region (top, left, h, w) a region-local layout can
+    touch: its static rect, expanded to the rotated bbox for stable-rotation
+    layers and by the blur pad for box shadows."""
+    top, left, h, w = static.static_rect  # type: ignore[misc]
+    if static.static_rotation is not None and abs(static.static_rotation) > 1e-9:
+        if static.content == "texture":
+            bh, bw_ = rotated_bbox(float(static.static_rotation), h, w)
+        else:
+            th = math.radians(float(static.static_rotation))
+            bh = int(math.ceil(h * abs(math.cos(th)) + w * abs(math.sin(th)))) + 2
+            bw_ = int(math.ceil(h * abs(math.sin(th)) + w * abs(math.cos(th)))) + 2
+        top, left = top + (h - bh) // 2, left + (w - bw_) // 2
+        h, w = bh, bw_
+    if static.content == "box_shadow":
+        pad = int(math.ceil(static.static_blur)) + 1
+        top, left, h, w = top - pad, left - pad, h + 2 * pad, w + 2 * pad
+    return top, left, h, w
+
+
+def _pad_into(
+    layer: torch.Tensor, otop: int, oleft: int, Y0: int, X0: int, vh: int, vw: int
+) -> torch.Tensor:
+    """Place a (4, h, w) layer whose absolute origin is (otop, oleft) inside
+    a (4, vh, vw) zero region whose absolute origin is (Y0, X0), clipped."""
+    h, w = layer.shape[1], layer.shape[2]
+    y0, y1 = max(otop, Y0), min(otop + h, Y0 + vh)
+    x0, x1 = max(oleft, X0), min(oleft + w, X0 + vw)
+    if y0 >= y1 or x0 >= x1:
+        return torch.zeros((4, vh, vw), dtype=torch.float32, device=layer.device)
+    vis = layer[:, y0 - otop : y1 - otop, x0 - oleft : x1 - oleft]
+    return F.pad(vis, (x0 - X0, X0 + vw - x1, y0 - Y0, Y0 + vh - y1))
+
+
+def _pixel_centers(Y0: int, X0: int, vh: int, vw: int, device):
+    """(px, py): absolute pixel-center coordinates of a (vh, vw) region."""
+    py = (torch.arange(Y0, Y0 + vh, dtype=torch.float32, device=device) + 0.5)[:, None]
+    px = (torch.arange(X0, X0 + vw, dtype=torch.float32, device=device) + 0.5)[None, :]
+    return px.expand(vh, vw), py.expand(vh, vw)
+
+
+def _region_layer(
+    static: LayoutStatic,
+    params: LayoutParams,
+    sources: Sequence,
+    Y0: int,
+    X0: int,
+    vh: int,
+    vw: int,
+) -> torch.Tensor:
+    """Premultiplied (4, vh, vw) contribution of one region-local layout over
+    the absolute canvas region [Y0, Y0+vh) x [X0, X0+vw) — a superset of the
+    layout's own `_layer_region`. Outside the layout's footprint the
+    contribution is exactly zero, so blending over a larger region is
+    identical to blending over its own."""
+    top, left, h, w = static.static_rect  # type: ignore[misc]
+
+    if static.content == "texture" and static.static_rotation is not None:
+        # stable-rotation texture: upright tile + barrel-shear rotation
+        theta = float(static.static_rotation)
+        tile = _prepare_rect_tile(static, params, sources)
+        bh, bw_ = rotated_bbox(theta, h, w)
+        rotated = rotate_static_cm(tile, theta, bh, bw_)
+        oy = top + (h - bh) // 2
+        ox = left + (w - bw_) // 2
+        rotated = _apply_masks_region(rotated, static, params, oy, ox)
+        return _pad_into(rotated, oy, ox, Y0, X0, vh, vw)
+
+    px, py = _pixel_centers(Y0, X0, vh, vw, params.top.device)
+
+    if static.content in ("color", "box_shadow"):
+        return render_single_layout(static, params, sources, px, py)
+
+    # non-rotated texture: region-local GEMM resize of the source crop
+    rw, rh = params.width, params.height
+    cx = params.left + rw * 0.5
+    cy = params.top + rh * 0.5
+    dx = px - cx
+    dy = py - cy
+    mask_alpha = _mask_alpha(px, py, params, static.n_masks, static.rotated_masks)
+    edge = -rounded_rect_sdf(dx, dy, rw * 0.5, rh * 0.5, params.border_radius)
+
+    tile = _src_tile_cm(sources[static.source_index], static.static_crop, h, w)
+    content = _pad_into(tile, top, left, Y0, X0, vh, vw)
+
+    if static.has_border:
+        bw = params.border_width
+        border_color = _premultiply(params.border_color)
+        border_alpha = smoothstep(bw - 0.5, bw + 0.5, edge)
+        inner = border_color + (content - border_color) * border_alpha[None]
+        content_alpha = smoothstep(-0.5, 0.5, edge)
+        outer = border_color * content_alpha[None]
+        layer = torch.where((edge > bw * 0.5)[None], inner, outer)
+        return layer * mask_alpha[None]
+    a = smoothstep(-0.5, 0.5, edge) * mask_alpha
+    return content * a[None]
+
+
+def _prepare_rect_tile(
+    static: LayoutStatic, params: LayoutParams, sources: Sequence
+) -> torch.Tensor:
+    """Resize the source crop upright and apply the edge/border SDF alpha in
+    the rect's local axis-aligned frame. Returns channel-major (4, h, w)."""
+    top, left, h, w = static.static_rect  # type: ignore[misc]
+    tile = _src_tile_cm(sources[static.source_index], static.static_crop, h, w)
+
+    rw, rh = params.width, params.height
+    dev = tile.device
+    ly = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None] - h * 0.5
+    lx = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :] - w * 0.5
+    dy = ly.expand(h, w)
+    dx = lx.expand(h, w)
+    edge = -rounded_rect_sdf(dx, dy, rw * 0.5, rh * 0.5, params.border_radius)
+    if static.has_border:
+        bw = params.border_width
+        border_color = _premultiply(params.border_color)
+        border_alpha = smoothstep(bw - 0.5, bw + 0.5, edge)
+        inner = border_color + (tile - border_color) * border_alpha[None]
+        content_alpha = smoothstep(-0.5, 0.5, edge)
+        outer = border_color * content_alpha[None]
+        tile = torch.where((edge > bw * 0.5)[None], inner, outer)
+    else:
+        tile = tile * smoothstep(-0.5, 0.5, edge)[None]
+    return tile
+
+
+def _apply_masks_region(tile, static: LayoutStatic, params: LayoutParams,
+                        origin_y: int, origin_x: int):
+    """Apply parent masks to a region-local (4, h, w) tile at a static
+    integer origin (the masks are canvas-space rounded rects)."""
+    if not static.n_masks:
+        return tile
+    h, w = tile.shape[1], tile.shape[2]
+    px, py = _pixel_centers(origin_y, origin_x, h, w, tile.device)
+    return tile * _mask_alpha(px, py, params, static.n_masks, static.rotated_masks)[None]
+
+
+def _blend_group(canvas, members, union, sources, h: int, w: int):
+    """OVER-blend one coalesced group: one canvas region read, one blend
+    chain, one region write. The write is an in-place slice assignment into
+    the canvas, which this frame owns (the reference returns an updated
+    copy, which XLA turns into the same in-place update)."""
+    uy, ux, uh, uw = union
+    acc = canvas[:, uy : uy + uh, ux : ux + uw]
+    for st, p in members:
+        acc = _over(_region_layer(st, p, sources, uy, ux, uh, uw), acc)
+    if (uh, uw) == (h, w):
+        return acc
+    canvas[:, uy : uy + uh, ux : ux + uw] = acc
+    return canvas
+
+
+def _align_union(reg, h: int, w: int, sublane: int = 8):
+    """Expand a group's union to (sublane, 128) boundaries. Exact: member
+    contributions are evaluated over the whole union and are zero outside
+    their footprint, and OVER with a zero layer is the identity. (Kept from
+    the TPU tiling; whether it pays on the H100 is open, see PERF.md.)"""
+    uy, ux, uh, uw = reg
+    y0 = (uy // sublane) * sublane
+    x0 = (ux // 128) * 128
+    y1 = min(h, -(-(uy + uh) // sublane) * sublane)
+    x1 = min(w, -(-(ux + uw) // 128) * 128)
+    return y0, x0, y1 - y0, x1 - x0
+
+
+def canvas_clipper(h: int, w: int):
+    """reg (top, left, h, w) -> the part inside an (h, w) canvas, or None."""
+
+    def clip(reg):
+        top, left, hh, ww = reg
+        y0, y1 = max(top, 0), min(top + hh, h)
+        x0, x1 = max(left, 0), min(left + ww, w)
+        if y0 >= y1 or x0 >= x1:
+            return None
+        return y0, x0, y1 - y0, x1 - x0
+
+    return clip
+
+
+def _assembly_members(items, i: int, j: int, clip):
+    """Split the run items[i:j] into kernel K1's members and the group path's
+    items: returns (specs, member_params, group_items).
+
+    The split pulls SDF members forward past earlier group-routed members,
+    which is exact only when their footprints are disjoint (premultiplied
+    OVER commutes for disjoint supports, and a zero layer is the blend
+    identity): an SDF member joins the kernel only if its clipped footprint
+    intersects no earlier group-routed member's footprint; otherwise it stays
+    in the group run at its original position."""
+    from smelter_tpu_torch.ops.hopper import scene_assembly as sa
+
+    specs, plist, group_items = [], [], []
+    group_regions: list = []  # clipped footprints routed to the group path
+
+    def _intersects(a, b):
+        return (a[0] < b[0] + b[2] and b[0] < a[0] + a[2]
+                and a[1] < b[1] + b[3] and b[1] < a[1] + a[3])
+
+    for k in range(i, j):
+        st, p = items[k]
+        reg = clip(_layer_region(st))
+        if reg is None:  # fully off-canvas: contributes nothing
+            continue
+        if st.content in ("color", "box_shadow") and not any(
+            _intersects(reg, gr) for gr in group_regions
+        ):
+            y0, x0, rh, rw = reg
+            fill = None
+            if (st.content == "color" and st.no_radius
+                    and not st.has_border and not st.has_rotation
+                    and st.n_masks == 0):
+                # pixels of the flat interior (the clipped rect shrunk by
+                # 2 px: 1 px covers the SDF smoothstep half-width, 1 more the
+                # planner's integer hull of the rect) skip the SDF math
+                fy0, fy1, fx0, fx1 = y0 + 2, y0 + rh - 2, x0 + 2, x0 + rw - 2
+                if fy0 < fy1 and fx0 < fx1:
+                    fill = (fy0, fx0, fy1, fx1)
+            specs.append(sa.MemberSpec(
+                st.content, st.has_border, st.has_rotation, st.n_masks,
+                st.rotated_masks, (y0, x0, y0 + rh, x0 + rw), fill,
+            ))
+            plist.append(p)
+        else:
+            group_items.append((st, p))
+            group_regions.append(reg)
+    return specs, plist, group_items
+
+
+def _try_scene_assembly(items, i: int, j: int, sources, h: int, w: int, clip,
+                        cache: Optional[dict] = None):
+    """Paint the colour/box-shadow members of a canvas-opening run of
+    region-local layouts (`_assembly_members`) in one pass of kernel K1,
+    which creates the canvas; return (canvas, group_items), the rest being
+    left for the group path, or None when no member routes to the kernel.
+
+    `cache`, when given, keeps the member table on the device between calls;
+    the caller passes the same dict only with the same layouts."""
+    from smelter_tpu_torch.ops.hopper import scene_assembly as sa
+
+    specs, plist, group_items = _assembly_members(items, i, j, clip)
+    if not specs:
+        return None
+    key = ("scene_assembly", i, j, h, w)
+    if cache is not None and key in cache:
+        spec_rows, params = cache[key]
+    else:
+        params = sa.pack_member_params(plist, max(s.n_masks for s in specs))
+        spec_rows = sa.spec_table(specs, params.device)
+        if cache is not None:
+            cache[key] = (spec_rows, params)
+    canvas = sa.assemble_scene_planar((w, h), specs, params, spec_rows)
+    return canvas, group_items
+
+
+def _assemble_local_run(canvas, run_items, sources, h: int, w: int, clip):
+    """Blend a run of region-local layouts onto the canvas: coalesce into
+    union groups by the traffic model ((k+3)*|union| <= 3*sum(|r_i|) — the
+    union read+write plus extra per-member shading area must beat the
+    per-layout region reads+writes), align the unions, and assemble one
+    region update per group."""
+    groups = []  # (members, union, paint_idx)
+    cur = None  # (members, (uy,ux,uh,uw), area_sum, idx)
+    for k, (st2, p2) in enumerate(run_items):
+        r2 = clip(_layer_region(st2))
+        if r2 is None:  # fully off-canvas: contributes nothing
+            continue
+        if cur is not None:
+            members, (uy, ux, uh, uw), area_sum, idx = cur
+            ny0 = min(uy, r2[0])
+            nx0 = min(ux, r2[1])
+            ny1 = max(uy + uh, r2[0] + r2[2])
+            nx1 = max(ux + uw, r2[1] + r2[3])
+            n_area = (ny1 - ny0) * (nx1 - nx0)
+            if (len(members) + 3) * n_area <= 3 * (area_sum + r2[2] * r2[3]):
+                members.append((st2, p2))
+                cur = (
+                    members,
+                    (ny0, nx0, ny1 - ny0, nx1 - nx0),
+                    area_sum + r2[2] * r2[3],
+                    idx,
+                )
+                continue
+            groups.append((members, (uy, ux, uh, uw), idx))
+        cur = ([(st2, p2)], r2, r2[2] * r2[3], k)
+    if cur is not None:
+        groups.append((cur[0], cur[1], cur[3]))
+    groups = [
+        (members, _align_union(union, h, w), idx)
+        for members, union, idx in groups
+    ]
+    return _assemble_groups(canvas, groups, sources, h, w)
+
+
+def _assemble_groups(canvas, groups, sources, h: int, w: int):
+    """Assemble a run of coalesced groups onto the canvas in paint order."""
+    for members, union, _ in groups:
+        canvas = _blend_group(canvas, members, union, sources, h, w)
+    return canvas
+
+
+def compose_layouts(
+    resolution: Tuple[int, int],  # (width, height)
+    statics: Sequence[LayoutStatic],
+    params: Sequence[LayoutParams],
+    sources: Sequence,
+    background: Optional[torch.Tensor] = None,  # (H, W, 4) premultiplied f32
+    planar: bool = False,
+    cache: Optional[dict] = None,
+    device=None,
+) -> torch.Tensor:
+    """Blend all layouts over a transparent canvas; returns premultiplied f32
+    — channel-major (4, H, W) when `planar=True`, (H, W, 4) otherwise.
+    Layout order = paint order (later on top). (The reference's
+    `_compose_layouts_impl` is this function's body.)
+
+    Consecutive region-local layouts whose footprints overlap (a tile's
+    shadow + backdrop + content) coalesce into one union-region blend chain:
+    one canvas region read and one write per group instead of one per
+    layout — premultiplied OVER is associative, so grouping is exact.
+
+    `cache`: a dict the caller owns that keeps the host-built constants of
+    these layouts (the K1 member table) on the device between calls; pass
+    the same dict only with the same statics and params. `device`: where
+    the canvas lives; defaults to the device of the first layout's params."""
+    w, h = resolution
+    if device is None:
+        device = params[0].top.device if params else torch.device("cpu")
+    canvas = None  # created by K1, from the background, or transparent
+    if background is not None:
+        canvas = background.permute(2, 0, 1).clone(memory_format=torch.contiguous_format)
+    items = list(zip(statics, params))
+
+    def _local(st: LayoutStatic) -> bool:
+        if st.traced_position or st.traced_size_buf is not None:
+            return False
+        if st.static_rect is None:
+            return False
+        if st.has_rotation:
+            return st.static_rotation is not None
+        return True
+
+    _clip = canvas_clipper(h, w)
+    i = 0
+    while i < len(items):
+        st, _ = items[i]
+        if not _local(st):
+            if (st.static_rect is None and not st.traced_position
+                    and st.traced_size_buf is None
+                    and st.content in ("color", "box_shadow")
+                    and st.n_masks == 0):
+                raise NotImplementedError(
+                    "full-canvas colour/box-shadow runs (kernel K3) are not "
+                    "ported yet: ROADMAP Queue 2, K3"
+                )
+            raise NotImplementedError(_TRACED_GEOMETRY)
+        run_end = i
+        while run_end < len(items) and _local(items[run_end][0]):
+            run_end += 1
+        run_items = items[i:run_end]
+        if i == 0 and background is None:
+            # canvas-opening run: K1 paints the SDF members (background,
+            # colour backdrops, shadows) and creates the canvas; the
+            # textures then blend through the group path
+            assembled = _try_scene_assembly(items, i, run_end, sources, h, w,
+                                            _clip, cache)
+            if assembled is not None:
+                canvas, run_items = assembled
+        if canvas is None:
+            canvas = torch.zeros((4, h, w), dtype=torch.float32, device=device)
+        canvas = _assemble_local_run(canvas, run_items, sources, h, w, _clip)
+        i = run_end
+    if canvas is None:
+        canvas = torch.zeros((4, h, w), dtype=torch.float32, device=device)
+    return canvas if planar else canvas.permute(1, 2, 0)
