@@ -14,15 +14,26 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      the card: <= 1 u8 LSB on every plane;
   4. holds kernel K1 (scene assembly) against its plain version on the card,
      on the general_4k member table at 4K and on a mixed-member case with
-     partial tiles, rotation, border, shadow and masks: atol 2e-5 on the f32
-     canvas and <= 1 LSB after u8 quantisation;
-  5. drives the main path, 16 x 1080p YUV420 -> one 4K YUV420 frame, through
-     the flagship builders (the Tiles grid, then general_4k), host frames
-     going through pinned memory to the card and the planes coming back;
-     checks shapes and dtypes, that general_4k launched K1 and K2, and that
-     the card's frames match the port run on the CPU;
-  6. times K1 and K2 against their plain versions and the whole frames,
-     with CUDA events (median of 20 runs after warm-up);
+     partial tiles, rotation, border, shadow and masks, and kernel K3 (SDF
+     layers) on the renderer scene's four overlay layers over the
+     general_4k canvas at 4K, on a 16-layer table with rotation, borders and
+     shadows at 4K, and at 257 x 511: atol 2e-5 on the f32 canvas and <= 1
+     LSB after u8 quantisation;
+  5. drives the flagship builders, 16 x 1080p YUV420 -> one 4K YUV420 frame
+     (the Tiles grid, then general_4k), host frames going through pinned
+     memory to the card and the planes coming back; checks shapes and
+     dtypes, that general_4k launched K1 and K2, and that the card's frames
+     match the port run on the CPU;
+  6. drives the renderer (`smelter_tpu_torch.render.renderer.Renderer`), the
+     entry point a pipeline calls, on 16 host YUV420 inputs at 1080p into a
+     4K YUV420 output: a Tiles grid under a highlight frame and a lower-third
+     banner that move in a one-second transition, 41 frames at 30 fps;
+     checks the planes, that K1 and K2 ran, that K3 ran on every animating
+     frame and on no settled one, and that the same sequence at 4 x 256x144
+     -> 768x432 matches the port run on the CPU;
+  7. times the kernels against their plain versions and the whole frames,
+     with CUDA events (medians), and the host time of the renderer's
+     per-frame planning;
 and prints a JSON line of the kernels, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
@@ -36,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,6 +56,8 @@ WARMUP = 3
 N_INPUTS = 16
 IN_W, IN_H = 1920, 1080
 OUT_W, OUT_H = 3840, 2160
+FPS = 30
+N_RENDER_FRAMES = 40  # pts k / FPS for k = 1..40 after the scene update
 
 
 class SmokeFailure(Exception):
@@ -97,6 +111,16 @@ def lsb_stats(ref_planes, got_planes):
         n_gt1 += int((d > 1).sum())
         n += d.size
     return mx, n_diff, n_gt1, n
+
+
+def check_planes(label, planes, out_w, out_h):
+    """u8 Y, U, V planes of an out_w x out_h frame, none of them flat."""
+    shapes = [tuple(p.shape) for p in planes]
+    print(f"{label} output planes: {shapes} {planes[0].dtype}")
+    check(shapes == [(out_h, out_w), (out_h // 2, out_w // 2), (out_h // 2, out_w // 2)]
+          and all(str(p.dtype) == "uint8" for p in planes),
+          f"{label}: wrong output planes {shapes}")
+    check(all(int(p.max()) > int(p.min()) for p in planes), f"{label}: a flat output plane")
 
 
 def quantized(canvas):
@@ -245,6 +269,193 @@ def parity_vs_cpu(builder, n, in_w, in_h, out_w, out_h, dev, label):
     check(mx <= 2 and n_gt1 * 10000 < total, f"{label}: card vs CPU off ({mx} LSB)")
 
 
+def layer_table(dev, n, h, w, seed):
+    """(n, 19) K3 parameter rows and kinds: colour, bordered-colour and
+    box-shadow layers, every third one rotated, scattered over (and past the
+    edges of) an h x w canvas."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    rows, kinds = [], []
+    for i in range(n):
+        u = torch.rand(19, generator=gen).tolist()
+        content = ("color", "color", "box_shadow")[i % 3]
+        kinds.append((content, content == "color" and i % 2 == 1, i % 3 == 1))
+        lw, lh = 30 + u[2] * w * 0.6, 20 + u[3] * h * 0.6
+        r = min(lw, lh) * 0.4
+        rows.append([u[0] * h - 10, u[1] * w - 10, lw, lh, u[4] * 360 - 180,
+                     *(x * r for x in u[5:9]), *u[9:12], 0.3 + 0.7 * u[12],
+                     1 + u[13] * 8, *u[14:18], u[18] * 30])
+    return torch.tensor(rows, dtype=torch.float32, device=dev), tuple(kinds)
+
+
+def renderer_scene(out_w, out_h, n_inputs, stage):
+    """The renderer's scene: an opaque root View holding a Tiles grid of the
+    inputs, a highlight frame around one tile and a lower-third banner. The
+    two overlays carry ids and a one-second transition; `stage` 0 puts the
+    highlight on the first tile and the banner on the left, stage 1 moves
+    the highlight to the last tile and slides the banner right. Sizes are
+    those of a 3840-wide output, scaled to `out_w`; both overlays (and their
+    shadows) stay inside the canvas, so they carry no masks."""
+    from smelter_tpu.core.types import RGBAColor
+    from smelter_tpu.scene import components as comp
+    from smelter_tpu.scene.layout_types import BorderRadius, BoxShadow
+
+    s = out_w / 3840.0
+    cols = int(round(n_inputs ** 0.5))
+    rows = -(-n_inputs // cols)
+    tw, th = out_w / cols, out_h / rows
+    r, c = (0, 0) if stage == 0 else (rows - 1, cols - 1)
+    pad = 24 * s
+    highlight = comp.View(
+        id="highlight",
+        position=comp.AbsolutePosition(width=tw - 2 * pad, height=th - 2 * pad,
+                                       top=r * th + pad, left=c * tw + pad),
+        background_color=RGBAColor(255, 255, 255, 40),
+        border_radius=BorderRadius(16 * s, 16 * s, 16 * s, 16 * s),
+        border_width=8 * s, border_color=RGBAColor(255, 200, 0, 255),
+        box_shadow=[BoxShadow(blur_radius=24 * s, color=RGBAColor(0, 0, 0, 180))],
+        transition=comp.Transition(duration=1.0))
+    bw, bh = 2400 * s, 240 * s
+    banner = comp.View(
+        id="banner",
+        position=comp.AbsolutePosition(width=bw, height=bh, top=out_h - bh - 120 * s,
+                                       left=(160 if stage == 0 else 1200) * s),
+        background_color=RGBAColor(200, 30, 30, 230),
+        border_radius=BorderRadius(24 * s, 24 * s, 24 * s, 24 * s),
+        border_width=4 * s, border_color=RGBAColor(255, 255, 255, 255),
+        box_shadow=[BoxShadow(offset_x=8 * s, offset_y=8 * s, blur_radius=30 * s,
+                              color=RGBAColor(0, 0, 0, 160))],
+        transition=comp.Transition(duration=1.0))
+    tiles = comp.Tiles(
+        children=[comp.Rescaler(child=comp.InputStream(input_id=f"input_{i}"))
+                  for i in range(n_inputs)],
+        background_color=RGBAColor(16, 16, 16), margin=8.0 * s)
+    return comp.View(background_color=RGBAColor(0, 0, 0),
+                     children=[tiles, highlight, banner])
+
+
+def renderer_inputs(n, in_w, in_h, seed):
+    """n host planar YUV420 input frames (u8 numpy planes)."""
+    from smelter_tpu.core.types import Frame, PixelFormat, Resolution
+
+    y, u, v = host_frames(n, in_w, in_h, seed)
+    return {f"input_{i}": Frame(data=(y[i], u[i], v[i]),
+                                format=PixelFormat.PLANAR_YUV420,
+                                resolution=Resolution(in_w, in_h), pts=0.0)
+            for i in range(n)}
+
+
+def start_transition(dev, n, in_w, in_h, out_w, out_h, frames):
+    """A renderer on `dev` that has rendered pts 0 of the scene at stage 0
+    and then been given stage 1: the transition starts at pts 0."""
+    from smelter_tpu.core.types import FrameSet, PixelFormat, Resolution
+    from smelter_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(device=dev)
+    for iid in frames:
+        r.register_input(iid)
+    out = (Resolution(out_w, out_h), PixelFormat.PLANAR_YUV420)
+    r.update_scene("out", renderer_scene(out_w, out_h, n, 0), *out)
+    first = r.render(FrameSet(pts=0.0, frames=frames)).frames["out"].data
+    r.update_scene("out", renderer_scene(out_w, out_h, n, 1), *out)
+    return r, first
+
+
+def render_transition(dev, n, in_w, in_h, out_w, out_h, frames, on_frame=None):
+    """Render pts 0 (stage 0), update the scene to stage 1, render pts k/FPS
+    for k = 1..N_RENDER_FRAMES. Returns the frames' planes, on `dev`;
+    `on_frame(k, planes)` is called after each frame."""
+    from smelter_tpu.core.types import FrameSet
+
+    r, first = start_transition(dev, n, in_w, in_h, out_w, out_h, frames)
+    outs = [first]
+    if on_frame is not None:
+        on_frame(0, first)
+    for k in range(1, N_RENDER_FRAMES + 1):
+        outs.append(r.render(FrameSet(pts=k / FPS, frames=frames)).frames["out"].data)
+        if on_frame is not None:
+            on_frame(k, outs[-1])
+    return outs
+
+
+def overlay_k3_run(dev, frames):
+    """The K3 run of the renderer scene at 4K on its first animating frame
+    (pts 2/FPS), as the frame program hands it to the kernel: (rows, kinds)."""
+    import torch
+
+    from smelter_tpu.core.types import FrameSet
+    from smelter_tpu_torch.ops.hopper import sdf_layers
+    from smelter_tpu_torch.render.program import _unpack_layout_params
+
+    r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames)
+    r.render(FrameSet(pts=1 / FPS, frames=frames))
+    prog = r._programs["out"]
+    key, plan = prog.plan(2 / FPS, frames)
+    nid = prog.node_id(prog.root)
+    statics = next(part[2] for part in key
+                   if isinstance(part, tuple) and part[0] == nid and part[1] == "layout")
+    vec = torch.from_numpy(plan.packed_params).to(dev)
+    params = _unpack_layout_params(vec, {nid: statics})[nid]
+    run = [(st, p) for st, p in zip(statics, params) if st.static_rect is None]
+    check(len(run) == 4 and all(st.content in ("color", "box_shadow") and st.n_masks == 0
+                                for st, _ in run),
+          f"the animating renderer frame has no 4-layer K3 run: {[st for st, _ in run]}")
+    kinds = tuple((st.content, st.has_border, st.has_rotation) for st, _ in run)
+    return sdf_layers.pack_layer_params([p for _, p in run]), kinds
+
+
+def k3_checks(sl, cases):
+    """K3 against its plain version on each (name, canvas, rows, kinds);
+    the kernel works in place, so it gets a copy of the canvas."""
+    import torch
+
+    worst = 0.0
+    for name, canvas, rows, kinds in cases:
+        ref = sl.compose_sdf_layers_planar_plain(canvas, rows, kinds)
+        got = sl.compose_sdf_layers_planar(canvas.clone(), rows, kinds)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite canvas")
+        err = float((got - ref).abs().max())
+        lsb = int((quantized(got) - quantized(ref)).abs().max())
+        print(f"K3 vs plain {name} ({len(kinds)} layers, {canvas.shape[2]}x"
+              f"{canvas.shape[1]}): max abs err {err:.3g}, max u8 diff {lsb} LSB")
+        check(err <= 2e-5, f"K3 {name}: f32 canvas off by {err}")
+        check(lsb <= 1, f"K3 {name}: u8 canvas off by {lsb} LSB")
+        worst = max(worst, err)
+    return worst
+
+
+def renderer_parity_vs_cpu(dev, n, in_w, in_h, out_w, out_h):
+    """Every frame of the renderer's transition sequence on the card against
+    the port run on the CPU, at parity_vs_cpu's tolerance."""
+    from smelter_tpu_torch import interop
+
+    frames = renderer_inputs(n, in_w, in_h, seed=2)
+    ref = render_transition("cpu", n, in_w, in_h, out_w, out_h, frames)
+    got = render_transition(dev, n, in_w, in_h, out_w, out_h, frames)
+    mx, n_diff, n_gt1, total = 0, 0, 0, 0
+    for a, b in zip(ref, got):
+        m, d, g, t = lsb_stats(interop.planes_to_host(a), interop.planes_to_host(b))
+        mx, n_diff, n_gt1, total = max(mx, m), n_diff + d, n_gt1 + g, total + t
+    print(f"parity card vs CPU renderer {n}x{in_w}x{in_h} -> {out_w}x{out_h}, "
+          f"{len(ref)} frames: max {mx} LSB, {n_diff} of {total} pixels differ, "
+          f"{n_gt1} by 2+")
+    check(mx <= 2 and n_gt1 * 10000 < total, f"renderer: card vs CPU off ({mx} LSB)")
+
+
+def host_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
+    """Median host wall time of one call, in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def main() -> int:
     import torch
 
@@ -253,13 +464,14 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 1
 
-    from smelter_tpu.core.types import Resolution
+    from smelter_tpu.core.types import FrameSet, Resolution
     from smelter_tpu_torch import interop
-    from smelter_tpu_torch.ops.hopper import build, scene_assembly, yuv_out
+    from smelter_tpu_torch.ops.hopper import build, scene_assembly, sdf_layers, yuv_out
     from smelter_tpu_torch.parallel.flagship import (
         make_flagship_compose,
         make_flagship_general_compose,
     )
+    from smelter_tpu_torch.render.program import _pack_frame_buf
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
@@ -282,8 +494,21 @@ def main() -> int:
     k2_err = k2_checks(yuv_out, dev)
     cases = k1_tables(dev)
     k1_err = k1_checks(scene_assembly, cases)
+    _, res, specs, params = cases[0]
+    general_canvas = scene_assembly.assemble_scene_planar(res, specs, params)
+    render_frames = renderer_inputs(N_INPUTS, IN_W, IN_H, seed=0)
+    overlay_rows, overlay_kinds = overlay_k3_run(dev, render_frames)
+    table16 = layer_table(dev, 16, OUT_H, OUT_W, seed=16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    odd_canvas = torch.rand((4, 257, 511), generator=gen, device=dev)
+    k3_cases = [
+        ("renderer overlays over general_4k", general_canvas, overlay_rows, overlay_kinds),
+        ("16-layer table over general_4k", general_canvas, *table16),
+        ("4-layer table at 257x511", odd_canvas, *layer_table(dev, 4, 257, 511, seed=4)),
+    ]
+    k3_err = k3_checks(sdf_layers, k3_cases)
 
-    # phase 5: the main path, 16 x 1080p -> 4K
+    # phase 5: the flagship builders, 16 x 1080p -> 4K
     in_res, out_res = Resolution(IN_W, IN_H), Resolution(OUT_W, OUT_H)
     t0 = time.perf_counter()
     grid_fn, _ = make_flagship_compose(N_INPUTS, in_res, out_res, device=dev)
@@ -294,39 +519,80 @@ def main() -> int:
 
     scene_assembly.LAUNCHES = 0
     yuv_out.LAUNCHES = 0
+    sdf_layers.LAUNCHES = 0
     dev_frames = interop.planes_to_device(frames, dev)
     grid_out = interop.planes_to_host(grid_fn(*dev_frames))
     check(scene_assembly.LAUNCHES == 0 and yuv_out.LAUNCHES == 0,
           "the grid scene runs no kernel")
     gen_out = interop.planes_to_host(gen_fn(*dev_frames))
-    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES}
-    print(f"main path launches during general_4k: {launches}")
+    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                "sdf_layers": sdf_layers.LAUNCHES}
+    print(f"flagship path launches during general_4k: {launches}")
     check(launches["scene_assembly"] > 0, "general_4k did not launch K1")
     check(launches["yuv_out"] > 0, "general_4k did not launch K2")
     for label, planes in (("grid", grid_out), ("general_4k", gen_out)):
-        shapes = [p.shape for p in planes]
-        print(f"{label} output planes: {shapes} {planes[0].dtype}")
-        check(shapes == [(OUT_H, OUT_W), (OUT_H // 2, OUT_W // 2), (OUT_H // 2, OUT_W // 2)]
-              and all(str(p.dtype) == "uint8" for p in planes),
-              f"{label}: wrong output planes {shapes}")
-        check(all(int(p.max()) > int(p.min()) for p in planes),
-              f"{label}: a flat output plane")
+        check_planes(label, planes, OUT_W, OUT_H)
     parity_vs_cpu(make_flagship_compose, 4, 256, 144, 768, 432, dev, "grid")
     parity_vs_cpu(make_flagship_general_compose, 4, 256, 144, 768, 432, dev, "general_4k")
     parity_vs_cpu(make_flagship_compose, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, dev, "grid")
 
-    # phase 6: timings (medians of ITERS runs after WARMUP)
-    general_case = cases[0]
-    _, res, specs, params = general_case
+    # phase 6: the renderer, 16 x 1080p -> 4K, a transition of 41 frames
+    k3_frames = []
+
+    def count_k3(k, _planes):
+        k3_frames.append((k, sdf_layers.LAUNCHES, len(syncs)))
+
+    scene_assembly.LAUNCHES = 0
+    yuv_out.LAUNCHES = 0
+    sdf_layers.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        outs = render_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H,
+                                 render_frames, on_frame=count_k3)
+    torch.cuda.set_sync_debug_mode("default")
+    render_launches = {"scene_assembly": scene_assembly.LAUNCHES,
+                       "yuv_out": yuv_out.LAUNCHES, "sdf_layers": sdf_layers.LAUNCHES}
+    per_frame, sync_frames = [], {}
+    prev_n, prev_s = 0, 0
+    for k, n, n_sync in k3_frames:
+        per_frame.append((k, n - prev_n))
+        if n_sync > prev_s:
+            sync_frames[k] = n_sync - prev_s
+        prev_n, prev_s = n, n_sync
+    print(f"renderer path launches over {len(outs)} frames: {render_launches}; "
+          f"host-device synchronisations flagged by frame: {sync_frames}")
+    animating = [k for k, d in per_frame if d > 0]
+    print(f"K3 launched on frames {animating}")
+    check(render_launches["scene_assembly"] > 0, "the renderer did not launch K1")
+    check(render_launches["yuv_out"] == len(outs), "the renderer did not launch K2 per frame")
+    check(len(animating) >= 20, f"K3 ran on {len(animating)} animating frames, not 20+")
+    settled = [k for k, _ in per_frame if k > FPS + 1]
+    check(settled and not set(settled) & set(animating),
+          "K3 ran on a settled frame (after the transition)")
+    for k, planes in enumerate(outs):
+        check_planes(f"renderer frame {k}", interop.planes_to_host(planes), OUT_W, OUT_H)
+    del outs
+    renderer_parity_vs_cpu(dev, 4, 256, 144, 768, 432)
+
+    # phase 7: timings (medians of ITERS runs after WARMUP)
     spec_rows = scene_assembly.spec_table(specs, dev)
     t_k1 = cuda_ms(lambda: scene_assembly.assemble_scene_planar(res, specs, params, spec_rows))
     t_k1_plain = cuda_ms(lambda: scene_assembly.assemble_scene_planar_plain(res, specs, params))
-    canvas = scene_assembly.assemble_scene_planar(res, specs, params, spec_rows)
-    t_k2 = cuda_ms(lambda: yuv_out.rgba_cm_to_yuv420(canvas))
-    t_k2_plain = cuda_ms(lambda: yuv_out.rgba_cm_to_yuv420_plain(canvas))
+    t_k2 = cuda_ms(lambda: yuv_out.rgba_cm_to_yuv420(general_canvas))
+    t_k2_plain = cuda_ms(lambda: yuv_out.rgba_cm_to_yuv420_plain(general_canvas))
     print(f"time K1 scene_assembly 4K general_4k table: kernel {t_k1:.4f} ms, "
           f"plain {t_k1_plain:.4f} ms {stamp}")
     print(f"time K2 yuv_out 4K: kernel {t_k2:.4f} ms, plain {t_k2_plain:.4f} ms {stamp}")
+    k3_times = []
+    for name, canvas, rows, kinds in k3_cases[:2]:
+        work = canvas.clone()
+        table = sdf_layers.kinds_table(kinds, dev)
+        t = cuda_ms(lambda: sdf_layers.compose_sdf_layers_planar(work, rows, kinds, table))
+        t_plain = cuda_ms(lambda: sdf_layers.compose_sdf_layers_planar_plain(canvas, rows, kinds))
+        print(f"time K3 sdf_layers 4K {name} ({len(kinds)} layers): kernel {t:.4f} ms, "
+              f"plain {t_plain:.4f} ms {stamp}")
+        k3_times.append((t, t_plain))
     t_grid = cuda_ms(lambda: grid_fn(*dev_frames))
     t_gen = cuda_ms(lambda: gen_fn(*dev_frames))
     print(f"time frame compute only, grid 16x1080p->4K: {t_grid:.4f} ms {stamp}")
@@ -339,18 +605,55 @@ def main() -> int:
     print(f"time frame with H2D+D2H copies, general_4k 16x1080p->4K: "
           f"{t_gen_io:.4f} ms {stamp}")
 
+    # the renderer: each frame of a second run of the sequence, CUDA events
+    # around render() (host planning and the uploads included), then the
+    # host time of plan() alone on stable and animating frames
+    r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, render_frames)
+    frame_ms = {}
+    for k in range(1, 3 * FPS + 1):
+        fs = FrameSet(pts=k / FPS, frames=render_frames)
+        frame_ms[k] = cuda_ms(lambda: r.render(fs), iters=1, warmup=0)
+    anim = [frame_ms[k] for k in range(3, FPS + 1)]
+    stable = [frame_ms[k] for k in range(FPS + 3, 3 * FPS + 1)]
+    t_anim, t_stable = statistics.median(anim), statistics.median(stable)
+    print(f"time renderer frame 16x1080p->4K, animating (K1+K3+K2, {len(anim)} frames): "
+          f"median {t_anim:.4f} ms, max {max(anim):.4f} ms {stamp}")
+    print(f"time renderer frame 16x1080p->4K, stable (K1+K2, {len(stable)} frames): "
+          f"median {t_stable:.4f} ms, max {max(stable):.4f} ms {stamp}")
+    print(f"time renderer frames with a new structure (first sight, build): "
+          f"{[round(frame_ms[k], 4) for k in (1, 2, FPS + 1)]} ms {stamp}")
+    prog = r._programs["out"]
+    t_plan_stable = host_ms(lambda: prog.plan(3.0, render_frames))
+    r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, render_frames)
+    prog = r._programs["out"]
+    plan_ms = []
+    for k in range(1, FPS + 1):
+        t0 = time.perf_counter()
+        prog.plan(k / FPS, render_frames)
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    t_plan_anim = statistics.median(plan_ms[2:])
+    t_pack = host_ms(lambda: _pack_frame_buf(render_frames, pin=True))
+    print(f"time renderer plan() on the host, 16 inputs + 2 overlays: stable "
+          f"{t_plan_stable:.4f} ms, animating {t_plan_anim:.4f} ms (median); of "
+          f"which packing the input planes into pinned memory {t_pack:.4f} ms")
+
     check("jax" not in sys.modules, "the port imported jax")
     kernels = [
         {"name": "scene_assembly", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/scene_assembly.cu",
          "replaces": "smelter_tpu/ops/pallas/scene_assembly.py:194",
-         "launches": launches["scene_assembly"], "max_abs_err": k1_err,
+         "launches": render_launches["scene_assembly"], "max_abs_err": k1_err,
          "ms": t_k1, "plain_ms": t_k1_plain},
         {"name": "yuv_out", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/yuv_out.cu",
          "replaces": "smelter_tpu/ops/pallas/yuv_out.py:82",
-         "launches": launches["yuv_out"], "max_abs_err": k2_err,
+         "launches": render_launches["yuv_out"], "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain},
+        {"name": "sdf_layers", "route": "cuda",
+         "source": "smelter_tpu_torch/csrc/sdf_layers.cu",
+         "replaces": "smelter_tpu/ops/pallas/sdf_layers.py:66",
+         "launches": render_launches["sdf_layers"], "max_abs_err": k3_err,
+         "ms": k3_times[0][0], "plain_ms": k3_times[0][1]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

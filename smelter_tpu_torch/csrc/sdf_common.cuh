@@ -1,10 +1,10 @@
-// Rounded-rect SDF layer math shared by the SDF kernels (K1 scene_assembly;
-// K3 sdf_layers carries the same math in the reference and will include
-// this header when it is ported).
+// Rounded-rect SDF layer math shared by the SDF kernels: K1 scene_assembly
+// and K3 sdf_layers (which calls member_layer with no masks).
 //
 // Formula order mirrors smelter_tpu/ops/pallas/scene_assembly.py
-// (_smoothstep, _sdf, _mask_alpha_rows, _blend_member) and its plain PyTorch
-// version in smelter_tpu_torch/ops/hopper/scene_assembly.py, operation for
+// (_smoothstep, _sdf, _mask_alpha_rows, _blend_member), which with no masks
+// is smelter_tpu/ops/pallas/sdf_layers.py:_layer_kernel_body, and the plain
+// PyTorch version in smelter_tpu_torch/ops/hopper/scene_assembly.py, operation for
 // operation: the library is built with -fmad=false and without fast math,
 // so each operation rounds as the plain version's does, and sqrtf, the
 // divisions and cosf/sinf are the IEEE / accurate ones.

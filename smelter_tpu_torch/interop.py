@@ -47,20 +47,23 @@ def layouts(statics: Sequence, params: Sequence, device
             [layout_params(p, device) for p in params])
 
 
-def planes_to_device(planes: Sequence[np.ndarray], device) -> Tuple[torch.Tensor, ...]:
-    """u8 numpy planes -> tensors on `device`. To a CUDA device they go
-    through pinned host memory and a non-blocking copy on the current
-    stream (PyTorch keeps each pinned buffer alive until its copy is done)."""
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`. To a CUDA device it goes through pinned
+    host memory and a non-blocking copy on the current stream, so the host
+    does not wait (PyTorch keeps the pinned buffer alive until its copy is
+    done)."""
     device = torch.device(device)
-    out = []
-    for p in planes:
-        t = torch.from_numpy(np.ascontiguousarray(p))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out.append(t)
-    return tuple(out)
+    if device.type != "cuda":
+        return t.to(device)
+    if not t.is_pinned():
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def planes_to_device(planes: Sequence[np.ndarray], device) -> Tuple[torch.Tensor, ...]:
+    """u8 numpy planes -> tensors on `device` (`upload`)."""
+    return tuple(upload(torch.from_numpy(np.ascontiguousarray(p)), device)
+                 for p in planes)
 
 
 def planes_to_host(planes: Sequence[torch.Tensor]) -> Tuple[np.ndarray, ...]:

@@ -13,9 +13,12 @@ A run of such layouts that opens the canvas paints its colour and shadow
 members in one pass of kernel K1 (`ops/hopper/scene_assembly.py`), which
 creates the canvas; the textures then blend in coalesced union groups.
 
-Layouts with animating geometry (traced position, size or rotation), the
-full-canvas colour runs of kernel K3 and the sampled full-canvas pass are
-not ported yet: they raise NotImplementedError naming their ROADMAP item.
+Colour and box-shadow layouts without a static rect (animating geometry)
+render over the full canvas: a run of unmasked ones in one pass of kernel K3
+(`ops/hopper/sdf_layers.py`), a masked one through the sampled full-canvas
+pass (`render_single_layout`). Textures with animating geometry (traced
+position, size or rotation) are not ported yet: they raise
+NotImplementedError naming their ROADMAP item.
 
 Scalar parameters are 0-d f32 tensors, as the reference's traced scalars
 are f32, so that every intermediate rounds as it does there.
@@ -38,9 +41,8 @@ from smelter_tpu_torch.ops.rotate import rotate_static_cm, rotated_bbox
 MAX_MASKS_COUNT = 20
 
 _TRACED_GEOMETRY = (
-    "layouts off the static-rect paths (animating position, size or "
-    "rotation, and the sampled full-canvas pass) are not ported yet: "
-    "ROADMAP Queue 1 item 6"
+    "texture layouts off the static-rect paths (animating position, size or "
+    "rotation) are not ported yet: ROADMAP Queue 1 item 6"
 )
 
 
@@ -169,8 +171,8 @@ def render_single_layout(
     py: torch.Tensor,  # (H, W) output pixel-center y coords
 ) -> torch.Tensor:
     """The layout's premultiplied RGBA contribution (4, H, W): the colour and
-    box-shadow branches. Sampled textures belong to the full-canvas pass,
-    not ported yet."""
+    box-shadow branches. Sampled textures (the texture branch of the
+    reference) are not ported yet."""
     if static.content not in ("color", "box_shadow"):
         raise NotImplementedError(_TRACED_GEOMETRY)
     w = params.width
@@ -446,21 +448,22 @@ def _try_scene_assembly(items, i: int, j: int, sources, h: int, w: int, clip,
     which creates the canvas; return (canvas, group_items), the rest being
     left for the group path, or None when no member routes to the kernel.
 
-    `cache`, when given, keeps the member table on the device between calls;
-    the caller passes the same dict only with the same layouts."""
+    `cache`, when given, keeps the member spec table on the device between
+    calls: the statics fix it. The parameters are packed anew on every
+    call, since a frame program's statics do not fix them (a border or
+    shadow colour may animate while the rect stays put)."""
     from smelter_tpu_torch.ops.hopper import scene_assembly as sa
 
     specs, plist, group_items = _assembly_members(items, i, j, clip)
     if not specs:
         return None
+    params = sa.pack_member_params(plist, max(s.n_masks for s in specs))
     key = ("scene_assembly", i, j, h, w)
-    if cache is not None and key in cache:
-        spec_rows, params = cache[key]
-    else:
-        params = sa.pack_member_params(plist, max(s.n_masks for s in specs))
+    spec_rows = cache.get(key) if cache is not None else None
+    if spec_rows is None:
         spec_rows = sa.spec_table(specs, params.device)
         if cache is not None:
-            cache[key] = (spec_rows, params)
+            cache[key] = spec_rows
     canvas = sa.assemble_scene_planar((w, h), specs, params, spec_rows)
     return canvas, group_items
 
@@ -529,12 +532,17 @@ def compose_layouts(
     Consecutive region-local layouts whose footprints overlap (a tile's
     shadow + backdrop + content) coalesce into one union-region blend chain:
     one canvas region read and one write per group instead of one per
-    layout — premultiplied OVER is associative, so grouping is exact.
+    layout — premultiplied OVER is associative, so grouping is exact. A run
+    of unmasked colour/box-shadow layouts without a static rect blends in
+    one pass of kernel K3; a masked one takes the sampled full-canvas pass.
 
-    `cache`: a dict the caller owns that keeps the host-built constants of
-    these layouts (the K1 member table) on the device between calls; pass
-    the same dict only with the same statics and params. `device`: where
-    the canvas lives; defaults to the device of the first layout's params."""
+    `cache`: a dict the caller owns that keeps on the device what the
+    statics fix (K1's member spec table, K3's kinds table); pass the same
+    dict only with the same statics. Parameters are never cached.
+    `device`: where the canvas lives; defaults to the device of the first
+    layout's params."""
+    from smelter_tpu_torch.ops.hopper import sdf_layers
+
     w, h = resolution
     if device is None:
         device = params[0].top.device if params else torch.device("cpu")
@@ -542,6 +550,7 @@ def compose_layouts(
     if background is not None:
         canvas = background.permute(2, 0, 1).clone(memory_format=torch.contiguous_format)
     items = list(zip(statics, params))
+    px = py = None
 
     def _local(st: LayoutStatic) -> bool:
         if st.traced_position or st.traced_size_buf is not None:
@@ -552,36 +561,62 @@ def compose_layouts(
             return st.static_rotation is not None
         return True
 
+    def _zeros():
+        return torch.zeros((4, h, w), dtype=torch.float32, device=device)
+
     _clip = canvas_clipper(h, w)
     i = 0
     while i < len(items):
-        st, _ = items[i]
-        if not _local(st):
-            if (st.static_rect is None and not st.traced_position
-                    and st.traced_size_buf is None
-                    and st.content in ("color", "box_shadow")
-                    and st.n_masks == 0):
-                raise NotImplementedError(
-                    "full-canvas colour/box-shadow runs (kernel K3) are not "
-                    "ported yet: ROADMAP Queue 2, K3"
-                )
-            raise NotImplementedError(_TRACED_GEOMETRY)
-        run_end = i
-        while run_end < len(items) and _local(items[run_end][0]):
-            run_end += 1
-        run_items = items[i:run_end]
-        if i == 0 and background is None:
-            # canvas-opening run: K1 paints the SDF members (background,
-            # colour backdrops, shadows) and creates the canvas; the
-            # textures then blend through the group path
-            assembled = _try_scene_assembly(items, i, run_end, sources, h, w,
-                                            _clip, cache)
-            if assembled is not None:
-                canvas, run_items = assembled
+        st, p = items[i]
+        if _local(st):
+            run_end = i
+            while run_end < len(items) and _local(items[run_end][0]):
+                run_end += 1
+            run_items = items[i:run_end]
+            if i == 0 and background is None:
+                # canvas-opening run: K1 paints the SDF members (background,
+                # colour backdrops, shadows) and creates the canvas; the
+                # textures then blend through the group path
+                assembled = _try_scene_assembly(items, i, run_end, sources, h, w,
+                                                _clip, cache)
+                if assembled is not None:
+                    canvas, run_items = assembled
+            if canvas is None:
+                canvas = _zeros()
+            canvas = _assemble_local_run(canvas, run_items, sources, h, w, _clip)
+            i = run_end
+            continue
         if canvas is None:
-            canvas = torch.zeros((4, h, w), dtype=torch.float32, device=device)
-        canvas = _assemble_local_run(canvas, run_items, sources, h, w, _clip)
-        i = run_end
+            canvas = _zeros()
+        if st.content == "texture":
+            raise NotImplementedError(_TRACED_GEOMETRY)
+        # a run of full-canvas unmasked colour/box-shadow layers: one K3 pass
+        # (one canvas read and write for the whole run)
+        j = i
+        while (j < len(items) and items[j][0].static_rect is None
+               and items[j][0].content in ("color", "box_shadow")
+               and items[j][0].n_masks == 0):
+            j += 1
+        if j > i:
+            kinds = tuple((s_.content, s_.has_border, s_.has_rotation)
+                          for s_, _ in items[i:j])
+            key = ("sdf_layers", i, j)
+            table = cache.get(key) if cache is not None else None
+            if table is None and canvas.device.type == "cuda":
+                table = sdf_layers.kinds_table(kinds, canvas.device)
+                if cache is not None:
+                    cache[key] = table
+            rows = sdf_layers.pack_layer_params([p_ for _, p_ in items[i:j]])
+            # K3 updates a CUDA canvas in place: nothing else holds it here
+            canvas = sdf_layers.compose_sdf_layers_planar(
+                canvas.contiguous(), rows, kinds, table)
+            i = j
+            continue
+        # a masked colour/box-shadow layer: the sampled full-canvas pass
+        if px is None:
+            px, py = _pixel_centers(0, 0, h, w, device)
+        canvas = _over(render_single_layout(st, p, sources, px, py), canvas)
+        i += 1
     if canvas is None:
-        canvas = torch.zeros((4, h, w), dtype=torch.float32, device=device)
+        canvas = _zeros()
     return canvas if planar else canvas.permute(1, 2, 0)

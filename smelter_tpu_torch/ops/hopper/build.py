@@ -90,6 +90,8 @@ def library() -> ctypes.CDLL:
     lib.smelter_yuv420_out.restype = i
     lib.smelter_scene_assembly.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.smelter_scene_assembly.restype = i
+    lib.smelter_sdf_layers.argtypes = [p, p, p, i, i, i, p]
+    lib.smelter_sdf_layers.restype = i
     lib.smelter_cuda_error_string.argtypes = [i]
     lib.smelter_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from smelter_tpu_torch.interop import upload
 from smelter_tpu_torch.ops.compose import rounded_rect_sdf, smoothstep
 from smelter_tpu_torch.ops.hopper import build
 
@@ -63,7 +64,7 @@ def spec_table(specs: Sequence[MemberSpec], device) -> torch.Tensor:
         fill = s.fill if s.fill is not None else (0, 0, 0, 0)
         rows.append([_KINDS[s.kind], int(s.has_border), int(s.has_rotation),
                      s.n_masks, bits, *s.region, *fill])
-    return torch.tensor(rows, dtype=torch.int32).reshape(-1, SPEC_W).to(device)
+    return upload(torch.tensor(rows, dtype=torch.int32).reshape(-1, SPEC_W), device)
 
 
 def pack_member_params(params_list, max_masks: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Separable Lanczos3 / bilinear resizing as dense per-axis GEMMs.
 
-Port of `smelter_tpu/ops/resample.py` (weights and `resize_matmul`). The
+Port of `smelter_tpu/ops/resample.py` (weights, `resize_matmul`,
+`box_downsample_2x` and `build_mips`). The
 weight matrices are numpy, copied from the reference line for line so both
 packages build identical matrices; the resize is two `torch.matmul` calls.
 
@@ -132,3 +133,23 @@ def resize_matmul(
         # (..., h, W) x (W, out_w) -> (..., h, out_w)
         x = to_bf16_values(torch.matmul(x, ww.t()))
     return x
+
+
+def box_downsample_2x(img: torch.Tensor) -> torch.Tensor:
+    """Mean-pool by 2 along H and W (first two axes). Odd sizes drop the last
+    row/col, like a power-of-2 box reduce."""
+    h, w = img.shape[0] // 2 * 2, img.shape[1] // 2 * 2
+    img = img[:h, :w]
+    return img.reshape(h // 2, 2, w // 2, 2, *img.shape[2:]).mean(dim=(1, 3))
+
+
+def build_mips(img: torch.Tensor, levels: int) -> list:
+    """Mip pyramid [img, 1/2, 1/4, ...] via repeated 2x box reduce. (The
+    region-local paths read level 0 only; the sampled texture paths that
+    read the others are not ported yet.)"""
+    mips = [img]
+    for _ in range(levels - 1):
+        if min(mips[-1].shape[0], mips[-1].shape[1]) < 2:
+            break
+        mips.append(box_downsample_2x(mips[-1]))
+    return mips

@@ -1,0 +1,209 @@
+"""Renderer facade, ported from `smelter_tpu/render/renderer.py`.
+
+Owns the scene state and one frame program per output, on one device. The
+hot call is ``render(FrameSet) -> FrameSet``; `update_scene` swaps scenes
+with transition support. Output frame data are tensors on the device: u8
+(y, u, v) planes for PLANAR_YUV420, an (H, W, 4) u8 tensor for RGBA.
+
+Ported: scenes of View, Tiles, Rescaler and InputStream components with a
+layout root, RGBA and PLANAR_YUV420 outputs. `update_scene` raises
+NotImplementedError for what is not ported yet (Text, Image, Shader and
+WebView components: ROADMAP Queue 1 item 7; other output formats or a bare
+InputStream root: item 1). The image store, text renderer and web registry
+are built on first use, so a renderer of supported scenes never imports PIL.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Dict, List
+
+import torch
+
+from smelter_tpu.core.types import Frame, FrameSet, Framerate, PixelFormat, Resolution
+from smelter_tpu.scene import components as comp
+from smelter_tpu.scene.scene_state import OutputScene, SceneState
+from smelter_tpu.utils import tracing
+from smelter_tpu_torch.render.program import (
+    SUPPORTED_OUTPUTS,
+    UNPORTED_NODES,
+    OutputProgram,
+)
+
+
+@dataclass
+class RendererOptions:
+    framerate: Framerate = Framerate(30)
+    stream_fallback_timeout: float = 0.5  # seconds
+    # Accepted for the reference's API. A build here is host-only (no
+    # compile), so a new scene structure builds synchronously within its
+    # first frame, and the reference's freeze-frame (showing the last frame
+    # while a compile runs in the background) never has a frame to hold.
+    async_compile: bool = False
+
+
+class Renderer:
+    """Thread-safe renderer entry point; every tensor lives on `device`."""
+
+    def __init__(self, options: RendererOptions = RendererOptions(),
+                 device="cpu") -> None:
+        self._lock = threading.Lock()
+        self.options = options
+        self.device = torch.device(device)
+        self.scene = SceneState()
+        self._images = None
+        self._text = None
+        self._web = None
+        self._inputs: Dict[str, float] = {}  # input_id -> last frame pts
+        self._last_frames: Dict[str, Frame] = {}
+        self._programs: Dict[str, OutputProgram] = {}
+        self._output_formats: Dict[str, PixelFormat] = {}
+
+    # -- host registries, built on first use ----------------------------------
+
+    @property
+    def images(self):
+        if self._images is None:
+            from smelter_tpu.render.image import ImageStore
+
+            self._images = ImageStore()
+        return self._images
+
+    @property
+    def text(self):
+        if self._text is None:
+            from smelter_tpu.render.text import TextRenderer
+
+            self._text = TextRenderer()
+        return self._text
+
+    @property
+    def web(self):
+        if self._web is None:
+            from smelter_tpu.render.web import WebRendererRegistry
+
+            self._web = WebRendererRegistry()
+        return self._web
+
+    # -- registration ----------------------------------------------------------
+
+    def register_input(self, input_id: str) -> None:
+        with self._lock:
+            self._inputs[input_id] = -1.0
+
+    def unregister_input(self, input_id: str) -> None:
+        with self._lock:
+            self._inputs.pop(input_id, None)
+            self._last_frames.pop(input_id, None)
+
+    # -- scene -----------------------------------------------------------------
+
+    def update_scene(
+        self,
+        output_id: str,
+        root: comp.Component,
+        resolution: Resolution,
+        output_format: PixelFormat = PixelFormat.PLANAR_YUV420,
+    ) -> None:
+        with self._lock:
+            self._validate_components(root, output_format)
+            node = self.scene.update_scene(
+                OutputScene(output_id, root, resolution),
+                text_measurer=lambda t: self.text.measure(t),
+                image_store=lambda i: self.images.natural_size(i),
+                web_size=self._web_size,
+            )
+            self._programs[output_id] = OutputProgram(
+                node.node, resolution, output_format, self.device,
+            )
+            self._output_formats[output_id] = output_format
+
+    def unregister_output(self, output_id: str) -> None:
+        with self._lock:
+            self.scene.unregister_output(output_id)
+            self._programs.pop(output_id, None)
+            self._output_formats.pop(output_id, None)
+
+    def _validate_components(self, root: comp.Component,
+                             output_format: PixelFormat) -> None:
+        if output_format not in SUPPORTED_OUTPUTS:
+            raise NotImplementedError(
+                f"output format {output_format.value} is not ported yet: "
+                "ROADMAP Queue 1 item 1")
+        if not isinstance(root, (comp.View, comp.Tiles, comp.Rescaler)):
+            raise NotImplementedError(
+                f"a {type(root).__name__} scene root is not ported yet: the "
+                "root must be a View, Tiles or Rescaler (ROADMAP Queue 1 "
+                "items 1 and 7)")
+
+        def visit(c: comp.Component):
+            if isinstance(c, (comp.Text, comp.Image, comp.Shader, comp.WebView)):
+                raise NotImplementedError(f"{type(c).__name__}: {UNPORTED_NODES}")
+            if isinstance(c, comp.InputStream) and c.input_id not in self._inputs:
+                raise ValueError(f"input {c.input_id!r} not registered")
+            for ch in _children(c):
+                visit(ch)
+
+        visit(root)
+
+    def close(self) -> None:
+        """Release the web renderer sidecars, if any were started."""
+        if self._web is not None:
+            self._web.close_all()
+
+    def _web_size(self, instance_id: str) -> tuple:
+        inst = self.web.get(instance_id)
+        if inst is None:
+            return (0.0, 0.0)
+        w, h = inst.spec.resolution
+        return (float(w), float(h))
+
+    # -- hot path ----------------------------------------------------------------
+
+    def render(self, frame_set: FrameSet) -> FrameSet:
+        """Compose all outputs for this tick. Missing inputs fall back to
+        their last frame until `stream_fallback_timeout`, then render absent
+        (reference render_loop.rs:29-32). Returns without waiting for the
+        device."""
+        with tracing.span("render.frame"), self._lock:
+            pts = frame_set.pts
+            # refresh the last-frame cache; skip inputs unregistered while
+            # this frameset was in flight, so that a removed input does not
+            # re-enter the cache
+            for iid, frame in frame_set.frames.items():
+                if iid not in self._inputs:
+                    continue
+                self._last_frames[iid] = frame
+                self._inputs[iid] = pts
+            frames: Dict[str, Frame] = {}
+            for iid, last in list(self._last_frames.items()):
+                last_seen = self._inputs.get(iid, -1.0)
+                if pts - last_seen <= self.options.stream_fallback_timeout:
+                    frames[iid] = last
+                else:
+                    del self._last_frames[iid]
+
+            input_resolutions = {
+                iid: f.resolution for iid, f in frames.items()
+            }
+            self.scene.register_render_event(pts, input_resolutions)
+
+            out = FrameSet(pts=pts)
+            for output_id, program in self._programs.items():
+                frame = Frame(
+                    data=program.render(pts, frames),
+                    format=self._output_formats[output_id],
+                    resolution=program.resolution,
+                    pts=pts,
+                )
+                out.frames[output_id] = frame
+            return out
+
+
+def _children(c: comp.Component) -> List[comp.Component]:
+    if isinstance(c, (comp.View, comp.Tiles, comp.Shader, comp.WebView)):
+        return c.children
+    if isinstance(c, comp.Rescaler):
+        return [c.child]
+    return []

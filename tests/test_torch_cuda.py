@@ -5,9 +5,9 @@ card. These need a CUDA device and nvcc, so they skip elsewhere; on the card:
 
 (This file imports no JAX: the machine with the card need not have it.)
 
-Tolerances: K2 <= 1 u8 LSB per plane; K1 atol 2e-5 on the f32 canvas. Both
-kernels are built without FMA contraction and round as their plain versions
-do, so in practice they agree exactly.
+Tolerances: K2 <= 1 u8 LSB per plane; K1 and K3 atol 2e-5 on the f32 canvas.
+The kernels are built without FMA contraction and round as their plain
+versions do, so in practice they agree exactly.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 
 from smelter_tpu_torch import interop
 from smelter_tpu_torch.ops import compose
-from smelter_tpu_torch.ops.hopper import scene_assembly, yuv_out
+from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
 
 pytestmark = pytest.mark.cuda
 
@@ -93,3 +93,47 @@ def test_scene_assembly_kernel_matches_plain(cuda):
     assert scene_assembly.LAUNCHES == before + 1
     ref = scene_assembly.assemble_scene_planar_plain((w, h), specs, params)
     assert float((got - ref).abs().max()) <= 2e-5
+
+
+def _layer_rows(dev, n, h, w, seed):
+    """(n, 19) K3 rows and kinds: colour, bordered and shadow layers, every
+    third one rotated, scattered over (and past the edges of) an h x w canvas."""
+    gen = torch.Generator().manual_seed(seed)
+    rows, kinds = [], []
+    for i in range(n):
+        u = torch.rand(19, generator=gen)
+        content = ("color", "color", "box_shadow")[i % 3]
+        has_border = content == "color" and i % 2 == 1
+        kinds.append((content, has_border, i % 3 == 1))
+        lw, lh = 30 + u[2] * w * 0.6, 20 + u[3] * h * 0.6
+        rows.append([
+            u[0] * h - 10, u[1] * w - 10, lw, lh, u[4] * 360 - 180,
+            *(u[5:9] * min(lw, lh) * 0.4), *u[9:12], 0.3 + 0.7 * u[12],
+            1 + u[13] * 8, *u[14:18], u[18] * 30,
+        ])
+    return torch.tensor(rows, dtype=torch.float32, device=dev), tuple(kinds)
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (4, 257, 511), (16, 200, 520)])
+def test_sdf_layers_kernel_matches_plain(cuda, n, h, w):
+    params, kinds = _layer_rows(cuda, n, h, w, seed=n)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    canvas = torch.rand((4, h, w), generator=gen, device=cuda)
+    ref = sdf_layers.compose_sdf_layers_planar_plain(canvas, params, kinds)
+    before = sdf_layers.LAUNCHES
+    got = sdf_layers.compose_sdf_layers_planar(canvas, params, kinds)
+    torch.cuda.synchronize()
+    assert sdf_layers.LAUNCHES == before + 1
+    assert got.data_ptr() == canvas.data_ptr()  # in place
+    assert float((got - ref).abs().max()) <= 2e-5
+
+
+def test_sdf_layers_kernel_refuses_bad_tables(cuda):
+    params, kinds = _layer_rows(cuda, 2, 64, 64, seed=0)
+    canvas = torch.zeros((4, 64, 64), device=cuda)
+    with pytest.raises(ValueError):
+        sdf_layers.compose_sdf_layers_planar(canvas, params[:, :18].contiguous(), kinds)
+    with pytest.raises(ValueError):
+        sdf_layers.compose_sdf_layers_planar(canvas[:, :, ::2], params, kinds)
+    with pytest.raises(ValueError):
+        sdf_layers.compose_sdf_layers_planar(canvas, params.cpu(), kinds)

@@ -124,3 +124,16 @@ def test_downsample_chroma_2x2_valid(shape):
     got = tcc.downsample_chroma_2x2(torch.from_numpy(plane)).numpy()
     assert got.shape == (shape[0] // 2, shape[1] // 2)
     np.testing.assert_allclose(got, ref, atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("shape,levels", [((64, 96, 4), 4), ((37, 50, 4), 3), ((9, 9, 4), 5)])
+def test_build_mips_matches_jax(shape, levels):
+    """`build_mips` (and its `box_downsample_2x`) against the JAX package's:
+    the same levels, odd sizes dropping the last row and column, atol 1e-6
+    (mean of four f32 values in another summation order)."""
+    img = np.random.RandomState(5).rand(*shape).astype(np.float32)
+    ref = jrs.build_mips(jnp.asarray(img), levels)
+    got = trs.build_mips(torch.from_numpy(img), levels)
+    assert [tuple(m.shape) for m in got] == [tuple(m.shape) for m in ref]
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)

@@ -197,9 +197,9 @@ def test_member_table_is_cached_per_layouts():
     st, pr, _ = _port(statics, params, None)
     cache: dict = {}
     a = tcomp.compose_layouts(res, st, pr, [], planar=True, cache=cache)
-    (spec_rows, table), = cache.values()
+    # the cache keeps the spec table only: the parameters are packed anew
+    (spec_rows,) = cache.values()
     assert spec_rows.dtype == torch.int32 and spec_rows.shape == (2, sa.SPEC_W)
-    assert table.shape == (2, sa.PARAMS_BASE + 2 * sa.MASK_W)
     b = tcomp.compose_layouts(res, st, pr, [], planar=True, cache=cache)
     assert torch.equal(a, b) and len(cache) == 1
 
@@ -214,7 +214,8 @@ def test_no_layouts_give_a_transparent_canvas():
                        traced_position=True),
     jcomp.LayoutStatic(content="texture", traced_size_buf=(64, 64)),
     jcomp.LayoutStatic(content="texture"),
-    jcomp.LayoutStatic(content="color"),
+    jcomp.LayoutStatic(content="texture", static_rect=(0, 0, 8, 8),
+                       has_rotation=True, traced_rotation_q=0),
 ])
 def test_unported_paths_raise(static):
     p = _params(width=8, height=8, color=(1, 0, 0, 1))
