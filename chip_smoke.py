@@ -13,12 +13,17 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
   3. holds kernel K2 (YUV420 output) against its plain PyTorch version on
      the card: <= 1 u8 LSB on every plane;
   4. holds kernel K1 (scene assembly) against its plain version on the card,
-     on the general_4k member table at 4K and on a mixed-member case with
-     partial tiles, rotation, border, shadow and masks, and kernel K3 (SDF
-     layers) on the renderer scene's four overlay layers over the
-     general_4k canvas at 4K, on a 16-layer table with rotation, borders and
-     shadows at 4K, and at 257 x 511: atol 2e-5 on the f32 canvas and <= 1
-     LSB after u8 quantisation;
+     on the general_4k and renderer member tables at 4K, a mixed-member case
+     with partial tiles, rotation, border, shadow and masks, and the
+     tile-class edge cases (edges on tile boundaries +-1 px, a radius past
+     half the size, blur 0, rotations of 45 and 90 degrees, width 0, an
+     opaque interior member over others) at 256 x 512 and 257 x 511; and
+     kernel K3 (SDF layers) on the renderer scene's four overlay layers over
+     the general_4k canvas at 4K, a 16-layer table with rotation, borders and
+     shadows at 4K, a 4-layer table at 257 x 511, the same edge cases, and
+     layers all off the canvas (which must stay bit-identical): max abs err
+     0 on the f32 canvas (both kernels repeat their plain version's
+     operations);
   5. drives the flagship builders, 16 x 1080p YUV420 -> one 4K YUV420 frame
      (the Tiles grid, then general_4k), host frames going through pinned
      memory to the card and the planes coming back; checks shapes and
@@ -31,9 +36,11 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      checks the planes, that K1 and K2 ran, that K3 ran on every animating
      frame and on no settled one, and that the same sequence at 4 x 256x144
      -> 768x432 matches the port run on the CPU;
-  7. times the kernels against their plain versions and the whole frames,
-     with CUDA events (medians), and the host time of the renderer's
-     per-frame planning;
+  7. times the kernels (CUDA events around 50 launches queued back to
+     back, one synchronised call, and the device time torch.profiler
+     reads for the kernel alone) against their plain versions and
+     their bounds (bytes and operations at the H100 SXM's peaks), the whole
+     frames, and the host time of the renderer's per-frame planning;
 and prints a JSON line of the kernels, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
@@ -58,6 +65,12 @@ IN_W, IN_H = 1920, 1080
 OUT_W, OUT_H = 3840, 2160
 FPS = 30
 N_RENDER_FRAMES = 40  # pts k / FPS for k = 1..40 after the scene update
+B2B_LAUNCHES = 50  # kernel calls queued back to back per timing
+# H100 SXM peaks (NVIDIA's data sheet, at a 700 W power limit): HBM3 rate
+# and f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BLEND_OPS = 9  # f32 operations of one premultiplied OVER of one pixel
 
 
 class SmokeFailure(Exception):
@@ -79,7 +92,8 @@ def nvidia_smi() -> str:
 
 def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Median wall time on the card of one call, in ms: CUDA events around
-    each call, synchronised after each (host gaps inside a call count)."""
+    each call, synchronised after each (host gaps inside a call count). The
+    "call" time of a kernel."""
     import torch
 
     for _ in range(warmup):
@@ -95,6 +109,57 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, n: int = B2B_LAUNCHES, reps: int = 5, warmup: int = WARMUP) -> float:
+    """A kernel's time on the card, in ms: CUDA events around `n` calls
+    queued back to back, divided by `n` (median of `reps` runs). The host
+    enqueues the next call while the card runs the last, so the wrapper's
+    host work stays out of the time as long as it is shorter than the
+    kernel."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, n: int = B2B_LAUNCHES):
+    """Mean device time in ms of the CUDA kernel whose name holds `kernel`,
+    over `n` calls of `fn`, from torch.profiler's CUDA trace (no host work
+    counts); None when the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key and e.count]
+    if not rows:
+        return None
+    return sum(e.device_time_total for e in rows) / sum(e.count for e in rows) / 1e3
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move `n_bytes` through device memory and do `n_ops` f32 operations
+    outside the tensor cores, at the H100 SXM's published peaks."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def lsb_stats(ref_planes, got_planes):
@@ -169,7 +234,7 @@ def _params(dev, top=0.0, left=0.0, width=0.0, height=0.0, rotation=0.0,
 def k1_tables(dev):
     """(name, (w, h), specs, params) K1 cases: the general_4k member table at
     4K as compose routes it, and a 200 x 520 mixed-member case."""
-    from smelter_tpu.core.types import Resolution
+    from smelter_tpu_torch.core.types import Resolution
     from smelter_tpu_torch.ops.compose import LayoutStatic, _assembly_members, canvas_clipper
     from smelter_tpu_torch.ops.hopper import scene_assembly as sa
     from smelter_tpu_torch.parallel.flagship import _general_layouts
@@ -218,6 +283,72 @@ def k1_tables(dev):
     return cases
 
 
+def edge_rows(h, w):
+    """(rows, kinds) of layers at the edges of the tile classes: rect edges on
+    32-px tile boundaries and 1 px to either side, a radius past half the
+    height (a broken premise: edge everywhere), blur 0, rotations of 45 and
+    90 degrees, and a width of 0; sized for a canvas of about 256 x 512."""
+    t = 32
+    rows, kinds = [], []
+
+    def add(kind, top, left, width, height, rot=0.0, radius=0.0,
+            color=(0.8, 0.3, 0.2, 0.9), border=0.0, blur=0.0):
+        rows.append([top, left, width, height, rot, *[radius] * 4, *color, border,
+                     1.0, 1.0, 1.0, 0.95, blur])
+        kinds.append(kind)
+
+    for d in (-1, 0, 1):
+        add(("color", False, False), t + d, 2 * t + d, 3 * t - d, 2 * t + d, radius=4.0)
+        add(("color", True, False), 2 * t - d, t + d, 2 * t, 3 * t, radius=6.0, border=3.0)
+        add(("box_shadow", False, False), t + d, 9 * t + d, 3 * t, 2 * t + d,
+            radius=8.0, color=(0.0, 0.0, 0.0, 0.5))
+    add(("color", False, False), 10.0, 10.0, 100.0, 60.0, radius=45.0)
+    add(("box_shadow", False, False), 40.0, 200.0, 120.0, 80.0, radius=10.0,
+        color=(0.1, 0.0, 0.2, 0.7))
+    add(("color", False, True), 50.0, 100.0, 160.0, 90.0, rot=45.0, radius=12.0)
+    add(("color", True, True), 120.0, 300.0, 120.0, 60.0, rot=90.0, radius=6.0,
+        border=4.0)
+    add(("box_shadow", False, True), 60.0, 380.0, 90.0, 90.0, rot=45.0, blur=12.0,
+        color=(0.0, 0.0, 0.0, 0.6))
+    add(("color", False, False), 70.0, 20.0, 0.0, 50.0)
+    return rows, tuple(kinds)
+
+
+def k1_edge_cases(dev):
+    """K1 cases of the tile classes: a background, then the edge rows, at
+    256 x 512 (float4 stores) and 257 x 511 (the scalar path); and an
+    opaque interior member (alpha 1, covering whole tiles) over translucent
+    ones, with members above it."""
+    import torch
+
+    from smelter_tpu_torch.ops.hopper.scene_assembly import MemberSpec
+
+    cases = []
+    for h, w in ((256, 512), (257, 511)):
+        rows, kinds = edge_rows(h, w)
+        rows = [[0.0, 0.0, w, h, 0.0, 0, 0, 0, 0, 0.1, 0.1, 0.15, 1.0, 0, 0, 0, 0, 0, 0]] + rows
+        kinds = (("color", False, False),) + kinds
+        specs = [MemberSpec(c, b, r, 0, (), (0, 0, h, w)) for c, b, r in kinds]
+        cases.append((f"edge cases {w}x{h}", (w, h), specs,
+                      torch.tensor(rows, dtype=torch.float32, device=dev)))
+    h, w = 256, 512
+    # the edge rows but the one that breaks a premise (a member that does
+    # keeps every member above it from starting a tile over)
+    rows, kinds = zip(*[(r, k) for r, k in zip(*edge_rows(h, w))
+                        if r[5] <= min(r[2], r[3]) * 0.5])
+    rows, kinds = list(rows), tuple(kinds)
+    occluder = [[20.0, 40.0, 400.0, 200.0, 0.0, *[10.0] * 4, 0.3, 0.6, 0.9, 1.0,
+                 0.0, 0, 0, 0, 0, 0.0]]
+    on_top = [[100.0, 150.0, 200.0, 60.0, 0.0, *[8.0] * 4, 0.9, 0.9, 0.1, 0.5,
+               0.0, 0, 0, 0, 0, 0.0]]
+    rows = rows + occluder + on_top
+    kinds = kinds + (("color", False, False),) * 2
+    specs = [MemberSpec(c, b, r, 0, (), (0, 0, h, w)) for c, b, r in kinds]
+    cases.append(("opaque interior member over others 512x256", (w, h), specs,
+                  torch.tensor(rows, dtype=torch.float32, device=dev)))
+    return cases
+
+
 def k1_checks(sa, cases):
     import torch
 
@@ -231,8 +362,7 @@ def k1_checks(sa, cases):
         lsb = int((quantized(got) - quantized(ref)).abs().max())
         print(f"K1 vs plain {name} ({len(specs)} members, {res[0]}x{res[1]}): "
               f"max abs err {err:.3g}, max u8 diff {lsb} LSB")
-        check(err <= 2e-5, f"K1 {name}: f32 canvas off by {err}")
-        check(lsb <= 1, f"K1 {name}: u8 canvas off by {lsb} LSB")
+        check(err == 0.0, f"K1 {name}: f32 canvas off by {err}")
         worst = max(worst, err)
     return worst
 
@@ -254,7 +384,7 @@ def parity_vs_cpu(builder, n, in_w, in_h, out_w, out_h, dev, label):
     on the other side of a tie)."""
     import torch
 
-    from smelter_tpu.core.types import Resolution
+    from smelter_tpu_torch.core.types import Resolution
     from smelter_tpu_torch import interop
 
     frames = host_frames(n, in_w, in_h, seed=1)
@@ -297,9 +427,9 @@ def renderer_scene(out_w, out_h, n_inputs, stage):
     the highlight to the last tile and slides the banner right. Sizes are
     those of a 3840-wide output, scaled to `out_w`; both overlays (and their
     shadows) stay inside the canvas, so they carry no masks."""
-    from smelter_tpu.core.types import RGBAColor
-    from smelter_tpu.scene import components as comp
-    from smelter_tpu.scene.layout_types import BorderRadius, BoxShadow
+    from smelter_tpu_torch.core.types import RGBAColor
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.scene.layout_types import BorderRadius, BoxShadow
 
     s = out_w / 3840.0
     cols = int(round(n_inputs ** 0.5))
@@ -337,7 +467,7 @@ def renderer_scene(out_w, out_h, n_inputs, stage):
 
 def renderer_inputs(n, in_w, in_h, seed):
     """n host planar YUV420 input frames (u8 numpy planes)."""
-    from smelter_tpu.core.types import Frame, PixelFormat, Resolution
+    from smelter_tpu_torch.core.types import Frame, PixelFormat, Resolution
 
     y, u, v = host_frames(n, in_w, in_h, seed)
     return {f"input_{i}": Frame(data=(y[i], u[i], v[i]),
@@ -349,7 +479,7 @@ def renderer_inputs(n, in_w, in_h, seed):
 def start_transition(dev, n, in_w, in_h, out_w, out_h, frames):
     """A renderer on `dev` that has rendered pts 0 of the scene at stage 0
     and then been given stage 1: the transition starts at pts 0."""
-    from smelter_tpu.core.types import FrameSet, PixelFormat, Resolution
+    from smelter_tpu_torch.core.types import FrameSet, PixelFormat, Resolution
     from smelter_tpu_torch.render.renderer import Renderer
 
     r = Renderer(device=dev)
@@ -366,7 +496,7 @@ def render_transition(dev, n, in_w, in_h, out_w, out_h, frames, on_frame=None):
     """Render pts 0 (stage 0), update the scene to stage 1, render pts k/FPS
     for k = 1..N_RENDER_FRAMES. Returns the frames' planes, on `dev`;
     `on_frame(k, planes)` is called after each frame."""
-    from smelter_tpu.core.types import FrameSet
+    from smelter_tpu_torch.core.types import FrameSet
 
     r, first = start_transition(dev, n, in_w, in_h, out_w, out_h, frames)
     outs = [first]
@@ -379,17 +509,31 @@ def render_transition(dev, n, in_w, in_h, out_w, out_h, frames, on_frame=None):
     return outs
 
 
-def overlay_k3_run(dev, frames):
-    """The K3 run of the renderer scene at 4K on its first animating frame
-    (pts 2/FPS), as the frame program hands it to the kernel: (rows, kinds)."""
+def renderer_kernel_runs(dev, frames):
+    """The kernel runs of the renderer scene at 4K, as the frame program
+    hands them to the kernels: K1's on the frame at pts 1/FPS, as a K1 case
+    (name, (w, h), specs, params), and K3's on the first animating frame
+    (pts 2/FPS), as (rows, kinds)."""
     import torch
 
-    from smelter_tpu.core.types import FrameSet
-    from smelter_tpu_torch.ops.hopper import sdf_layers
+    from smelter_tpu_torch.core.types import FrameSet
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers
     from smelter_tpu_torch.render.program import _unpack_layout_params
 
     r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames)
-    r.render(FrameSet(pts=1 / FPS, frames=frames))
+    k1_runs = []
+    launch = scene_assembly.assemble_scene_planar
+
+    def capture(resolution, specs, params, spec_rows=None):
+        k1_runs.append(("renderer frame table", resolution, specs, params.clone()))
+        return launch(resolution, specs, params, spec_rows)
+
+    scene_assembly.assemble_scene_planar = capture
+    try:
+        r.render(FrameSet(pts=1 / FPS, frames=frames))
+    finally:
+        scene_assembly.assemble_scene_planar = launch
+    check(len(k1_runs) == 1, f"a renderer frame ran K1 {len(k1_runs)} times, not once")
     prog = r._programs["out"]
     key, plan = prog.plan(2 / FPS, frames)
     nid = prog.node_id(prog.root)
@@ -402,12 +546,13 @@ def overlay_k3_run(dev, frames):
                                 for st, _ in run),
           f"the animating renderer frame has no 4-layer K3 run: {[st for st, _ in run]}")
     kinds = tuple((st.content, st.has_border, st.has_rotation) for st, _ in run)
-    return sdf_layers.pack_layer_params([p for _, p in run]), kinds
+    return k1_runs[0], sdf_layers.pack_layer_params([p for _, p in run]), kinds
 
 
 def k3_checks(sl, cases):
     """K3 against its plain version on each (name, canvas, rows, kinds);
-    the kernel works in place, so it gets a copy of the canvas."""
+    the kernel works in place, so it gets a copy of the canvas. Layers that
+    all miss the canvas must leave it bit-identical."""
     import torch
 
     worst = 0.0
@@ -420,8 +565,9 @@ def k3_checks(sl, cases):
         lsb = int((quantized(got) - quantized(ref)).abs().max())
         print(f"K3 vs plain {name} ({len(kinds)} layers, {canvas.shape[2]}x"
               f"{canvas.shape[1]}): max abs err {err:.3g}, max u8 diff {lsb} LSB")
-        check(err <= 2e-5, f"K3 {name}: f32 canvas off by {err}")
-        check(lsb <= 1, f"K3 {name}: u8 canvas off by {lsb} LSB")
+        check(err == 0.0, f"K3 {name}: f32 canvas off by {err}")
+        if "off the canvas" in name:
+            check(torch.equal(got, canvas), f"K3 {name}: the canvas changed")
         worst = max(worst, err)
     return worst
 
@@ -464,9 +610,10 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 1
 
-    from smelter_tpu.core.types import FrameSet, Resolution
+    from smelter_tpu_torch.core.types import FrameSet, Resolution
     from smelter_tpu_torch import interop
-    from smelter_tpu_torch.ops.hopper import build, scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.ops.hopper import build, scene_assembly, sdf_layers, tile_class, yuv_out
+    from smelter_tpu_torch.ops.hopper.scene_assembly import MemberSpec
     from smelter_tpu_torch.parallel.flagship import (
         make_flagship_compose,
         make_flagship_general_compose,
@@ -492,19 +639,27 @@ def main() -> int:
 
     # phase 3 and 4: each kernel against its plain version on the card
     k2_err = k2_checks(yuv_out, dev)
+    render_frames = renderer_inputs(N_INPUTS, IN_W, IN_H, seed=0)
+    renderer_k1, overlay_rows, overlay_kinds = renderer_kernel_runs(dev, render_frames)
     cases = k1_tables(dev)
-    k1_err = k1_checks(scene_assembly, cases)
+    k1_err = k1_checks(scene_assembly, cases + [renderer_k1] + k1_edge_cases(dev))
     _, res, specs, params = cases[0]
     general_canvas = scene_assembly.assemble_scene_planar(res, specs, params)
-    render_frames = renderer_inputs(N_INPUTS, IN_W, IN_H, seed=0)
-    overlay_rows, overlay_kinds = overlay_k3_run(dev, render_frames)
     table16 = layer_table(dev, 16, OUT_H, OUT_W, seed=16)
     gen = torch.Generator(device=dev).manual_seed(3)
     odd_canvas = torch.rand((4, 257, 511), generator=gen, device=dev)
+    even_canvas = torch.rand((4, 256, 512), generator=gen, device=dev)
+    off_rows = overlay_rows.clone()
+    off_rows[:, 0] += OUT_H + 200.0  # every layer below the canvas
     k3_cases = [
         ("renderer overlays over general_4k", general_canvas, overlay_rows, overlay_kinds),
         ("16-layer table over general_4k", general_canvas, *table16),
         ("4-layer table at 257x511", odd_canvas, *layer_table(dev, 4, 257, 511, seed=4)),
+        ("edge cases at 512x256", even_canvas,
+         torch.tensor(edge_rows(256, 512)[0], device=dev), edge_rows(256, 512)[1]),
+        ("edge cases at 511x257", odd_canvas,
+         torch.tensor(edge_rows(257, 511)[0], device=dev), edge_rows(257, 511)[1]),
+        ("renderer overlays all off the canvas", general_canvas, off_rows, overlay_kinds),
     ]
     k3_err = k3_checks(sdf_layers, k3_cases)
 
@@ -576,23 +731,83 @@ def main() -> int:
     renderer_parity_vs_cpu(dev, 4, 256, 144, 768, 432)
 
     # phase 7: timings (medians of ITERS runs after WARMUP)
-    spec_rows = scene_assembly.spec_table(specs, dev)
-    t_k1 = cuda_ms(lambda: scene_assembly.assemble_scene_planar(res, specs, params, spec_rows))
-    t_k1_plain = cuda_ms(lambda: scene_assembly.assemble_scene_planar_plain(res, specs, params))
-    t_k2 = cuda_ms(lambda: yuv_out.rgba_cm_to_yuv420(general_canvas))
+    # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
+    # synchronised call (cuda_ms), "plain" = the plain version, one call;
+    # "bound" from this run's inputs: the bytes each must move and the
+    # blends each must do (the pixels its members reach, tile_class.reach)
+    canvas_bytes = 4 * OUT_H * OUT_W * 4
+    k1_timed = [
+        ("empty table (canvas write only)", res, [], params[:0]),
+        ("background member alone", res, specs[:1], params[:1]),
+        ("general_4k table", res, specs, params),
+        renderer_k1,
+    ]
+    k1 = {}
+    for name, (w, h), sp, pr in k1_timed:
+        rows = scene_assembly.spec_table(sp, dev)
+        fn = lambda r=(w, h), sp=sp, pr=pr, rows=rows: scene_assembly.assemble_scene_planar(  # noqa: E731
+            r, sp, pr, rows)
+        t, t_call = kernel_ms(fn), cuda_ms(fn)
+        t_dev = device_ms(fn, "scene_assembly_kernel")
+        _, pairs = tile_class.reach(sp, pr, h, w)
+        n_bytes = 4 * h * w * 4 + pr.numel() * 4 + rows.numel() * 4
+        bound, by = bound_ms(n_bytes, BLEND_OPS * pairs)
+        k1[name] = dict(ms=t, call_ms=t_call, device_ms=t_dev, bound_ms=bound, bound_by=by,
+                        bytes=n_bytes)
+        print(f"time K1 scene_assembly {w}x{h} {name} ({len(sp)} members): kernel {t:.4f} ms, "
+              f"call {t_call:.4f} ms, device {t_dev} ms, bound {bound:.4f} ms by {by} "
+              f"({n_bytes} B, {pairs} member-pixels), {bound / t:.0%} of bound {stamp}")
+    scratch = torch.empty((4, OUT_H, OUT_W), dtype=torch.float32, device=dev)
+    t_fill = kernel_ms(lambda: scratch.fill_(0.0))
+    del scratch
+    print(f"time torch fill_ of a 4K canvas (the card's write rate, a yardstick for "
+          f"K1's store path): {t_fill:.4f} ms, {bound_ms(canvas_bytes)[0] / t_fill:.0%} of "
+          f"the write bound {stamp}")
+    k1_main = k1["general_4k table"]
+    k1_main["plain_ms"] = cuda_ms(
+        lambda: scene_assembly.assemble_scene_planar_plain(res, specs, params))
+    print(f"time K1 scene_assembly 4K general_4k table: plain {k1_main['plain_ms']:.4f} ms "
+          f"{stamp}")
+    k2_bytes = 3 * OUT_H * OUT_W * 4 + OUT_H * OUT_W * 3 // 2
+    k2_bound, k2_by = bound_ms(k2_bytes)
+    t_k2 = kernel_ms(lambda: yuv_out.rgba_cm_to_yuv420(general_canvas))
+    t_k2_call = cuda_ms(lambda: yuv_out.rgba_cm_to_yuv420(general_canvas))
     t_k2_plain = cuda_ms(lambda: yuv_out.rgba_cm_to_yuv420_plain(general_canvas))
-    print(f"time K1 scene_assembly 4K general_4k table: kernel {t_k1:.4f} ms, "
-          f"plain {t_k1_plain:.4f} ms {stamp}")
-    print(f"time K2 yuv_out 4K: kernel {t_k2:.4f} ms, plain {t_k2_plain:.4f} ms {stamp}")
-    k3_times = []
-    for name, canvas, rows, kinds in k3_cases[:2]:
-        work = canvas.clone()
+    t_k2_dev = device_ms(lambda: yuv_out.rgba_cm_to_yuv420(general_canvas), "yuv420_out_kernel")
+    print(f"time K2 yuv_out 4K: kernel {t_k2:.4f} ms, call {t_k2_call:.4f} ms, device "
+          f"{t_k2_dev} ms, plain {t_k2_plain:.4f} ms, bound {k2_bound:.4f} ms by {k2_by} "
+          f"({k2_bytes} B), {k2_bound / t_k2:.0%} of bound {stamp}")
+    # K3 updates its canvas in place: the timed calls cycle over three
+    # copies, so that no launch finds the canvas of the last one in L2
+    k3_timed = [("no layers (canvas read and write only)", general_canvas,
+                 params.new_zeros((0, sdf_layers.PARAMS_WIDTH)), ())] + k3_cases[:2]
+    k3 = {}
+    for name, canvas, rows, kinds in k3_timed:
+        works = [canvas.clone() for _ in range(3)]
         table = sdf_layers.kinds_table(kinds, dev)
-        t = cuda_ms(lambda: sdf_layers.compose_sdf_layers_planar(work, rows, kinds, table))
+        turn = [0]
+
+        def k3_call(rows=rows, kinds=kinds, table=table, works=works, turn=turn):
+            turn[0] = (turn[0] + 1) % len(works)
+            return sdf_layers._launch(works[turn[0]], rows, kinds, table)
+
+        t, t_call = kernel_ms(k3_call), cuda_ms(k3_call)
+        t_dev = device_ms(k3_call, "sdf_layers_kernel")
         t_plain = cuda_ms(lambda: sdf_layers.compose_sdf_layers_planar_plain(canvas, rows, kinds))
+        del works
+        k3_specs = [MemberSpec(c, b, r, 0, (), (0, 0, OUT_H, OUT_W)) for c, b, r in kinds]
+        px, pairs = tile_class.reach(k3_specs, rows, OUT_H, OUT_W) if kinds else (0, 0)
+        n_bytes = 2 * 16 * px + rows.numel() * 4 + table.numel() * 4
+        bound, by = bound_ms(n_bytes, BLEND_OPS * pairs)
+        k3[name] = dict(ms=t, call_ms=t_call, device_ms=t_dev, plain_ms=t_plain,
+                        bound_ms=bound, bound_by=by, bytes=n_bytes, footprint_px=px)
         print(f"time K3 sdf_layers 4K {name} ({len(kinds)} layers): kernel {t:.4f} ms, "
-              f"plain {t_plain:.4f} ms {stamp}")
-        k3_times.append((t, t_plain))
+              f"call {t_call:.4f} ms, device {t_dev} ms, plain {t_plain:.4f} ms, "
+              f"bound {bound:.4f} ms by {by} "
+              f"({px} footprint px of {OUT_H * OUT_W}, {n_bytes} B, {pairs} layer-pixels), "
+              f"{bound / t:.0%} of bound; full-canvas bound "
+              f"{bound_ms(2 * canvas_bytes)[0]:.4f} ms {stamp}")
+    k3_main = k3["renderer overlays over general_4k"]
     t_grid = cuda_ms(lambda: grid_fn(*dev_frames))
     t_gen = cuda_ms(lambda: gen_fn(*dev_frames))
     print(f"time frame compute only, grid 16x1080p->4K: {t_grid:.4f} ms {stamp}")
@@ -638,22 +853,33 @@ def main() -> int:
           f"which packing the input planes into pinned memory {t_pack:.4f} ms")
 
     check("jax" not in sys.modules, "the port imported jax")
+    # no single PyTorch call computes any of the three functions:
+    # library_ms is null
     kernels = [
         {"name": "scene_assembly", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/scene_assembly.cu",
          "replaces": "smelter_tpu/ops/pallas/scene_assembly.py:194",
          "launches": render_launches["scene_assembly"], "max_abs_err": k1_err,
-         "ms": t_k1, "plain_ms": t_k1_plain},
+         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
+         "library_ms": None, "call_ms": k1_main["call_ms"],
+         "device_ms": k1_main["device_ms"], "bytes": k1_main["bytes"]},
         {"name": "yuv_out", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/yuv_out.cu",
          "replaces": "smelter_tpu/ops/pallas/yuv_out.py:82",
          "launches": render_launches["yuv_out"], "max_abs_err": k2_err,
-         "ms": t_k2, "plain_ms": t_k2_plain},
+         "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
+         "bytes": k2_bytes},
         {"name": "sdf_layers", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/sdf_layers.cu",
          "replaces": "smelter_tpu/ops/pallas/sdf_layers.py:66",
          "launches": render_launches["sdf_layers"], "max_abs_err": k3_err,
-         "ms": k3_times[0][0], "plain_ms": k3_times[0][1]},
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": None, "call_ms": k3_main["call_ms"],
+         "device_ms": k3_main["device_ms"], "bytes": k3_main["bytes"],
+         "footprint_px": k3_main["footprint_px"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -420,19 +420,9 @@ def _assembly_members(items, i: int, j: int, clip):
             _intersects(reg, gr) for gr in group_regions
         ):
             y0, x0, rh, rw = reg
-            fill = None
-            if (st.content == "color" and st.no_radius
-                    and not st.has_border and not st.has_rotation
-                    and st.n_masks == 0):
-                # pixels of the flat interior (the clipped rect shrunk by
-                # 2 px: 1 px covers the SDF smoothstep half-width, 1 more the
-                # planner's integer hull of the rect) skip the SDF math
-                fy0, fy1, fx0, fx1 = y0 + 2, y0 + rh - 2, x0 + 2, x0 + rw - 2
-                if fy0 < fy1 and fx0 < fx1:
-                    fill = (fy0, fx0, fy1, fx1)
             specs.append(sa.MemberSpec(
                 st.content, st.has_border, st.has_rotation, st.n_masks,
-                st.rotated_masks, (y0, x0, y0 + rh, x0 + rw), fill,
+                st.rotated_masks, (y0, x0, y0 + rh, x0 + rw),
             ))
             plist.append(p)
         else:
@@ -539,13 +529,15 @@ def compose_layouts(
     `cache`: a dict the caller owns that keeps on the device what the
     statics fix (K1's member spec table, K3's kinds table); pass the same
     dict only with the same statics. Parameters are never cached.
-    `device`: where the canvas lives; defaults to the device of the first
-    layout's params."""
+    `device`: where the canvas lives; the caller names it, or it is the
+    device of the layouts' params (with no layouts and no device, raises)."""
     from smelter_tpu_torch.ops.hopper import sdf_layers
 
     w, h = resolution
     if device is None:
-        device = params[0].top.device if params else torch.device("cpu")
+        if not params:
+            raise ValueError("compose_layouts: no layouts and no device given")
+        device = params[0].top.device
     canvas = None  # created by K1, from the background, or transparent
     if background is not None:
         canvas = background.permute(2, 0, 1).clone(memory_format=torch.contiguous_format)

@@ -1,11 +1,12 @@
 """Build the CUDA kernels of `smelter_tpu_torch/csrc/` on first use and load
 them with ctypes.
 
-Every `*.cu` file compiles in one nvcc call into one shared library with a
-plain C interface, `smelter_tpu_torch/_build/libsmelter_kernels-<hash>.so`.
-The hash covers the sources, the headers and the flags, so an edit rebuilds
-and an unchanged tree reuses the library. No PyTorch headers are included:
-the build takes seconds, not minutes.
+Every `*.cu` file compiles in its own nvcc process, all started together,
+and the objects link into one shared library with a plain C interface,
+`smelter_tpu_torch/_build/libsmelter_kernels-<hash>.so`. The hash covers the
+sources, the headers and the flags, so an edit rebuilds and an unchanged
+tree reuses the library. No PyTorch headers are included: the build takes
+seconds, not minutes.
 
 Flags: sm_90a (Hopper, with wgmma available to later kernels), -O3, and no
 fast math: the kernels' parity with their plain PyTorch versions rests on
@@ -29,8 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 
@@ -65,18 +65,27 @@ def library_path() -> pathlib.Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(s) for s in srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    (BUILD_DIR / f"build-{digest}.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [pathlib.Path(tmpdir) / f"{s.stem}.o" for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        outs = [pr.communicate()[0] for pr in procs]
+        tmp = pathlib.Path(tmpdir) / lib.name
+        cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                     "-o", str(tmp), *(str(o) for o in objs)])
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        outs.append(link.stdout + link.stderr)
+        codes = [pr.returncode for pr in procs] + [link.returncode]
+        if any(codes):
+            failed = next(i for i, c in enumerate(codes) if c)
+            raise RuntimeError(
+                f"nvcc failed ({codes[failed]}): {' '.join(cmds[failed])}\n{outs[failed]}"
+            )
+        (BUILD_DIR / f"build-{digest}.log").write_text("".join(outs))
+        os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
     return lib
 
 

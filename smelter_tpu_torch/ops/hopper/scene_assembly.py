@@ -5,9 +5,11 @@ Replaces the Pallas TPU kernel `smelter_tpu/ops/pallas/scene_assembly.py`
 premultiplied (4, H, W) f32 canvas of a canvas-opening run of colour and
 box-shadow members: each pixel starts transparent and OVER-blends every
 member whose clipped footprint holds it, in paint order. The CUDA kernel is
-`smelter_tpu_torch/csrc/scene_assembly.cu` (layer math in
-`csrc/sdf_common.cuh`); it is bound by the one canvas write plus the SDF
-arithmetic, and culls members per tile and per pixel.
+`smelter_tpu_torch/csrc/scene_assembly.cu` (layer math and tile classes in
+`csrc/sdf_common.cuh`); it is bound by the one canvas write. Per 32 x 32
+tile it drops members that are exactly 0 there, blends flat values where a
+member's alpha is exactly 1, and starts a tile over under an opaque one
+(`tile_class.py` is the plain mirror of that classifier).
 
 Member kinds: "color" (rounded-rect SDF fill, optional border, optional
 analytic rotation) and "box_shadow" (smoothstep blur of the SDF); each takes
@@ -32,7 +34,7 @@ from smelter_tpu_torch.ops.hopper import build
 PARAMS_BASE = 19  # 0:top 1:left 2:w 3:h 4:rot 5..8:radius 9..12:color
 #                  13:border_width 14..17:border_color 18:blur
 MASK_W = 9  # radius[4], top, left, w, h, rotation_rad
-SPEC_W = 13  # columns of the int32 spec table (csrc/scene_assembly.cu)
+SPEC_W = 9  # columns of the int32 spec table (csrc/scene_assembly.cu)
 _KINDS = {"color": 0, "box_shadow": 1}
 
 # kernel launches since the last reset (the main path's proof of use)
@@ -42,10 +44,8 @@ LAUNCHES = 0
 @dataclass(frozen=True)
 class MemberSpec:
     """Static description of one SDF member. `region`: its clipped pixel
-    footprint (y0, x0, y1, x1), half-open; the member's alpha is exactly 0
-    outside it. `fill`: an optional box (y0, x0, y1, x1) of its flat
-    interior, where the layer is exactly its premultiplied colour
-    (radius-, border-, rotation- and mask-free colour members only)."""
+    footprint (y0, x0, y1, x1), half-open, from the statics; the member is
+    evaluated only there."""
 
     kind: str
     has_border: bool
@@ -53,7 +53,6 @@ class MemberSpec:
     n_masks: int
     rotated_masks: Tuple[bool, ...]
     region: Tuple[int, int, int, int]
-    fill: Optional[Tuple[int, int, int, int]] = None
 
 
 def spec_table(specs: Sequence[MemberSpec], device) -> torch.Tensor:
@@ -61,9 +60,8 @@ def spec_table(specs: Sequence[MemberSpec], device) -> torch.Tensor:
     rows = []
     for s in specs:
         bits = sum(1 << i for i, r in enumerate(s.rotated_masks[: s.n_masks]) if r)
-        fill = s.fill if s.fill is not None else (0, 0, 0, 0)
         rows.append([_KINDS[s.kind], int(s.has_border), int(s.has_rotation),
-                     s.n_masks, bits, *s.region, *fill])
+                     s.n_masks, bits, *s.region])
     return upload(torch.tensor(rows, dtype=torch.int32).reshape(-1, SPEC_W), device)
 
 
@@ -153,8 +151,8 @@ def assemble_scene_planar_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: each member evaluated over its clipped
     footprint and OVER-blended into a transparent canvas, in paint order.
-    (The kernel's flat-interior shortcut gives the same values, so this
-    version computes the SDF everywhere.)"""
+    (The kernel's tile classes give the same values, so this version
+    evaluates everything.)"""
     w, h = resolution
     dev = params.device
     acc = torch.zeros((4, h, w), dtype=torch.float32, device=dev)

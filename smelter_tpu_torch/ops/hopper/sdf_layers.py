@@ -4,10 +4,12 @@ Replaces the Pallas TPU kernel `smelter_tpu/ops/pallas/sdf_layers.py`
 (`_layer_kernel_body`, launched at :131 by `_compose_call`). A run of L
 colour, bordered-colour and box-shadow layers with animating geometry (no
 static rect, no masks) OVER-blends onto an existing channel-major
-premultiplied (4, H, W) f32 canvas in one read and one write. The CUDA
-kernel is `smelter_tpu_torch/csrc/sdf_layers.cu` (layer math in
-`csrc/sdf_common.cuh`); it is bound by the canvas traffic: at 4K, 133 MB
-read and 133 MB written.
+premultiplied (4, H, W) f32 canvas. The CUDA kernel is
+`smelter_tpu_torch/csrc/sdf_layers.cu` (layer math and tile classes in
+`csrc/sdf_common.cuh`); it is bound by the canvas traffic of the tiles the
+layers reach: a 32 x 32 tile where every layer is exactly 0 is neither read
+nor written, and layers whose alpha is exactly 1 over a tile blend a flat
+value there (`tile_class.py` is the plain mirror of that classifier).
 
 Layer parameters are per-frame values; the layer kinds (content,
 has_border, has_rotation) are fixed by the frame program's structure, so a

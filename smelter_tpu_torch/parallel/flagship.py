@@ -14,8 +14,9 @@ the driver's north-star shape, in its two scenes:
     shadow members, the textures blend in groups) and the YUV420 output
     (kernel K2).
 
-Every builder takes the `device` its tensors live on and returns
-(fn, example_args). A builder runs its function once on the example
+Every builder takes the `device` its tensors live on (the CUDA card unless
+another is named; `interop.resolve_device` raises when there is no card)
+and returns (fn, example_args). A builder runs its function once on the example
 arguments, so that every host-built constant (resize and chroma weight
 matrices, shear masks, the K1 member table) is on the device before the
 first real frame. The multi-device builders are not ported yet (ROADMAP
@@ -29,14 +30,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from smelter_tpu.core.types import Resolution, RGBAColor
-from smelter_tpu.scene import components as comp
-from smelter_tpu.scene.layout_types import RenderChildNode, RenderColor
-from smelter_tpu.scene.scene_state import BuildCtx, LayoutNode, build_stateful
+from smelter_tpu_torch.core.types import Resolution, RGBAColor
+from smelter_tpu_torch.interop import resolve_device
 from smelter_tpu_torch.ops import color_convert as cc
 from smelter_tpu_torch.ops.compose import compose_layouts
 from smelter_tpu_torch.ops.resample import resize_matmul
 from smelter_tpu_torch.render.program import split_layout
+from smelter_tpu_torch.scene import components as comp
+from smelter_tpu_torch.scene.layout_types import RenderChildNode, RenderColor
+from smelter_tpu_torch.scene.scene_state import BuildCtx, LayoutNode, build_stateful
 
 
 def _tiles_layouts(n_inputs: int, in_res: Resolution, out_res: Resolution):
@@ -123,10 +125,11 @@ def make_flagship_compose(
     n_inputs: int = 16,
     in_res: Resolution = Resolution(1920, 1080),
     out_res: Resolution = Resolution(3840, 2160),
-    device="cpu",
+    device=None,
 ):
     """Returns (fn, example_args): fn(y, u, v) with stacked u8 plane batches
     (N, H, W) / (N, H/2, W/2) on `device` -> the 4K YUV420 u8 planes."""
+    device = resolve_device(device)
     flat = _tiles_layouts(n_inputs, in_res, out_res)
     grid = _analyze_opaque_grid(flat, out_res)
     if grid is None:
@@ -142,7 +145,7 @@ def _general_layouts(n_inputs: int, in_res: Resolution, out_res: Resolution):
     """Flattened RenderLayouts of the `general_4k` scene: N inputs in a grid
     of rounded (radius 24), half-bordered tiles, box shadows on every third,
     two statically rotated (30 deg / -15 deg)."""
-    from smelter_tpu.scene.components import (
+    from smelter_tpu_torch.scene.components import (
         AbsolutePosition,
         BorderRadius as CompRadius,
         BoxShadow,
@@ -184,12 +187,13 @@ def make_flagship_general_compose(
     n_inputs: int = 16,
     in_res: Resolution = Resolution(1920, 1080),
     out_res: Resolution = Resolution(3840, 2160),
-    device="cpu",
+    device=None,
 ):
     """The flagship shape through the general compose (not the opaque YUV
     grid), the `general_4k` scene (`_general_layouts`). All geometry is
     planner-stable, so every layout takes the region-local paths; the
     channel-major canvas flows straight into the YUV420 output."""
+    device = resolve_device(device)
     flat = _general_layouts(n_inputs, in_res, out_res)
     statics, params = zip(*(split_layout(l, fast=True, device=device) for l in flat))
     cache: dict = {}  # this scene's K1 member table, kept on the device
@@ -241,7 +245,8 @@ def plan_grid_partition(rects, H: int, W: int):
 
 
 def _make_yuv_grid_compose(grid, n_inputs, in_res: Resolution, out_res: Resolution,
-                           device="cpu"):
+                           device=None):
+    device = resolve_device(device)
     bg, tiles = grid
     H, W = out_res.height, out_res.width
     ch, cw = H // 2, W // 2
@@ -292,7 +297,8 @@ def _round_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x.to(torch.float32) + 0.5, 0.0, 255.0).to(torch.uint8)
 
 
-def _example_args(n_inputs: int, in_res: Resolution, device="cpu"):
+def _example_args(n_inputs: int, in_res: Resolution, device=None):
+    device = resolve_device(device)
     h, w = in_res.height, in_res.width
     return (
         torch.zeros((n_inputs, h, w), dtype=torch.uint8, device=device),

@@ -34,17 +34,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from smelter_tpu.core.types import Frame, PixelFormat, Resolution
-from smelter_tpu.scene.layout_types import (
-    Mask,
-    RenderBoxShadow,
-    RenderChildNode,
-    RenderColor,
-    RenderLayout,
-)
-from smelter_tpu.scene.scene_state import InputStreamNode, LayoutNode, Node
-from smelter_tpu.utils import tracing
-from smelter_tpu_torch.interop import layout_params, upload
+from smelter_tpu_torch.core.types import Frame, PixelFormat, Resolution
+from smelter_tpu_torch.interop import layout_params, resolve_device, upload
 from smelter_tpu_torch.ops import color_convert as cc
 from smelter_tpu_torch.ops.compose import (
     MAX_MASKS_COUNT,
@@ -54,6 +45,15 @@ from smelter_tpu_torch.ops.compose import (
 )
 from smelter_tpu_torch.ops.resample import build_mips, resize_matmul
 from smelter_tpu_torch.ops.rotate import MAX_SHEAR_BANDS, rotation_band_count
+from smelter_tpu_torch.scene.layout_types import (
+    Mask,
+    RenderBoxShadow,
+    RenderChildNode,
+    RenderColor,
+    RenderLayout,
+)
+from smelter_tpu_torch.scene.scene_state import InputStreamNode, LayoutNode, Node
+from smelter_tpu_torch.utils import tracing
 
 UNPORTED_NODES = (
     "shader, text, image and web nodes are not ported yet: ROADMAP Queue 1 item 7"
@@ -256,11 +256,12 @@ def split_layout_host(
 
 def split_layout(
     layout: RenderLayout, fast: bool = False, rot_traced: bool = False,
-    moving: bool = False, scaling: bool = False, device="cpu",
+    moving: bool = False, scaling: bool = False, device=None,
 ) -> Tuple[LayoutStatic, LayoutParams]:
-    """`split_layout_host` with the params as f32 tensors on `device`."""
+    """`split_layout_host` with the params as f32 tensors on `device` (the
+    CUDA card unless another is named: `interop.resolve_device`)."""
     static, params = split_layout_host(layout, fast, rot_traced, moving, scaling)
-    return static, layout_params(params, device)
+    return static, layout_params(params, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -496,18 +497,19 @@ def _to_device(planes, device: torch.device):
 
 class OutputProgram:
     """Plans one output's node tree each frame and keeps the programs built
-    for its structures, on one device."""
+    for its structures, on one device (the CUDA card unless another is
+    named: `interop.resolve_device`)."""
 
     # long-running servers see many distinct stable geometries; bound the
     # program cache (evict oldest) so memory stays flat
     MAX_CACHED_PROGRAMS = 32
 
     def __init__(self, root: Node, resolution: Resolution,
-                 out_format: PixelFormat, device="cpu") -> None:
+                 out_format: PixelFormat, device=None) -> None:
         self.root = root
         self.resolution = resolution
         self.out_format = out_format
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._node_ids: Dict[int, int] = {}
         self._nodes: Dict[int, Node] = {}
         self._next_id = 0

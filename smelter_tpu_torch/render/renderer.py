@@ -9,8 +9,8 @@ Ported: scenes of View, Tiles, Rescaler and InputStream components with a
 layout root, RGBA and PLANAR_YUV420 outputs. `update_scene` raises
 NotImplementedError for what is not ported yet (Text, Image, Shader and
 WebView components: ROADMAP Queue 1 item 7; other output formats or a bare
-InputStream root: item 1). The image store, text renderer and web registry
-are built on first use, so a renderer of supported scenes never imports PIL.
+InputStream root: item 1). The scene state's text, image and web hooks raise
+NotImplementedError too: no supported scene reaches them.
 """
 
 from __future__ import annotations
@@ -19,17 +19,16 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, List
 
-import torch
-
-from smelter_tpu.core.types import Frame, FrameSet, Framerate, PixelFormat, Resolution
-from smelter_tpu.scene import components as comp
-from smelter_tpu.scene.scene_state import OutputScene, SceneState
-from smelter_tpu.utils import tracing
+from smelter_tpu_torch.core.types import Frame, FrameSet, Framerate, PixelFormat, Resolution
+from smelter_tpu_torch.interop import resolve_device
 from smelter_tpu_torch.render.program import (
     SUPPORTED_OUTPUTS,
     UNPORTED_NODES,
     OutputProgram,
 )
+from smelter_tpu_torch.scene import components as comp
+from smelter_tpu_torch.scene.scene_state import OutputScene, SceneState
+from smelter_tpu_torch.utils import tracing
 
 
 @dataclass
@@ -44,47 +43,20 @@ class RendererOptions:
 
 
 class Renderer:
-    """Thread-safe renderer entry point; every tensor lives on `device`."""
+    """Thread-safe renderer entry point; every tensor lives on `device`
+    (the CUDA card unless the caller passes another, such as "cpu"; raises
+    RuntimeError when the card is asked for and there is none)."""
 
     def __init__(self, options: RendererOptions = RendererOptions(),
-                 device="cpu") -> None:
+                 device=None) -> None:
         self._lock = threading.Lock()
         self.options = options
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scene = SceneState()
-        self._images = None
-        self._text = None
-        self._web = None
         self._inputs: Dict[str, float] = {}  # input_id -> last frame pts
         self._last_frames: Dict[str, Frame] = {}
         self._programs: Dict[str, OutputProgram] = {}
         self._output_formats: Dict[str, PixelFormat] = {}
-
-    # -- host registries, built on first use ----------------------------------
-
-    @property
-    def images(self):
-        if self._images is None:
-            from smelter_tpu.render.image import ImageStore
-
-            self._images = ImageStore()
-        return self._images
-
-    @property
-    def text(self):
-        if self._text is None:
-            from smelter_tpu.render.text import TextRenderer
-
-            self._text = TextRenderer()
-        return self._text
-
-    @property
-    def web(self):
-        if self._web is None:
-            from smelter_tpu.render.web import WebRendererRegistry
-
-            self._web = WebRendererRegistry()
-        return self._web
 
     # -- registration ----------------------------------------------------------
 
@@ -110,9 +82,9 @@ class Renderer:
             self._validate_components(root, output_format)
             node = self.scene.update_scene(
                 OutputScene(output_id, root, resolution),
-                text_measurer=lambda t: self.text.measure(t),
-                image_store=lambda i: self.images.natural_size(i),
-                web_size=self._web_size,
+                text_measurer=_unported("text measurement"),
+                image_store=_unported("the image store"),
+                web_size=_unported("the web renderer"),
             )
             self._programs[output_id] = OutputProgram(
                 node.node, resolution, output_format, self.device,
@@ -148,16 +120,7 @@ class Renderer:
         visit(root)
 
     def close(self) -> None:
-        """Release the web renderer sidecars, if any were started."""
-        if self._web is not None:
-            self._web.close_all()
-
-    def _web_size(self, instance_id: str) -> tuple:
-        inst = self.web.get(instance_id)
-        if inst is None:
-            return (0.0, 0.0)
-        w, h = inst.spec.resolution
-        return (float(w), float(h))
+        """Nothing to release: no web renderer sidecar is ever started."""
 
     # -- hot path ----------------------------------------------------------------
 
@@ -199,6 +162,16 @@ class Renderer:
                 )
                 out.frames[output_id] = frame
             return out
+
+
+def _unported(what: str):
+    """A scene-state hook for Text, Image or WebView components, which
+    `_validate_components` refuses before the scene state could call it."""
+
+    def hook(*_args):
+        raise NotImplementedError(f"{what}: {UNPORTED_NODES}")
+
+    return hook
 
 
 def _children(c: comp.Component) -> List[comp.Component]:

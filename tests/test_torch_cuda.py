@@ -5,9 +5,10 @@ card. These need a CUDA device and nvcc, so they skip elsewhere; on the card:
 
 (This file imports no JAX: the machine with the card need not have it.)
 
-Tolerances: K2 <= 1 u8 LSB per plane; K1 and K3 atol 2e-5 on the f32 canvas.
-The kernels are built without FMA contraction and round as their plain
-versions do, so in practice they agree exactly.
+Tolerances: K2 <= 1 u8 LSB per plane; K1 and K3 max abs err 0 on the f32
+canvas: the kernels are built without FMA contraction, repeat their plain
+versions' operations, and skip only what is exactly the identity (their
+tile classes, `ops/hopper/tile_class.py`).
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def test_scene_assembly_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert scene_assembly.LAUNCHES == before + 1
     ref = scene_assembly.assemble_scene_planar_plain((w, h), specs, params)
-    assert float((got - ref).abs().max()) <= 2e-5
+    assert float((got - ref).abs().max()) == 0.0
 
 
 def _layer_rows(dev, n, h, w, seed):
@@ -125,7 +126,19 @@ def test_sdf_layers_kernel_matches_plain(cuda, n, h, w):
     torch.cuda.synchronize()
     assert sdf_layers.LAUNCHES == before + 1
     assert got.data_ptr() == canvas.data_ptr()  # in place
-    assert float((got - ref).abs().max()) <= 2e-5
+    assert float((got - ref).abs().max()) == 0.0
+
+
+def test_sdf_layers_kernel_leaves_tiles_no_layer_reaches(cuda):
+    params, kinds = _layer_rows(cuda, 6, 256, 512, seed=7)
+    params[:, 1] += 2000.0  # every layer right of the canvas
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    canvas = torch.rand((4, 256, 512), generator=gen, device=cuda)
+    canvas[0, 0, 0] = -0.0  # a plain OVER with a zero layer would make it +0
+    before = canvas.clone()
+    got = sdf_layers.compose_sdf_layers_planar(canvas, params, kinds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, before) and got[0, 0, 0].signbit()
 
 
 def test_sdf_layers_kernel_refuses_bad_tables(cuda):

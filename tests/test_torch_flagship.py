@@ -4,6 +4,9 @@ the JAX package on the CPU, at small size: the Tiles grid at
 planes from seeded inputs. Also the planner split (`split_layout`) field for
 field, on the full-size general_4k and Tiles layouts.
 
+The reference's objects (resolutions, layouts) reach the port through
+`interop.from_reference`; the port runs with `device="cpu"`.
+
 Tolerance: <= 1 u8 LSB per plane. A pixel may be 2 LSB off only through a
 bf16 tie between the resize axes (the intermediate rounds to bf16,
 resample.py:160 in the reference): f32 sums of another order can land on
@@ -24,6 +27,7 @@ from smelter_tpu.core.types import Resolution
 from smelter_tpu.parallel import flagship as jflag
 from smelter_tpu.render import program as jprog
 from smelter_tpu_torch import interop
+from smelter_tpu_torch.interop import from_reference
 from smelter_tpu_torch.parallel import flagship as tflag
 from smelter_tpu_torch.render import program as tprog
 
@@ -61,7 +65,8 @@ def jax_outputs():
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_scene_matches_jax(jax_outputs, scene):
     _, tbuild, n, in_res, out_res = SCENES[scene]
-    fn, example = tbuild(n_inputs=n, in_res=in_res, out_res=out_res, device="cpu")
+    fn, example = tbuild(n_inputs=n, in_res=from_reference(in_res),
+                         out_res=from_reference(out_res), device="cpu")
     assert [tuple(a.shape) for a in example] == [
         (n, in_res.height, in_res.width),
         (n, in_res.height // 2, in_res.width // 2),
@@ -74,11 +79,12 @@ def test_scene_matches_jax(jax_outputs, scene):
         assert (d > 1).sum() * 10000 < d.size, name
 
 
-def _assert_split_equal(flat, device="cpu"):
+def _assert_split_equal(flat, port_flat):
+    assert port_flat == from_reference(flat)
     for fast in (False, True):
-        for layout in flat:
+        for layout, port_layout in zip(flat, port_flat):
             js, jp = jprog.split_layout(layout, fast=fast)
-            ts, tp = tprog.split_layout(layout, fast=fast, device=device)
+            ts, tp = tprog.split_layout(port_layout, fast=fast, device="cpu")
             assert dataclasses.asdict(ts) == dataclasses.asdict(js)
             assert ts == interop.layout_static(js)
             for f in dataclasses.fields(jp):
@@ -87,18 +93,42 @@ def _assert_split_equal(flat, device="cpu"):
                     np.asarray(getattr(jp, f.name), np.float32), err_msg=f.name)
 
 
-def test_split_layout_matches_general_4k_layouts():
-    flat = tflag._general_layouts(16, Resolution(1920, 1080), Resolution(3840, 2160))
+class _Captured(Exception):
+    pass
+
+
+def _reference_general_layouts(monkeypatch, n, in_res, out_res):
+    """The flattened layouts the reference's general_4k builder makes (it is
+    stopped before it compiles anything)."""
+    captured = []
+
+    def capture(*args):
+        captured.append(orig(*args))
+        raise _Captured
+
+    orig = jflag._scene_layouts
+    monkeypatch.setattr(jflag, "_scene_layouts", capture)
+    with pytest.raises(_Captured):
+        jflag.make_flagship_general_compose(n, in_res, out_res)
+    return captured[0]
+
+
+def test_split_layout_matches_general_4k_layouts(monkeypatch):
+    in_res, out_res = Resolution(1920, 1080), Resolution(3840, 2160)
+    flat = _reference_general_layouts(monkeypatch, 16, in_res, out_res)
+    port_flat = tflag._general_layouts(16, *from_reference((in_res, out_res)))
     # 1 background + 6 box shadows + 16 colour backdrops + 16 textures
-    assert len(flat) == 39
-    _assert_split_equal(flat)
+    assert len(port_flat) == 39
+    _assert_split_equal(flat, port_flat)
 
 
 def test_split_layout_matches_tiles_layouts():
-    flat = jflag._tiles_layouts(16, Resolution(1920, 1080), Resolution(3840, 2160))
-    assert tflag._analyze_opaque_grid(flat, Resolution(3840, 2160)) == \
-        jflag._analyze_opaque_grid(flat, Resolution(3840, 2160))
-    _assert_split_equal(flat)
+    in_res, out_res = Resolution(1920, 1080), Resolution(3840, 2160)
+    flat = jflag._tiles_layouts(16, in_res, out_res)
+    port_flat = tflag._tiles_layouts(16, *from_reference((in_res, out_res)))
+    assert tflag._analyze_opaque_grid(port_flat, from_reference(out_res)) == \
+        jflag._analyze_opaque_grid(flat, out_res)
+    _assert_split_equal(flat, port_flat)
 
 
 def test_grid_plan_matches():
@@ -106,11 +136,12 @@ def test_grid_plan_matches():
         out_res = Resolution(3840, 2160)
         flat = jflag._tiles_layouts(n, Resolution(1920, 1080), out_res)
         grid = jflag._analyze_opaque_grid(flat, out_res)
-        assert tflag._analyze_opaque_grid(flat, out_res) == grid
+        assert tflag._analyze_opaque_grid(*from_reference((flat, out_res))) == grid
         assert tflag.plan_grid_partition(grid[1], 2160, 3840) == \
             jflag.plan_grid_partition(grid[1], 2160, 3840)
 
 
 def test_mip_levels_match():
     for w, h in ((1920, 1080), (64, 64), (63, 200), (3840, 2160), (1, 1)):
-        assert tprog._mip_levels(Resolution(w, h)) == jprog._mip_levels(Resolution(w, h))
+        res = Resolution(w, h)
+        assert tprog._mip_levels(from_reference(res)) == jprog._mip_levels(res)

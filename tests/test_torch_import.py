@@ -1,5 +1,7 @@
-"""The PyTorch port imports without JAX, Triton or PIL (and renders a
-View/Tiles scene without them), and `chip_smoke.py` refuses to run (non-zero
+"""The PyTorch port imports without JAX, Triton, PIL or any module of the
+reference package (and renders a View/Tiles scene built from its own
+components without them); its entry points refuse to run without a card
+unless given `device="cpu"`; and `chip_smoke.py` refuses to run (non-zero
 exit, no "ok" line) where torch sees no CUDA card."""
 
 from __future__ import annotations
@@ -8,6 +10,9 @@ import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -19,11 +24,11 @@ for name in names:
     importlib.import_module(name)
 
 import numpy as np
-from smelter_tpu.core.types import Frame, FrameSet, PixelFormat, Resolution, RGBAColor
-from smelter_tpu.scene import components as comp
+from smelter_tpu_torch.core.types import Frame, FrameSet, PixelFormat, Resolution, RGBAColor
 from smelter_tpu_torch.render.renderer import Renderer
+from smelter_tpu_torch.scene import components as comp
 
-r = Renderer()
+r = Renderer(device="cpu")
 inputs = {}
 for i in range(2):
     r.register_input(f"in_{i}")
@@ -38,7 +43,9 @@ r.update_scene("out", comp.View(background_color=RGBAColor(0, 0, 0), children=[
     Resolution(128, 72), PixelFormat.PLANAR_YUV420)
 y, u, v = r.render(FrameSet(pts=0.0, frames=inputs)).frames["out"].data
 assert tuple(y.shape) == (72, 128) and tuple(u.shape) == (36, 64)
-print(len(names), "jax" in sys.modules, "triton" in sys.modules, "PIL" in sys.modules)
+reference = [m for m in sys.modules if m == "smelter_tpu" or m.startswith("smelter_tpu.")]
+print(len(names), "jax" in sys.modules, "triton" in sys.modules, "PIL" in sys.modules,
+      len(reference))
 """
 
 
@@ -55,11 +62,32 @@ def test_port_imports_without_jax_or_triton():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n_modules, has_jax, has_triton, has_pil = out.stdout.split()
+    n_modules, has_jax, has_triton, has_pil, n_reference = out.stdout.split()
     assert int(n_modules) >= 10  # every module of the port was imported
     assert has_jax == "False"
     assert has_triton == "False"
     assert has_pil == "False"
+    assert n_reference == "0"  # no module of the reference package loaded
+
+
+def test_entry_points_need_a_card_unless_given_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("torch sees a CUDA card here: the entry points would run on it")
+    from smelter_tpu_torch.core.types import PixelFormat, Resolution
+    from smelter_tpu_torch.parallel.flagship import (
+        make_flagship_compose,
+        make_flagship_general_compose,
+    )
+    from smelter_tpu_torch.render.program import OutputProgram
+    from smelter_tpu_torch.render.renderer import Renderer
+
+    tiny = dict(n_inputs=1, in_res=Resolution(64, 32), out_res=Resolution(64, 32))
+    for entry in (Renderer, lambda: make_flagship_compose(**tiny),
+                  lambda: make_flagship_general_compose(**tiny),
+                  lambda: OutputProgram(None, Resolution(64, 32), PixelFormat.RGBA)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            entry()
+    assert Renderer(device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -1,6 +1,8 @@
 """The PyTorch port's `Renderer` and frame program against the JAX package's,
 on the CPU, frame by frame on the same component trees and the same
-`make_test_input` frames.
+`make_test_input` frames. Each scene is built once with the reference's
+components; the port gets it through `interop.from_reference`, and runs with
+`device="cpu"`.
 
 Tolerance: <= 1 u8 LSB per pixel on the RGBA output and on every YUV420
 plane; the count of pixels that differ is printed per frame (`pytest -s`).
@@ -21,6 +23,7 @@ Scenes:
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +45,7 @@ from smelter_tpu.scene.layout_types import (
     RenderColor,
     RenderLayout,
 )
+from smelter_tpu_torch.interop import from_reference
 from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers
 from smelter_tpu_torch.render import program as tprog
 from smelter_tpu_torch.render.renderer import Renderer as TorchRenderer
@@ -66,15 +70,19 @@ def _planes(data) -> tuple:
 
 def _render_seq(renderer_cls, steps, fmt, n_inputs, res=OUT):
     """steps: (scene or None, pts) pairs; a scene is set with update_scene
-    before its frame. Returns each frame's planes and the renderer."""
-    r = renderer_cls()
+    before its frame. Returns each frame's planes and the renderer. The
+    port's renderer runs on the CPU and gets the reference's objects
+    through `from_reference`."""
+    port = renderer_cls is TorchRenderer
+    r = renderer_cls(device="cpu") if port else renderer_cls()
+    conv = from_reference if port else (lambda x: x)
     for i in range(n_inputs):
         r.register_input(f"input_{i}")
     outs = []
     for scene, pts in steps:
         if scene is not None:
-            r.update_scene("out", scene, res, fmt)
-        outs.append(_planes(r.render(_frames(n_inputs, pts)).frames["out"].data))
+            r.update_scene("out", *conv((scene, res, fmt)))
+        outs.append(_planes(r.render(conv(_frames(n_inputs, pts))).frames["out"].data))
     return outs, r
 
 
@@ -182,7 +190,7 @@ def test_c_banner_crosses_the_bound(k3_calls):
     # past the parent's right edge the banner carries its parent's mask, so
     # it takes the sampled full-canvas pass and never K3
     assert k3_calls == []
-    key, _ = r._programs["out"].plan(0.6, _frames(4, 0.6).frames)
+    key, _ = r._programs["out"].plan(0.6, from_reference(_frames(4, 0.6).frames))
     banner = [st for part in key if isinstance(part, tuple) and part[1] == "layout"
               for st in part[2] if st.content != "texture"][-2:]
     assert [(st.content, st.static_rect, st.n_masks) for st in banner] == [
@@ -249,10 +257,10 @@ def test_e_compose_cache_holds_no_parameters(k1_calls):
                          RenderColor(RGBAColor(200, 30, 30, 230), border, 6.0)),
         ]
 
-    first = [tprog.split_layout(lay, fast=True) for lay in
-             layouts(WHITE, RGBAColor(0, 0, 0, 160))]
-    second = [tprog.split_layout(lay, fast=True) for lay in
-              layouts(RGBAColor(40, 220, 40), RGBAColor(0, 0, 200, 200))]
+    first = [tprog.split_layout(lay, fast=True, device="cpu") for lay in
+             from_reference(layouts(WHITE, RGBAColor(0, 0, 0, 160)))]
+    second = [tprog.split_layout(lay, fast=True, device="cpu") for lay in
+              from_reference(layouts(RGBAColor(40, 220, 40), RGBAColor(0, 0, 200, 200)))]
     statics = [st for st, _ in first]
     assert statics == [st for st, _ in second]
     cache: dict = {}
@@ -265,6 +273,60 @@ def test_e_compose_cache_holds_no_parameters(k1_calls):
     assert cache and all(t.dtype == torch.int32 for t in cache.values())
 
 
+# ------------------------------------------------- from_reference
+
+
+def _assert_same_fields(ref, got, path="scene"):
+    """`got` is `ref` carried across: the port's class of the same module
+    path and name, every field the same, numpy leaves passed through."""
+    cls = type(ref)
+    if cls.__module__.split(".")[0] == "smelter_tpu":
+        assert type(got).__module__ == "smelter_tpu_torch" + cls.__module__[len("smelter_tpu"):], path
+        assert type(got).__qualname__ == cls.__qualname__, path
+        if isinstance(ref, enum.Enum):
+            assert got.name == ref.name and got.value == ref.value, path
+            return
+        for f in dataclasses.fields(ref):
+            _assert_same_fields(getattr(ref, f.name), getattr(got, f.name), f"{path}.{f.name}")
+    elif isinstance(ref, (tuple, list)):
+        assert type(got) is cls and len(got) == len(ref), path
+        for i, (a, b) in enumerate(zip(ref, got)):
+            _assert_same_fields(a, b, f"{path}[{i}]")
+    elif isinstance(ref, dict):
+        assert type(got) is dict and list(got) == list(ref), path
+        for k in ref:
+            _assert_same_fields(ref[k], got[k], f"{path}[{k!r}]")
+    elif isinstance(ref, np.ndarray):
+        assert got is ref, path
+    else:
+        assert type(got) is cls and got == ref, path
+
+
+ROUND_TRIP = {
+    "width": lambda: _width_scene(40.0),
+    "banner": lambda: _banner_scene(120.0, border_color=RGBAColor(40, 220, 40, 255)),
+    "card": _card_scene,
+    "layouts": lambda: list(_render_layouts().values()),
+    "frames": lambda: _frames(4, 0.5),
+    "output": lambda: (OUT, PixelFormat.PLANAR_YUV420, FORMATS),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUND_TRIP))
+def test_from_reference_carries_scenes_field_for_field(name):
+    ref = ROUND_TRIP[name]()
+    got = from_reference(ref)
+    _assert_same_fields(ref, got)
+    assert from_reference(got) is got or from_reference(got) == got  # port objects pass
+
+
+def test_from_reference_refuses_what_it_cannot_carry():
+    from smelter_tpu.utils.tracing import _Aggregate
+
+    with pytest.raises(TypeError, match="no port counterpart"):
+        from_reference([_Aggregate()])
+
+
 # ------------------------------------------------- program cache, planner
 
 
@@ -272,21 +334,22 @@ def test_no_rebuild_during_transition():
     """Port of `test_no_recompile_during_transition`: the animating frames
     share one structure, the settled end geometry adds one, and further
     frames reuse it."""
-    r = TorchRenderer()
-    r.update_scene("out", _width_scene(40.0), Resolution(320, 180), PixelFormat.RGBA)
-    r.render(FrameSet(pts=0.0))
-    r.update_scene("out", _width_scene(240.0), Resolution(320, 180), PixelFormat.RGBA)
+    r = TorchRenderer(device="cpu")
+    out = from_reference((Resolution(320, 180), PixelFormat.RGBA))
+    r.update_scene("out", from_reference(_width_scene(40.0)), *out)
+    r.render(from_reference(FrameSet(pts=0.0)))
+    r.update_scene("out", from_reference(_width_scene(240.0)), *out)
     program = r._programs["out"]
     for i in range(1, 20):
-        r.render(FrameSet(pts=i / 25.0))
+        r.render(from_reference(FrameSet(pts=i / 25.0)))
     assert len(program._build_cache) <= 2
     n_during = len(program._build_cache)
     for i in range(30, 40):
-        r.render(FrameSet(pts=i / 25.0))
+        r.render(from_reference(FrameSet(pts=i / 25.0)))
     assert len(program._build_cache) <= n_during + 1
     final = len(program._build_cache)
     for i in range(40, 50):
-        r.render(FrameSet(pts=i / 25.0))
+        r.render(from_reference(FrameSet(pts=i / 25.0)))
     assert len(program._build_cache) == final
 
 
@@ -321,7 +384,7 @@ FLAGS = {
 def test_split_layout_matches_reference(layout, flags):
     lay = _render_layouts()[layout]
     ref_st, ref_p = jprog.split_layout(lay, **FLAGS[flags])
-    got_st, got_p = tprog.split_layout(lay, **FLAGS[flags])
+    got_st, got_p = tprog.split_layout(from_reference(lay), **FLAGS[flags], device="cpu")
     assert dataclasses.asdict(got_st) == dataclasses.asdict(ref_st)
     for f in dataclasses.fields(ref_p):
         want = np.asarray(getattr(ref_p, f.name), np.float32)
@@ -350,7 +413,8 @@ def test_pack_and_unpack_layout_params_match_reference():
 
 
 def test_unpacked_params_are_views_of_the_vector():
-    split = [tprog.split_layout_host(lay) for lay in _render_layouts().values()]
+    split = [tprog.split_layout_host(lay)
+             for lay in from_reference(list(_render_layouts().values()))]
     vec = torch.from_numpy(tprog._pack_layout_params({0: [p for _, p in split]}, 0.0))
     out = tprog._unpack_layout_params(vec, {0: tuple(s for s, _ in split)})
     for p in out[0]:
@@ -372,20 +436,23 @@ def test_layout_collapse_matches_reference():
         RenderLayout(10.0, 20.0, 160.0, 90.0, 0.0, BorderRadius(), (), child),
         RenderLayout(10.0, 20.0, 320.0, 180.0, 5.0, BorderRadius(), (), child),
     ]
-    for e, _ in inner:
-        assert tprog._entry_within_bounds(e, res) == jprog._entry_within_bounds(e, res)
+    t_res, t_inner = from_reference((res, inner))
+    for (e, _), (t_e, _) in zip(inner, t_inner):
+        assert tprog._entry_within_bounds(t_e, t_res) == jprog._entry_within_bounds(e, res)
     for lay in placements:
-        for entries in (inner, inner[:1]):
-            assert (tprog._collapsible(lay, res, entries)
+        t_lay = from_reference(lay)
+        for entries, t_entries in ((inner, t_inner), (inner[:1], t_inner[:1])):
+            assert (tprog._collapsible(t_lay, t_res, t_entries)
                     == jprog._collapsible(lay, res, entries))
-        assert tprog._offset_entries(inner, lay) == jprog._offset_entries(inner, lay)
+        assert tprog._offset_entries(t_inner, t_lay) == from_reference(
+            jprog._offset_entries(inner, lay))
 
 
 def test_unported_scenes_raise_at_update_scene():
-    r = TorchRenderer()
+    r = TorchRenderer(device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        r.update_scene("out", comp.View(children=[comp.Text(text="x")]), OUT,
-                       PixelFormat.RGBA)
+        r.update_scene("out", *from_reference((
+            comp.View(children=[comp.Text(text="x")]), OUT, PixelFormat.RGBA)))
     with pytest.raises(NotImplementedError, match="item 1"):
-        r.update_scene("out", comp.View(), OUT, PixelFormat.NV12)
+        r.update_scene("out", *from_reference((comp.View(), OUT, PixelFormat.NV12)))
     assert "out" not in r._programs

@@ -205,8 +205,10 @@ def test_member_table_is_cached_per_layouts():
 
 
 def test_no_layouts_give_a_transparent_canvas():
-    got = tcomp.compose_layouts((8, 4), [], [], [], planar=True)
-    assert got.shape == (4, 4, 8) and not got.any()
+    got = tcomp.compose_layouts((8, 4), [], [], [], planar=True, device="cpu")
+    assert got.shape == (4, 4, 8) and not got.any() and got.device.type == "cpu"
+    with pytest.raises(ValueError, match="no device"):
+        tcomp.compose_layouts((8, 4), [], [], [], planar=True)
 
 
 @pytest.mark.parametrize("static", [

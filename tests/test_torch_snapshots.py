@@ -3,7 +3,9 @@ PyTorch port's `Renderer` on the CPU and compared with the committed PNGs at
 `harness.ALLOWED_ERROR` (mean absolute u8 error per channel).
 
 Only the goldens are read here: nothing is written, so a missing golden
-fails instead of being created.
+fails instead of being created. The scenes are built with the reference's
+components and reach the port's renderer (on the CPU) through
+`interop.from_reference`.
 
 Scenes of `tests/test_snapshots.py` left out, with what stops each (ROADMAP
 Queue 1):
@@ -43,6 +45,7 @@ from smelter_tpu.scene.components import (
     ViewDirection,
 )
 from smelter_tpu.scene.layout_types import BorderRadius
+from smelter_tpu_torch.interop import from_reference
 from smelter_tpu_torch.render.renderer import Renderer
 
 torch.set_num_threads(2)
@@ -192,15 +195,15 @@ def _mean_error(name: str, rgb: np.ndarray) -> float:
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_port_renders_golden(name):
     n_inputs, steps = CASES[name]
-    r = Renderer()
+    r = Renderer(device="cpu")
     for i in range(n_inputs):
         r.register_input(f"input_{i}")
     out = None
     for pts, scene in steps:
-        r.update_scene("out", scene, RES, PixelFormat.RGBA)
+        r.update_scene("out", *from_reference((scene, RES, PixelFormat.RGBA)))
         frames = {f"input_{i}": make_test_input(i, IN_RES, pts)
                   for i in range(n_inputs)}
-        out = r.render(FrameSet(pts=pts, frames=frames)).frames["out"]
+        out = r.render(from_reference(FrameSet(pts=pts, frames=frames))).frames["out"]
     rgb = out.data.numpy()[..., :3]
     err = _mean_error(name, rgb)
     assert err <= ALLOWED_ERROR, f"{name}: mean error {err:.3f} > {ALLOWED_ERROR}"
@@ -227,11 +230,11 @@ def test_port_renders_golden_yuv_input(fmt):
         jnp.asarray(rgba), full_range=fmt == PixelFormat.PLANAR_YUVJ420)
     frame = Frame(data=tuple(np.asarray(p) for p in planes), format=fmt,
                   resolution=IN_RES, pts=0.0)
-    r = Renderer()
+    r = Renderer(device="cpu")
     r.register_input("input_0")
-    r.update_scene("out", comp.View(background_color=BLUE, children=[
-        comp.Rescaler(child=_inputs(1)[0])]), RES, PixelFormat.RGBA)
-    out = r.render(FrameSet(pts=0.0, frames={"input_0": frame})).frames["out"]
+    r.update_scene("out", *from_reference((comp.View(background_color=BLUE, children=[
+        comp.Rescaler(child=_inputs(1)[0])]), RES, PixelFormat.RGBA)))
+    out = r.render(from_reference(FrameSet(pts=0.0, frames={"input_0": frame}))).frames["out"]
     name = f"pixel_format_{fmt.value}"
     err = _mean_error(name, out.data.numpy()[..., :3])
     assert err <= ALLOWED_ERROR, f"{name}: mean error {err:.3f} > {ALLOWED_ERROR}"
