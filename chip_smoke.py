@@ -36,12 +36,27 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      checks the planes, that K1 and K2 ran, that K3 ran on every animating
      frame and on no settled one, and that the same sequence at 4 x 256x144
      -> 768x432 matches the port run on the CPU;
-  7. times the kernels (CUDA events around 50 launches queued back to
+  7. drives the renderer through animated textures (`animated_scene`), 16
+     host inputs at 1080p (one NV12, one RGBA, the rest YUV420) into a 4K
+     YUV420 output, 41 frames at 30 fps of a one-second transition in
+     which a Tiles grid gains its 16th input and a margin (every tile
+     resizes and moves), a picture-in-picture slides, a card spins, a card
+     grows while it spins and a tilted card slides; checks the planes of
+     every frame, that the scaling, moving, traced-rotation, roto-zoom and
+     sampled-pass routes each drew a texture on exactly the animating
+     frames 2-30, that K1 and K2 ran on every frame, that no animating
+     frame made a synchronising call (`set_sync_debug_mode`; the count of
+     every frame is printed), and that the same sequence at 4 x 256x144 ->
+     768x432 matches the port run on the CPU;
+  8. times the kernels (CUDA events around 50 launches queued back to
      back, one synchronised call, and the device time torch.profiler
      reads for the kernel alone) against their plain versions and
      their bounds (bytes and operations at the H100 SXM's peaks), the whole
-     frames, and the host time of the renderer's per-frame planning;
-and prints a JSON line of the kernels, the nvidia-smi line, and last
+     frames, the host time of the renderer's per-frame planning, and the
+     animated-texture frames (animating and stable, plan(), and a
+     torch.profiler breakdown of one animating frame);
+and prints a JSON line of the animated-texture numbers, a JSON line of the
+kernels, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -476,8 +491,112 @@ def renderer_inputs(n, in_w, in_h, seed):
             for i in range(n)}
 
 
-def start_transition(dev, n, in_w, in_h, out_w, out_h, frames):
-    """A renderer on `dev` that has rendered pts 0 of the scene at stage 0
+def animated_scene(out_w, out_h, n_inputs, stage):
+    """The animated-texture scene: an opaque root View over
+      (a) a Tiles grid of id-tracked inputs that goes from n_inputs - 1 to
+          n_inputs tiles and gains a 24-px margin, so every tile resizes and
+          moves (the scaling route);
+      (b) a 1280x720 picture-in-picture of input 3 that slides from the
+          bottom right to the bottom left (moving);
+      (c) a 960x540 card of input 1 that spins from 0 to 60 degrees with
+          its rect held (traced rotation);
+      (d) a card of input 2 that grows from 480x270 to 960x540 about its
+          center while it spins from 0 to 45 degrees (roto-zoom);
+      (e) a 640x360 card of input 4 (input 0 when there are 4 inputs) held
+          at 15 degrees that slides (the sampled mip pass);
+    each with a one-second transition. Sizes are those of a 3840-wide
+    output, scaled to `out_w`; every card stays inside the canvas at every
+    angle, so none gains a mask."""
+    from smelter_tpu_torch.core.types import RGBAColor
+    from smelter_tpu_torch.scene import components as comp
+
+    s = out_w / 3840.0
+    one_second = comp.Transition(duration=1.0)
+    n_tiles = n_inputs - 1 if stage == 0 else n_inputs
+    tiles = comp.Tiles(
+        id="grid", background_color=RGBAColor(16, 16, 16),
+        margin=0.0 if stage == 0 else 24.0 * s, transition=one_second,
+        children=[comp.InputStream(id=f"tile_{i}", input_id=f"input_{i}")
+                  for i in range(n_tiles)])
+
+    def card(id_, input_index, w, h, top, left, theta=0.0):
+        return comp.Rescaler(
+            id=id_, child=comp.InputStream(input_id=f"input_{input_index % n_inputs}"),
+            position=comp.AbsolutePosition(width=w * s, height=h * s, top=top * s,
+                                           left=left * s, rotation_degrees=theta),
+            transition=one_second)
+
+    cards = [
+        card("pip", 3, 1280, 720, 1340, (2460, 100)[stage]),
+        card("spin", 1, 960, 540, 400, 300, (0.0, 60.0)[stage]),
+        card("rotozoom", 2, (480, 960)[stage], (270, 540)[stage],
+             (465, 330)[stage], (1760, 1520)[stage], (0.0, 45.0)[stage]),
+        card("tilted", 4, 640, 360, (1700, 1650)[stage], (2900, 3000)[stage], 15.0),
+    ]
+    return comp.View(background_color=RGBAColor(0, 0, 0), children=[tiles] + cards)
+
+
+def animated_inputs(n, in_w, in_h, seed):
+    """n host input frames (u8 numpy planes): planar YUV420 but input 1,
+    which arrives as NV12, and input 2, as RGBA."""
+    import numpy as np
+
+    from smelter_tpu_torch.core.types import Frame, PixelFormat
+
+    frames = renderer_inputs(n, in_w, in_h, seed)
+    y, u, v = frames["input_1"].data
+    frames["input_1"] = Frame(data=(y, np.stack([u, v], axis=-1)), format=PixelFormat.NV12,
+                              resolution=frames["input_1"].resolution, pts=0.0)
+    rgba = np.random.RandomState(seed + 100).randint(0, 256, (in_h, in_w, 4), dtype=np.uint8)
+    rgba[..., 3] = 255
+    frames["input_2"] = Frame(data=rgba, format=PixelFormat.RGBA,
+                              resolution=frames["input_2"].resolution, pts=0.0)
+    return frames
+
+
+# the compose route functions of the animated-texture phase, by route
+ANIM_ROUTES = {
+    "scaling": "_render_scaling_rect_layout",
+    "moving": "_render_moving_rect_layout",
+    "traced rotation": "_render_rotated_rect_layout_traced",
+    "roto-zoom": "_render_rotozoom_layout",
+    "sampled pass": "render_single_layout",
+}
+
+
+class RouteCounter:
+    """Counts the texture layouts each compose route function draws while
+    installed (a `with` block), as the K1 capture of `renderer_kernel_runs`
+    wraps K1 (`render_single_layout` also draws the colour layers of the
+    region-local groups: those are not counted)."""
+
+    def __init__(self):
+        self.calls = {route: 0 for route in ANIM_ROUTES}
+
+    def __enter__(self):
+        from smelter_tpu_torch.ops import compose
+
+        self._saved = {}
+        for route, name in ANIM_ROUTES.items():
+            orig = self._saved[name] = getattr(compose, name)
+
+            def counted(static, *args, _orig=orig, _route=route, **kw):
+                self.calls[_route] += static.content == "texture"
+                return _orig(static, *args, **kw)
+
+            setattr(compose, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from smelter_tpu_torch.ops import compose
+
+        for name, orig in self._saved.items():
+            setattr(compose, name, orig)
+        return False
+
+
+def start_transition(dev, n, in_w, in_h, out_w, out_h, frames, scene=renderer_scene):
+    """A renderer on `dev` that has rendered pts 0 of `scene` at stage 0
     and then been given stage 1: the transition starts at pts 0."""
     from smelter_tpu_torch.core.types import FrameSet, PixelFormat, Resolution
     from smelter_tpu_torch.render.renderer import Renderer
@@ -486,19 +605,20 @@ def start_transition(dev, n, in_w, in_h, out_w, out_h, frames):
     for iid in frames:
         r.register_input(iid)
     out = (Resolution(out_w, out_h), PixelFormat.PLANAR_YUV420)
-    r.update_scene("out", renderer_scene(out_w, out_h, n, 0), *out)
+    r.update_scene("out", scene(out_w, out_h, n, 0), *out)
     first = r.render(FrameSet(pts=0.0, frames=frames)).frames["out"].data
-    r.update_scene("out", renderer_scene(out_w, out_h, n, 1), *out)
+    r.update_scene("out", scene(out_w, out_h, n, 1), *out)
     return r, first
 
 
-def render_transition(dev, n, in_w, in_h, out_w, out_h, frames, on_frame=None):
+def render_transition(dev, n, in_w, in_h, out_w, out_h, frames, on_frame=None,
+                      scene=renderer_scene):
     """Render pts 0 (stage 0), update the scene to stage 1, render pts k/FPS
     for k = 1..N_RENDER_FRAMES. Returns the frames' planes, on `dev`;
     `on_frame(k, planes)` is called after each frame."""
     from smelter_tpu_torch.core.types import FrameSet
 
-    r, first = start_transition(dev, n, in_w, in_h, out_w, out_h, frames)
+    r, first = start_transition(dev, n, in_w, in_h, out_w, out_h, frames, scene)
     outs = [first]
     if on_frame is not None:
         on_frame(0, first)
@@ -572,22 +692,145 @@ def k3_checks(sl, cases):
     return worst
 
 
-def renderer_parity_vs_cpu(dev, n, in_w, in_h, out_w, out_h):
-    """Every frame of the renderer's transition sequence on the card against
+def renderer_parity_vs_cpu(dev, n, in_w, in_h, out_w, out_h, scene=renderer_scene,
+                           inputs=renderer_inputs, label="renderer"):
+    """Every frame of a renderer transition sequence on the card against
     the port run on the CPU, at parity_vs_cpu's tolerance."""
     from smelter_tpu_torch import interop
 
-    frames = renderer_inputs(n, in_w, in_h, seed=2)
-    ref = render_transition("cpu", n, in_w, in_h, out_w, out_h, frames)
-    got = render_transition(dev, n, in_w, in_h, out_w, out_h, frames)
+    frames = inputs(n, in_w, in_h, seed=2)
+    ref = render_transition("cpu", n, in_w, in_h, out_w, out_h, frames, scene=scene)
+    got = render_transition(dev, n, in_w, in_h, out_w, out_h, frames, scene=scene)
     mx, n_diff, n_gt1, total = 0, 0, 0, 0
     for a, b in zip(ref, got):
         m, d, g, t = lsb_stats(interop.planes_to_host(a), interop.planes_to_host(b))
         mx, n_diff, n_gt1, total = max(mx, m), n_diff + d, n_gt1 + g, total + t
-    print(f"parity card vs CPU renderer {n}x{in_w}x{in_h} -> {out_w}x{out_h}, "
+    print(f"parity card vs CPU {label} {n}x{in_w}x{in_h} -> {out_w}x{out_h}, "
           f"{len(ref)} frames: max {mx} LSB, {n_diff} of {total} pixels differ, "
           f"{n_gt1} by 2+")
-    check(mx <= 2 and n_gt1 * 10000 < total, f"renderer: card vs CPU off ({mx} LSB)")
+    check(mx <= 2 and n_gt1 * 10000 < total, f"{label}: card vs CPU off ({mx} LSB)")
+
+
+def animated_phase(dev, frames):
+    """Phase 7: the animated-texture scene at 16 x 1080p -> 4K through its
+    transition. Checks the planes of every frame, each route on the frames
+    it is expected on (2..FPS: the first frame after the update is planned
+    stable, the frames after the transition's end settle), K1 and K2 on
+    every frame, and counts the synchronising calls per frame. Then the same
+    sequence at 4 x 256x144 -> 768x432 on the card against the CPU."""
+    import torch
+
+    from smelter_tpu_torch import interop
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+
+    per_frame = []  # (k, route calls, K1, K2, syncs) after frame k
+    counter = RouteCounter()
+
+    def record(k, _planes):
+        per_frame.append((k, dict(counter.calls), scene_assembly.LAUNCHES,
+                          yuv_out.LAUNCHES, len(syncs)))
+
+    scene_assembly.LAUNCHES = 0
+    yuv_out.LAUNCHES = 0
+    sdf_layers.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs, counter:
+        warnings.simplefilter("always")
+        outs = render_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames,
+                                 on_frame=record, scene=animated_scene)
+    torch.cuda.set_sync_debug_mode("default")
+    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                "sdf_layers": sdf_layers.LAUNCHES}
+    route_frames = {route: [] for route in ANIM_ROUTES}
+    k1_frames, k2_frames, sync_by_frame = [], [], {}
+    prev = (dict.fromkeys(ANIM_ROUTES, 0), 0, 0, 0)
+    for k, calls, k1, k2, n_sync in per_frame:
+        for route in ANIM_ROUTES:
+            if calls[route] > prev[0][route]:
+                route_frames[route].append(k)
+        k1_frames += [k] if k1 > prev[1] else []
+        k2_frames += [k] if k2 > prev[2] else []
+        sync_by_frame[k] = n_sync - prev[3]
+        prev = (calls, k1, k2, n_sync)
+    print(f"animated textures: launches over {len(outs)} frames: {launches}; "
+          f"route calls: {counter.calls}")
+    expected = list(range(2, FPS + 1))
+    for route, ks in route_frames.items():
+        print(f"animated textures: route {route} taken on frames {ks}")
+        check(ks == expected, f"animated textures: route {route} on frames {ks}, "
+                              f"not {expected[0]}..{expected[-1]}")
+    every = list(range(len(outs)))
+    check(k1_frames == every, f"animated textures: K1 ran on frames {k1_frames}, not all")
+    check(k2_frames == every, f"animated textures: K2 ran on frames {k2_frames}, not all")
+    stable = [sync_by_frame[k] for k in every if k not in expected]
+    animating = [sync_by_frame[k] for k in expected]
+    print(f"animated textures: synchronising calls flagged per frame: stable frames "
+          f"{stable}, animating frames {animating}")
+    check(max(animating) == 0, "animated textures: an animating frame synchronised")
+    for k, planes in enumerate(outs):
+        check_planes(f"animated textures frame {k}", interop.planes_to_host(planes),
+                     OUT_W, OUT_H)
+    del outs
+    renderer_parity_vs_cpu(dev, 4, 256, 144, 768, 432, scene=animated_scene,
+                           inputs=animated_inputs, label="animated textures")
+    return launches
+
+
+def animated_timings(dev, frames, stamp):
+    """Frame times of the animated-texture scene (CUDA events around
+    render(), planning and uploads included), plan()'s host time on
+    animating frames, and a torch.profiler breakdown of one animating frame
+    (frame 15)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smelter_tpu_torch.core.types import FrameSet
+
+    r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames, animated_scene)
+    frame_ms, prof, prof_wall = {}, None, None
+    for k in range(1, 2 * FPS + 1):
+        fs = FrameSet(pts=k / FPS, frames=frames)
+        if k == 15:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                r.render(fs)
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t0) * 1e3
+            continue
+        frame_ms[k] = cuda_ms(lambda: r.render(fs), iters=1, warmup=0)
+    anim = [frame_ms[k] for k in range(3, FPS + 1) if k in frame_ms]
+    stable = [frame_ms[k] for k in range(FPS + 3, 2 * FPS + 1)]
+    t_anim, t_stable = statistics.median(anim), statistics.median(stable)
+    print(f"time animated textures frame 16x1080p->4K, animating ({len(anim)} frames): "
+          f"median {t_anim:.4f} ms, max {max(anim):.4f} ms {stamp}")
+    print(f"time animated textures frame 16x1080p->4K, stable ({len(stable)} frames): "
+          f"median {t_stable:.4f} ms, max {max(stable):.4f} ms {stamp}")
+    # the device's own events (kernels, copies, fills): the rows of the
+    # aten ops that launched them carry the same time again
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    frame_device_ms = sum(e.device_time_total for e in rows) / 1e3
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    print(f"profile animated textures frame 15 (16x1080p->4K): device {frame_device_ms:.4f} ms in "
+          f"{sum(e.count for e in rows)} device ops ({n_launch} kernel launches), wall "
+          f"{prof_wall:.4f} ms under the profiler, device busy "
+          f"{frame_device_ms / prof_wall:.0%} {stamp}")
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
+        print(f"  device {e.device_time_total / 1e3:.4f} ms x{e.count}: {e.key[:100]}")
+    r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames, animated_scene)
+    prog = r._programs["out"]
+    plan_ms = []
+    for k in range(1, FPS + 1):
+        t0 = time.perf_counter()
+        prog.plan(k / FPS, frames)
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    t_plan = statistics.median(plan_ms[2:])
+    print(f"time animated textures plan() on the host, animating frames: median "
+          f"{t_plan:.4f} ms {stamp}")
+    return dict(anim_ms=t_anim, stable_ms=t_stable, plan_ms=t_plan, device_ms=frame_device_ms,
+                launches=n_launch)
 
 
 def host_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
@@ -730,7 +973,11 @@ def main() -> int:
     del outs
     renderer_parity_vs_cpu(dev, 4, 256, 144, 768, 432)
 
-    # phase 7: timings (medians of ITERS runs after WARMUP)
+    # phase 7: animated textures, 16 x 1080p (one NV12, one RGBA) -> 4K
+    anim_frames = animated_inputs(N_INPUTS, IN_W, IN_H, seed=5)
+    anim_launches = animated_phase(dev, anim_frames)
+
+    # phase 8: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
     # synchronised call (cuda_ms), "plain" = the plain version, one call;
     # "bound" from this run's inputs: the bytes each must move and the
@@ -851,6 +1098,9 @@ def main() -> int:
     print(f"time renderer plan() on the host, 16 inputs + 2 overlays: stable "
           f"{t_plan_stable:.4f} ms, animating {t_plan_anim:.4f} ms (median); of "
           f"which packing the input planes into pinned memory {t_pack:.4f} ms")
+    anim_times = animated_timings(dev, anim_frames, stamp)
+    print(json.dumps({"animated_textures": {"kernel_launches": anim_launches, **anim_times,
+                                            "card": card}}))
 
     check("jax" not in sys.modules, "the port imported jax")
     # no single PyTorch call computes any of the three functions:

@@ -1,12 +1,15 @@
 """BT.709 colour conversion for the compose path.
 
-Port of the pieces of `smelter_tpu/ops/color_convert.py` that the flagship
-slice runs: u8 <-> f32, RGB planes -> YUV, the 2x2 chroma mean, the
-deferred-YUV tile convert (`yuv_tile_rgba_cm`) and the channel-major
+Port of `smelter_tpu/ops/color_convert.py` but its 4:2:2/4:4:4/NV12
+output converters: u8 <-> f32, YUV <-> RGB, the chroma up- and
+down-sampling, the deferred-YUV tile convert (`yuv_tile_rgba_cm`), the
+full-resolution RGBA conversion of every input format
+(`convert_to_rgba_f32`, `DeferredYuvSource.mips`) and the channel-major
 canvas -> YUV420 output, which runs kernel K2 (`ops/hopper/yuv_out.py`).
 
 Everything is f32 in [0, 1]; constants and operation order follow the
-reference so that the two packages agree to the u8 LSB.
+reference so that the two packages agree to the u8 LSB. Internal RGBA
+textures are not premultiplied here (they are opaque or straight alpha).
 """
 
 from __future__ import annotations
@@ -17,7 +20,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from smelter_tpu_torch.ops.resample import _dense_axis_weights, device_weights, to_bf16_values
+from smelter_tpu_torch.core.types import PixelFormat
+from smelter_tpu_torch.ops.resample import (
+    _dense_axis_weights,
+    build_mips,
+    device_weights,
+    to_bf16_values,
+)
 
 # Limited-range footroom/scale: Y in [16, 235], UV in [16, 240] (8-bit).
 _Y_SCALE = 219.0 / 255.0
@@ -32,6 +41,55 @@ def u8_to_f32(x: torch.Tensor) -> torch.Tensor:
 def f32_to_u8(x: torch.Tensor) -> torch.Tensor:
     # torch.round rounds half to even, as jnp.round does
     return torch.clamp(torch.round(x * 255.0), 0.0, 255.0).to(torch.uint8)
+
+
+def _expand_range(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Limited -> full range (inverse footroom), clamped like the reference."""
+    y = torch.clamp((y - _FOOTROOM) / _Y_SCALE, 0.0, 1.0)
+    u = torch.clamp((u - _FOOTROOM) / _UV_SCALE, 0.0, 1.0)
+    v = torch.clamp((v - _FOOTROOM) / _UV_SCALE, 0.0, 1.0)
+    return y, u, v
+
+
+def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+               full_range: bool = False) -> torch.Tensor:
+    """BT.709 YUV (all planes the same shape, [0, 1]) -> RGB (H, W, 3) in
+    [0, 1]."""
+    if not full_range:
+        y, u, v = _expand_range(y, u, v)
+    u = u - 0.5
+    v = v - 0.5
+    r = y + 1.5748 * v
+    g = y - 0.1873 * u - 0.4681 * v
+    b = y + 1.8556 * u
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 1.0)
+
+
+def _upsample_axis(plane: torch.Tensor, dim: int) -> torch.Tensor:
+    """Double `plane` along `dim` (0 or 1): output index i samples the
+    source at (i + 0.5) / 2 - 0.5, blending the two texels around it."""
+    n = plane.shape[dim]
+    pos = (torch.arange(2 * n, device=plane.device) + 0.5) / 2.0 - 0.5
+    i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 1)
+    i1 = torch.clamp(i0 + 1, 0, n - 1)
+    frac = torch.clamp(pos - torch.floor(pos), 0.0, 1.0)
+    if dim == 0:
+        frac = frac[:, None]
+    return (plane.index_select(dim, i0) * (1.0 - frac)
+            + plane.index_select(dim, i1) * frac)
+
+
+def upsample_chroma_bilinear(plane: torch.Tensor, sx: int, sy: int) -> torch.Tensor:
+    """Upsample a chroma plane by (sy vertical, sx horizontal) as a GPU
+    linear sampler reading the small texture at full-resolution normalized
+    coordinates (texel-center aligned bilinear). The reference's gather
+    form, rows first, so that the rounding matches."""
+    out = plane
+    if sy == 2:
+        out = _upsample_axis(out, 0)
+    if sx == 2:
+        out = _upsample_axis(out, 1)
+    return out
 
 
 def rgb_planes_to_yuv(r, g, b, full_range: bool = False):
@@ -150,17 +208,110 @@ def yuv_tile_rgba_cm(
 
 class DeferredYuvSource:
     """Planar-YUV input whose RGBA conversion is deferred: static texture
-    layouts crop+resize the subsampled planes directly (`tile_cm`)."""
+    layouts crop+resize the subsampled planes directly (`tile_cm`); the
+    layouts that need full-resolution RGBA mips (the sampled pass, traced
+    sizes) call `mips`, which converts once per frame."""
 
-    def __init__(self, y, u, v, full_range: bool = False):
+    def __init__(self, y, u, v, full_range: bool = False, mip_levels: int = 1):
         self.planes = (y, u, v)
         self.full_range = full_range
+        self._levels = mip_levels
+        self._mips = None
 
     def tile_cm(self, crop, out_h: int, out_w: int) -> torch.Tensor:
         y, u, v = self.planes
         return yuv_tile_rgba_cm(
             y, u, v, crop, out_h, out_w, full_range=self.full_range
         )
+
+    def mips(self) -> list:
+        if self._mips is None:
+            rgba = planar_yuv_to_rgba(*self.planes, full_range=self.full_range)
+            self._mips = build_mips(rgba, self._levels)
+        return self._mips
+
+
+# ---------------------------------------------------------------------------
+# Input frames -> full-resolution (H, W, 4) f32 RGBA (alpha 1 for YUV)
+# ---------------------------------------------------------------------------
+
+
+def planar_yuv_to_rgba(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       full_range: bool = False) -> torch.Tensor:
+    """Planar YUV u8 (any subsampling; the u/v shape gives it) -> (H, W, 4)
+    f32. Unlike `yuv_tile_rgba_cm`, the range expansion and the RGB clamp
+    apply per pixel at full resolution, as in the reference."""
+    sy = y.shape[0] // u.shape[0]
+    sx = y.shape[1] // u.shape[1]
+    uf = upsample_chroma_bilinear(u8_to_f32(u), sx, sy)
+    vf = upsample_chroma_bilinear(u8_to_f32(v), sx, sy)
+    rgb = yuv_to_rgb(u8_to_f32(y), uf, vf, full_range)
+    alpha = torch.ones(rgb.shape[:2] + (1,), dtype=rgb.dtype, device=rgb.device)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def nv12_to_rgba(y: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """NV12: y (H, W) u8, uv (H/2, W/2, 2) u8 -> (H, W, 4) f32 (limited range)."""
+    return planar_yuv_to_rgba(y, uv[..., 0], uv[..., 1], full_range=False)
+
+
+def _interleaved_422_to_rgba(data: torch.Tensor, y0: int, u: int, y1: int,
+                             v: int) -> torch.Tensor:
+    """(H, W/2, 4) u8 4:2:2 pairs with the channels of Y0, U, Y1, V at the
+    given positions -> (H, W, 4) f32."""
+    y = torch.stack([data[..., y0], data[..., y1]], dim=-1).reshape(
+        data.shape[0], data.shape[1] * 2)
+    return planar_yuv_to_rgba(y, data[..., u], data[..., v], full_range=False)
+
+
+def interleaved_yuyv_to_rgba(data: torch.Tensor) -> torch.Tensor:
+    """YUYV 4:2:2: data (H, W/2, 4) u8 = [Y0, U, Y1, V] -> (H, W, 4) f32."""
+    return _interleaved_422_to_rgba(data, 0, 1, 2, 3)
+
+
+def interleaved_uyvy_to_rgba(data: torch.Tensor) -> torch.Tensor:
+    """UYVY 4:2:2: data (H, W/2, 4) u8 = [U, Y0, V, Y1] -> (H, W, 4) f32."""
+    return _interleaved_422_to_rgba(data, 1, 0, 3, 2)
+
+
+def _channels(data: torch.Tensor, order) -> torch.Tensor:
+    """data[..., order] from slices: a list index would copy the index list
+    to the device and wait for it."""
+    return torch.stack([data[..., c] for c in order], dim=-1)
+
+
+def bgra_to_rgba(data: torch.Tensor) -> torch.Tensor:
+    return u8_to_f32(_channels(data, (2, 1, 0, 3)))
+
+
+def argb_to_rgba(data: torch.Tensor) -> torch.Tensor:
+    return u8_to_f32(_channels(data, (1, 2, 3, 0)))
+
+
+def rgba_u8_to_f32(data: torch.Tensor) -> torch.Tensor:
+    return u8_to_f32(data)
+
+
+def convert_to_rgba_f32(format_name: str, planes) -> torch.Tensor:
+    """Dispatch by pixel format name -> (H, W, 4) f32 RGBA in [0, 1]."""
+    fmt = PixelFormat(format_name)
+    if fmt.is_planar_yuv:
+        y, u, v = planes
+        return planar_yuv_to_rgba(y, u, v, full_range=fmt.is_full_range)
+    if fmt == PixelFormat.NV12:
+        y, uv = planes
+        return nv12_to_rgba(y, uv)
+    if fmt == PixelFormat.INTERLEAVED_YUYV422:
+        return interleaved_yuyv_to_rgba(planes)
+    if fmt == PixelFormat.INTERLEAVED_UYVY422:
+        return interleaved_uyvy_to_rgba(planes)
+    if fmt == PixelFormat.RGBA:
+        return rgba_u8_to_f32(planes)
+    if fmt == PixelFormat.BGRA:
+        return bgra_to_rgba(planes)
+    if fmt == PixelFormat.ARGB:
+        return argb_to_rgba(planes)
+    raise ValueError(f"unsupported pixel format {format_name}")
 
 
 def planar_rgba_to_yuv420(
@@ -171,3 +322,12 @@ def planar_rgba_to_yuv420(
     from smelter_tpu_torch.ops.hopper import yuv_out
 
     return yuv_out.rgba_cm_to_yuv420(rgba_cm, full_range)
+
+
+def rgba_to_planar_yuv420(
+    rgba: torch.Tensor, full_range: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(H, W, 4) RGBA f32 [0, 1] -> (y, u, v) u8 planes, 4:2:0: the same
+    function as `planar_rgba_to_yuv420` on the channel-major copy (the
+    reference's interleaved converter runs the same operations)."""
+    return planar_rgba_to_yuv420(rgba.permute(2, 0, 1).contiguous(), full_range)

@@ -1,5 +1,4 @@
-"""Layout compositing: the static-rect (region-local) paths of
-`smelter_tpu/ops/compose.py`.
+"""Layout compositing, ported from `smelter_tpu/ops/compose.py`.
 
 The working canvas is channel-major (4, H, W) premultiplied f32. Layouts
 blend in paint order with premultiplied OVER. Each layout whose rect is
@@ -13,12 +12,19 @@ A run of such layouts that opens the canvas paints its colour and shadow
 members in one pass of kernel K1 (`ops/hopper/scene_assembly.py`), which
 creates the canvas; the textures then blend in coalesced union groups.
 
-Colour and box-shadow layouts without a static rect (animating geometry)
-render over the full canvas: a run of unmasked ones in one pass of kernel K3
-(`ops/hopper/sdf_layers.py`), a masked one through the sampled full-canvas
-pass (`render_single_layout`). Textures with animating geometry (traced
-position, size or rotation) are not ported yet: they raise
-NotImplementedError naming their ROADMAP item.
+Textures whose geometry animates take the traced routes, which read the
+animated numbers on the device and never wait for the host:
+  - moving (position animates): a static-size tile placed at the rounded
+    position (`_place_tile_traced`, index tensors on the device);
+  - scaling (size or crop animates): `resize_matmul_traced` into a 64-px
+    bucketed buffer, then the same placement;
+  - traced rotation (angle animates, rect stable): `rotate_traced_cm`;
+  - roto-zoom (size and angle animate): both.
+Colour and box-shadow layouts without a static rect render over the full
+canvas: a run of unmasked ones in one pass of kernel K3
+(`ops/hopper/sdf_layers.py`); any other layout (masked, or a texture off
+every route above) through the sampled full-canvas pass
+(`render_single_layout`, bilinear mip sampling for textures).
 
 Scalar parameters are 0-d f32 tensors, as the reference's traced scalars
 are f32, so that every intermediate rounds as it does there.
@@ -35,15 +41,20 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from smelter_tpu_torch.ops.resample import resize_matmul
-from smelter_tpu_torch.ops.rotate import rotate_static_cm, rotated_bbox
+from smelter_tpu_torch.ops.resample import (
+    resize_matmul,
+    resize_matmul_traced,
+    sample_bilinear,
+    sample_bilinear_mip,
+)
+from smelter_tpu_torch.ops.rotate import (
+    rotate_static_cm,
+    rotate_traced_cm,
+    rotated_bbox,
+    traced_work_size,
+)
 
 MAX_MASKS_COUNT = 20
-
-_TRACED_GEOMETRY = (
-    "texture layouts off the static-rect paths (animating position, size or "
-    "rotation) are not ported yet: ROADMAP Queue 1 item 6"
-)
 
 
 @dataclass(frozen=True)
@@ -150,6 +161,14 @@ def _over(layer: torch.Tensor, under: torch.Tensor) -> torch.Tensor:
     return layer + under * (1.0 - layer[3:4])
 
 
+def _src_mips(src) -> Sequence:
+    """Full-resolution RGBA mip list of a source (a deferred planar-YUV
+    source converts on first use within the frame)."""
+    if hasattr(src, "mips"):
+        return src.mips()
+    return src if isinstance(src, (list, tuple)) else [src]
+
+
 def _src_tile_cm(src, crop, out_h: int, out_w: int) -> torch.Tensor:
     """Channel-major (4, out_h, out_w) f32 tile: the source's `crop` window
     resized by GEMMs. Deferred planar-YUV sources crop and resize their
@@ -170,11 +189,9 @@ def render_single_layout(
     px: torch.Tensor,  # (H, W) output pixel-center x coords
     py: torch.Tensor,  # (H, W) output pixel-center y coords
 ) -> torch.Tensor:
-    """The layout's premultiplied RGBA contribution (4, H, W): the colour and
-    box-shadow branches. Sampled textures (the texture branch of the
-    reference) are not ported yet."""
-    if static.content not in ("color", "box_shadow"):
-        raise NotImplementedError(_TRACED_GEOMETRY)
+    """The layout's premultiplied RGBA contribution (4, H, W); a texture is
+    sampled bilinearly from its source's mips at the pixels' positions in
+    its crop."""
     w = params.width
     h = params.height
     cx = params.left + w * 0.5
@@ -198,14 +215,37 @@ def render_single_layout(
         a = smoothstep(-blur * 0.5, blur * 0.5, edge) * mask_alpha
         return _premultiply(params.color) * a[None]
 
-    content = _premultiply(params.color).expand((4,) + tuple(px.shape))
+    if static.content == "color":
+        content = _premultiply(params.color).expand((4,) + tuple(px.shape))
+    else:  # texture
+        mips = _src_mips(sources[static.source_index])
+        crop_top, crop_left = params.crop[0], params.crop[1]
+        crop_w, crop_h = params.crop[2], params.crop[3]
+        # local rect coords in [0, w) x [0, h) -> source pixels inside crop
+        u = (dx + w * 0.5) / torch.clamp(w, min=1e-6)
+        v = (dy + h * 0.5) / torch.clamp(h, min=1e-6)
+        sx = crop_left + u * crop_w - 0.5
+        sy = crop_top + v * crop_h - 0.5
+        if len(mips) > 1:
+            scale = torch.maximum(crop_w / torch.clamp(w, min=1e-6),
+                                  crop_h / torch.clamp(h, min=1e-6))
+            content = sample_bilinear_mip(list(mips), sy, sx, scale)
+        else:
+            content = sample_bilinear(mips[0], sy, sx)
+        # the sampled texels are (H, W, 4): made channel-major in memory, or
+        # the layer's strides would pass to the canvas blended under it
+        content = content.permute(2, 0, 1).contiguous()
+
     if not static.has_border:
         a = smoothstep(-0.5, 0.5, edge) * mask_alpha
         return content * a[None]
 
     bw = params.border_width
     border_color = _premultiply(params.border_color)
-    border_alpha = smoothstep(bw, bw + 1.0, edge)
+    if static.content == "color":
+        border_alpha = smoothstep(bw, bw + 1.0, edge)
+    else:
+        border_alpha = smoothstep(bw - 0.5, bw + 0.5, edge)
     inner = border_color + (content - border_color) * border_alpha[None]
     content_alpha = smoothstep(-0.5, 0.5, edge)
     outer = border_color * content_alpha[None]
@@ -318,25 +358,10 @@ def _prepare_rect_tile(
     the rect's local axis-aligned frame. Returns channel-major (4, h, w)."""
     top, left, h, w = static.static_rect  # type: ignore[misc]
     tile = _src_tile_cm(sources[static.source_index], static.static_crop, h, w)
-
-    rw, rh = params.width, params.height
     dev = tile.device
     ly = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None] - h * 0.5
     lx = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :] - w * 0.5
-    dy = ly.expand(h, w)
-    dx = lx.expand(h, w)
-    edge = -rounded_rect_sdf(dx, dy, rw * 0.5, rh * 0.5, params.border_radius)
-    if static.has_border:
-        bw = params.border_width
-        border_color = _premultiply(params.border_color)
-        border_alpha = smoothstep(bw - 0.5, bw + 0.5, edge)
-        inner = border_color + (tile - border_color) * border_alpha[None]
-        content_alpha = smoothstep(-0.5, 0.5, edge)
-        outer = border_color * content_alpha[None]
-        tile = torch.where((edge > bw * 0.5)[None], inner, outer)
-    else:
-        tile = tile * smoothstep(-0.5, 0.5, edge)[None]
-    return tile
+    return _local_edge(tile, static, params, ly.expand(h, w), lx.expand(h, w))
 
 
 def _apply_masks_region(tile, static: LayoutStatic, params: LayoutParams,
@@ -348,6 +373,171 @@ def _apply_masks_region(tile, static: LayoutStatic, params: LayoutParams,
     h, w = tile.shape[1], tile.shape[2]
     px, py = _pixel_centers(origin_y, origin_x, h, w, tile.device)
     return tile * _mask_alpha(px, py, params, static.n_masks, static.rotated_masks)[None]
+
+
+def _apply_masks_local(tile, static: LayoutStatic, params: LayoutParams):
+    """Apply parent masks to a (4, h, w) tile whose canvas origin is the
+    layout's animated (top, left), so the masks may animate too (the clip
+    rect of a fill-mode Rescaler while it zooms)."""
+    if not static.n_masks:
+        return tile
+    h, w = tile.shape[1], tile.shape[2]
+    dev = tile.device
+    py = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None] + params.top
+    px = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :] + params.left
+    px, py = px.expand(h, w), py.expand(h, w)
+    return tile * _mask_alpha(px, py, params, static.n_masks, static.rotated_masks)[None]
+
+
+def _blend_region(canvas, layer, otop: int, oleft: int) -> torch.Tensor:
+    """OVER-blend a premultiplied (4, h, w) layer at a static integer
+    origin, clipped, in place."""
+    H, W = canvas.shape[1], canvas.shape[2]
+    bh, bw_ = layer.shape[1], layer.shape[2]
+    y0, y1 = max(otop, 0), min(otop + bh, H)
+    x0, x1 = max(oleft, 0), min(oleft + bw_, W)
+    if y0 >= y1 or x0 >= x1:
+        return canvas
+    vis = layer[:, y0 - otop : y1 - otop, x0 - oleft : x1 - oleft]
+    canvas[:, y0:y1, x0:x1] = _over(vis, canvas[:, y0:y1, x0:x1])
+    return canvas
+
+
+def _traced_window(start: torch.Tensor, n: int, N: int):
+    """One axis of `_place_tile_traced`: a tile of n pixels whose first
+    pixel lands at `start` (int64, 0-d, on the device) on an axis of N.
+    Returns (canvas indices, tile indices, valid): the canvas window of
+    min(n, N) pixels that holds what of the tile lands on the canvas, the
+    tile pixel over each (clamped into the tile) and whether it is one."""
+    wn = min(n, N)
+    s = torch.clamp(start, 0, N - wn)
+    idx = s + torch.arange(wn, device=start.device)
+    src = idx - start
+    valid = (src >= 0) & (src < n)
+    return idx, torch.clamp(src, 0, n - 1), valid
+
+
+def _place_tile_traced(canvas, tile, top, left) -> torch.Tensor:
+    """OVER-blend a premultiplied (4, h, w) tile at an animated position
+    (0-d tensors, rounded to the pixel), clipped, in place.
+
+    The reference takes a canvas window of the tile's size at the start
+    clamped into the canvas and shifts the tile inside it (a tile larger
+    than the canvas blends over the whole canvas). Here the window and the
+    shift are index tensors computed on the device, the tile and the window
+    are gathered with them and the window written back, so placing waits
+    for no host value; the clamp keeps the indices in bounds and unique.
+    Window pixels the tile misses blend a zero layer, which leaves them as
+    they were."""
+    H, W = canvas.shape[1], canvas.shape[2]
+    h, w = tile.shape[1], tile.shape[2]
+    ty = torch.clamp(torch.round(top).to(torch.int64), -h, H)
+    tx = torch.clamp(torch.round(left).to(torch.int64), -w, W)
+    rows, src_r, valid_r = _traced_window(ty, h, H)
+    cols, src_c, valid_c = _traced_window(tx, w, W)
+    shifted = tile[:, src_r[:, None], src_c[None, :]]
+    shifted = torch.where(valid_r[:, None] & valid_c[None, :], shifted, 0.0)
+    window = (slice(None), rows[:, None], cols[None, :])
+    canvas[window] = _over(shifted, canvas[window])
+    return canvas
+
+
+def _local_edge(tile, static: LayoutStatic, params: LayoutParams,
+                dy, dx) -> torch.Tensor:
+    """Edge alpha and border of a texture tile in the rect's local frame
+    (dy, dx: offsets of the tile's pixels from the rect center)."""
+    rw, rh = params.width, params.height
+    edge = -rounded_rect_sdf(dx, dy, rw * 0.5, rh * 0.5, params.border_radius)
+    if static.has_border:
+        bw = params.border_width
+        border_color = _premultiply(params.border_color)
+        border_alpha = smoothstep(bw - 0.5, bw + 0.5, edge)
+        inner = border_color + (tile - border_color) * border_alpha[None]
+        content_alpha = smoothstep(-0.5, 0.5, edge)
+        outer = border_color * content_alpha[None]
+        return torch.where((edge > bw * 0.5)[None], inner, outer)
+    return tile * smoothstep(-0.5, 0.5, edge)[None]
+
+
+def _render_rotated_rect_layout_traced(static: LayoutStatic, params: LayoutParams,
+                                       sources: Sequence, canvas) -> torch.Tensor:
+    """Animated angle, stable rect and crop: the upright tile turned by
+    `rotate_traced_cm` inside its bounding-circle square, masked, and
+    blended at the square's static origin. The static quarter-turn bucket
+    keeps the animated residual in [-45, 45]."""
+    top, left, h, w = static.static_rect  # type: ignore[misc]
+    tile = _prepare_rect_tile(static, params, sources)
+    rotated = rotate_traced_cm(tile, params.rotation_degrees,
+                               static.traced_rotation_q)  # type: ignore[arg-type]
+    S = traced_work_size(h, w)
+    oy = top + (h - S) // 2
+    ox = left + (w - S) // 2
+    rotated = _apply_masks_region(rotated, static, params, oy, ox)
+    return _blend_region(canvas, rotated, oy, ox)
+
+
+def _render_moving_rect_layout(static: LayoutStatic, params: LayoutParams,
+                               sources: Sequence, canvas) -> torch.Tensor:
+    """Animated position, stable size and crop (slide transitions): the
+    tile is prepared at its static size and placed at the rounded animated
+    position (`_place_tile_traced`); sub-pixel motion rounds to the pixel
+    while it animates."""
+    tile = _prepare_rect_tile(static, params, sources)
+    tile = _apply_masks_local(tile, static, params)
+    return _place_tile_traced(canvas, tile, params.top, params.left)
+
+
+def _render_scaling_rect_layout(static: LayoutStatic, params: LayoutParams,
+                                sources: Sequence, canvas) -> torch.Tensor:
+    """Animated size or crop (zoom transitions): the source's level 0
+    resized to the animated size inside the 64-px bucketed buffer
+    (`resize_matmul_traced`, weights built on the device from the size and
+    crop), edges and border in the local frame with the animated extents
+    (which also clear the buffer outside the rect), then masks and the
+    animated placement."""
+    bh, bw_ = static.traced_size_buf  # type: ignore[misc]
+    img = _src_mips(sources[static.source_index])[0]
+    tile = resize_matmul_traced(
+        img.permute(2, 0, 1), bh, bw_, params.height, params.width,
+        crop=(params.crop[0], params.crop[1], params.crop[2], params.crop[3]),
+    )
+    dev = tile.device
+    dy = (torch.arange(bh, dtype=torch.float32, device=dev) + 0.5)[:, None] - params.height * 0.5
+    dx = (torch.arange(bw_, dtype=torch.float32, device=dev) + 0.5)[None, :] - params.width * 0.5
+    tile = _local_edge(tile, static, params, dy.expand(bh, bw_), dx.expand(bh, bw_))
+    tile = _apply_masks_local(tile, static, params)
+    return _place_tile_traced(canvas, tile, params.top, params.left)
+
+
+def _render_rotozoom_layout(static: LayoutStatic, params: LayoutParams,
+                            sources: Sequence, canvas) -> torch.Tensor:
+    """Size and angle (and maybe position and crop) animating together: the
+    animated resize centered in the bucketed buffer, edges in the local
+    frame, `rotate_traced_cm` about the buffer center, then the
+    canvas-aligned masks and the animated placement of the square."""
+    bh, bw_ = static.traced_size_buf  # type: ignore[misc]
+    img = _src_mips(sources[static.source_index])[0]
+    tile = resize_matmul_traced(
+        img.permute(2, 0, 1), bh, bw_, params.height, params.width,
+        crop=(params.crop[0], params.crop[1], params.crop[2], params.crop[3]),
+        centered=True,
+    )
+    dev = tile.device
+    dy = (torch.arange(bh, dtype=torch.float32, device=dev) + 0.5)[:, None] - bh * 0.5
+    dx = (torch.arange(bw_, dtype=torch.float32, device=dev) + 0.5)[None, :] - bw_ * 0.5
+    tile = _local_edge(tile, static, params, dy.expand(bh, bw_), dx.expand(bh, bw_))
+    rotated = rotate_traced_cm(tile, params.rotation_degrees,
+                               static.traced_rotation_q)  # type: ignore[arg-type]
+    S = traced_work_size(bh, bw_)
+    cy = params.top + params.height * 0.5
+    cx = params.left + params.width * 0.5
+    if static.n_masks:
+        # the masks are canvas-axis-aligned: they apply after the rotation
+        my = (torch.arange(S, dtype=torch.float32, device=dev) + 0.5)[:, None] - S * 0.5 + cy
+        mx = (torch.arange(S, dtype=torch.float32, device=dev) + 0.5)[None, :] - S * 0.5 + cx
+        rotated = rotated * _mask_alpha(mx.expand(S, S), my.expand(S, S), params,
+                                        static.n_masks, static.rotated_masks)[None]
+    return _place_tile_traced(canvas, rotated, cy - S * 0.5, cx - S * 0.5)
 
 
 def _blend_group(canvas, members, union, sources, h: int, w: int):
@@ -522,9 +712,11 @@ def compose_layouts(
     Consecutive region-local layouts whose footprints overlap (a tile's
     shadow + backdrop + content) coalesce into one union-region blend chain:
     one canvas region read and one write per group instead of one per
-    layout — premultiplied OVER is associative, so grouping is exact. A run
-    of unmasked colour/box-shadow layouts without a static rect blends in
-    one pass of kernel K3; a masked one takes the sampled full-canvas pass.
+    layout — premultiplied OVER is associative, so grouping is exact.
+    Routes, tried in the reference's order for each layout: moving, roto-zoom,
+    scaling, the region-local run (K1 opening the canvas), traced rotation,
+    a run of unmasked colour/box-shadow layouts without a static rect (one
+    pass of kernel K3), and the sampled full-canvas pass for the rest.
 
     `cache`: a dict the caller owns that keeps on the device what the
     statics fix (K1's member spec table, K3's kinds table); pass the same
@@ -553,13 +745,28 @@ def compose_layouts(
             return st.static_rotation is not None
         return True
 
-    def _zeros():
-        return torch.zeros((4, h, w), dtype=torch.float32, device=device)
+    def _opened(canvas):
+        """The canvas, or a transparent one where nothing opened it yet."""
+        if canvas is None:
+            return torch.zeros((4, h, w), dtype=torch.float32, device=device)
+        return canvas
 
     _clip = canvas_clipper(h, w)
     i = 0
     while i < len(items):
         st, p = items[i]
+        texture = st.content == "texture"
+        if (st.traced_position and st.static_rect is not None
+                and st.static_rect[2] <= h and st.static_rect[3] <= w):
+            canvas = _render_moving_rect_layout(st, p, sources, _opened(canvas))
+            i += 1
+            continue
+        if texture and st.traced_size_buf is not None:
+            route = (_render_rotozoom_layout if st.traced_rotation_q is not None
+                     else _render_scaling_rect_layout)
+            canvas = route(st, p, sources, _opened(canvas))
+            i += 1
+            continue
         if _local(st):
             run_end = i
             while run_end < len(items) and _local(items[run_end][0]):
@@ -573,15 +780,14 @@ def compose_layouts(
                                                 _clip, cache)
                 if assembled is not None:
                     canvas, run_items = assembled
-            if canvas is None:
-                canvas = _zeros()
-            canvas = _assemble_local_run(canvas, run_items, sources, h, w, _clip)
+            canvas = _assemble_local_run(_opened(canvas), run_items, sources, h, w, _clip)
             i = run_end
             continue
-        if canvas is None:
-            canvas = _zeros()
-        if st.content == "texture":
-            raise NotImplementedError(_TRACED_GEOMETRY)
+        canvas = _opened(canvas)
+        if texture and st.static_rect is not None and st.traced_rotation_q is not None:
+            canvas = _render_rotated_rect_layout_traced(st, p, sources, canvas)
+            i += 1
+            continue
         # a run of full-canvas unmasked colour/box-shadow layers: one K3 pass
         # (one canvas read and write for the whole run)
         j = i
@@ -604,11 +810,11 @@ def compose_layouts(
                 canvas.contiguous(), rows, kinds, table)
             i = j
             continue
-        # a masked colour/box-shadow layer: the sampled full-canvas pass
+        # anything else (a masked colour/box-shadow layer, a texture off the
+        # routes above): the sampled full-canvas pass
         if px is None:
             px, py = _pixel_centers(0, 0, h, w, device)
         canvas = _over(render_single_layout(st, p, sources, px, py), canvas)
         i += 1
-    if canvas is None:
-        canvas = _zeros()
+    canvas = _opened(canvas)
     return canvas if planar else canvas.permute(1, 2, 0)

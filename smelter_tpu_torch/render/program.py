@@ -16,13 +16,14 @@ A "build" compiles nothing: it is a closure over the structure's statics
 plus a per-structure device cache of what the statics fix (K1's member spec
 table, K3's kinds table; never parameters). Scene transitions change only
 numbers, and the structure only where the planner moves a layout between
-the stable (region-local) and animating (full-canvas) routes.
+the stable (region-local) and animating (traced or full-canvas) routes.
 
-Ported: InputStream (planar YUV inputs, deferred YUV sources) and layout
-nodes (View, Tiles, Rescaler), the YUV grid program, RGBA and PLANAR_YUV420
-outputs. Shader, text, image and web nodes (ROADMAP Queue 1 item 7), other
-input and output formats (item 1) and textures with animating geometry
-(item 6) raise NotImplementedError.
+Ported: InputStream nodes in every input format (planar YUV as deferred
+YUV sources, the others converted to a full-resolution RGBA mip pyramid),
+also as the scene's root; layout nodes (View, Tiles, Rescaler) with every
+animated-geometry route; the YUV grid program; RGBA and PLANAR_YUV420
+outputs. Shader, text, image and web nodes (ROADMAP Queue 1 item 7) and
+other output formats (item 1) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -697,10 +698,6 @@ class OutputProgram:
             raise NotImplementedError(
                 f"output format {out_format.value} is not ported yet: "
                 "ROADMAP Queue 1 item 1")
-        if not isinstance(root.params, LayoutNode):
-            raise NotImplementedError(
-                "a scene root that is not a layout (View, Tiles, Rescaler) is "
-                "not ported yet: ROADMAP Queue 1 item 1 (planar_yuv_to_rgba)")
         input_formats = {
             iid: (f.format, f.resolution) for iid, f in input_frames.items()
         }
@@ -714,10 +711,6 @@ class OutputProgram:
                 and part[2] in input_frames
             ):
                 used[part[2]] = input_frames[part[2]]
-                if not used[part[2]].format.is_planar_yuv:
-                    raise NotImplementedError(
-                        f"input format {used[part[2]].format.value} is not "
-                        "ported yet: ROADMAP Queue 1 item 1")
         access = _InputAccess(used)
         static_statics: Dict[int, Tuple[LayoutStatic, ...]] = {}
         layout_sources: Dict[int, Tuple[int, ...]] = {}
@@ -744,7 +737,9 @@ class OutputProgram:
         # what the statics fix, on the device, per layout node
         caches: Dict[int, dict] = {nid: {} for nid in static_statics}
         dummy = torch.zeros((2, 2, 4), dtype=torch.float32, device=device)
-        root_planar = out_format != PixelFormat.RGBA
+        # a YUV-bound root layout canvas stays channel-major end to end
+        root_planar = (isinstance(root.params, LayoutNode)
+                       and out_format != PixelFormat.RGBA)
 
         def run(frame_buf, raw_planes, packed_params):
             layout_params = _unpack_layout_params(packed_params, static_statics)
@@ -765,11 +760,17 @@ class OutputProgram:
                     if p.input_id not in access.specs:
                         return None
                     if p.input_id not in input_memo:
-                        fmt, _ = input_formats[p.input_id]
+                        fmt, res = input_formats[p.input_id]
                         planes = access.get(p.input_id, frame_buf, raw_planes)
-                        # fast-path layouts crop+resize the subsampled planes
-                        input_memo[p.input_id] = cc.DeferredYuvSource(
-                            *planes, full_range=fmt.is_full_range)
+                        if fmt.is_planar_yuv:
+                            # static layouts crop+resize the subsampled planes;
+                            # the traced and sampled routes call .mips()
+                            input_memo[p.input_id] = cc.DeferredYuvSource(
+                                *planes, full_range=fmt.is_full_range,
+                                mip_levels=_mip_levels(res))
+                        else:
+                            rgba = cc.convert_to_rgba_f32(fmt.value, planes)
+                            input_memo[p.input_id] = build_mips(rgba, _mip_levels(res))
                     return input_memo[p.input_id]
                 # a layout node: sources are looked up by node id (collapse
                 # may reference grandchildren); only referenced nodes are
@@ -779,7 +780,6 @@ class OutputProgram:
                     r = eval_node(nodes[sid])
                     sources.append(r if r is not None else [dummy])
                 res = resolution if is_root else _layout_res_from_key(key, nid)
-                # a YUV-bound root canvas stays channel-major end to end
                 canvas = compose_layouts(
                     (res.width, res.height), static_statics[nid],
                     layout_params[nid], sources,
@@ -790,13 +790,29 @@ class OutputProgram:
                     return [canvas]
                 return build_mips(canvas, _mip_levels(res))
 
-            rgba = eval_node(root)[0]
+            out = eval_node(root)
+            if out is None:  # a bare InputStream root with no frame
+                rgba = torch.zeros((resolution.height, resolution.width, 4),
+                                   dtype=torch.float32, device=device)
+            else:
+                rgba = _full_rgba(out)
             # un-premultiply is NOT done: outputs are opaque video frames
             if out_format == PixelFormat.PLANAR_YUV420:
-                return cc.planar_rgba_to_yuv420(rgba)
+                if root_planar:
+                    return cc.planar_rgba_to_yuv420(rgba)
+                return cc.rgba_to_planar_yuv420(rgba)
             return cc.f32_to_u8(rgba).contiguous()
 
         return run
+
+
+def _full_rgba(src):
+    """Full-resolution (H, W, 4) f32 RGBA of an eval_node result (a mip
+    list, or a DeferredYuvSource converted on first use); a root layout's
+    [canvas] gives its canvas."""
+    if hasattr(src, "mips"):
+        return src.mips()[0]
+    return src[0] if isinstance(src, list) else src
 
 
 def _layout_res_from_key(key: tuple, nid: int) -> Resolution:

@@ -5,12 +5,13 @@ hot call is ``render(FrameSet) -> FrameSet``; `update_scene` swaps scenes
 with transition support. Output frame data are tensors on the device: u8
 (y, u, v) planes for PLANAR_YUV420, an (H, W, 4) u8 tensor for RGBA.
 
-Ported: scenes of View, Tiles, Rescaler and InputStream components with a
-layout root, RGBA and PLANAR_YUV420 outputs. `update_scene` raises
+Ported: scenes of View, Tiles, Rescaler and InputStream components (any
+of them the root), every animated transition of their geometry, inputs in
+every pixel format, RGBA and PLANAR_YUV420 outputs. `update_scene` raises
 NotImplementedError for what is not ported yet (Text, Image, Shader and
-WebView components: ROADMAP Queue 1 item 7; other output formats or a bare
-InputStream root: item 1). The scene state's text, image and web hooks raise
-NotImplementedError too: no supported scene reaches them.
+WebView components: ROADMAP Queue 1 item 7; other output formats: item 1).
+The scene state's text, image and web hooks raise NotImplementedError too:
+no supported scene reaches them.
 """
 
 from __future__ import annotations
@@ -103,11 +104,6 @@ class Renderer:
             raise NotImplementedError(
                 f"output format {output_format.value} is not ported yet: "
                 "ROADMAP Queue 1 item 1")
-        if not isinstance(root, (comp.View, comp.Tiles, comp.Rescaler)):
-            raise NotImplementedError(
-                f"a {type(root).__name__} scene root is not ported yet: the "
-                "root must be a View, Tiles or Rescaler (ROADMAP Queue 1 "
-                "items 1 and 7)")
 
         def visit(c: comp.Component):
             if isinstance(c, (comp.Text, comp.Image, comp.Shader, comp.WebView)):

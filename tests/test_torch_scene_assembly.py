@@ -212,15 +212,27 @@ def test_no_layouts_give_a_transparent_canvas():
 
 
 @pytest.mark.parametrize("static", [
-    jcomp.LayoutStatic(content="texture", static_rect=(0, 0, 8, 8),
-                       traced_position=True),
-    jcomp.LayoutStatic(content="texture", traced_size_buf=(64, 64)),
-    jcomp.LayoutStatic(content="texture"),
-    jcomp.LayoutStatic(content="texture", static_rect=(0, 0, 8, 8),
-                       has_rotation=True, traced_rotation_q=0),
+    jcomp.LayoutStatic(content="texture", source_index=0, static_rect=(0, 0, 8, 8),
+                       static_crop=(0, 0, 8, 8), traced_position=True),
+    jcomp.LayoutStatic(content="texture", source_index=0, traced_size_buf=(64, 64)),
+    jcomp.LayoutStatic(content="texture", source_index=0),
+    jcomp.LayoutStatic(content="texture", source_index=0, static_rect=(3, 4, 8, 8),
+                       static_crop=(0, 0, 8, 8), has_rotation=True, traced_rotation_q=0),
 ])
 def test_unported_paths_raise(static):
-    p = _params(width=8, height=8, color=(1, 0, 0, 1))
-    st, pr, _ = _port([static], [p], None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcomp.compose_layouts((16, 16), st, pr, [[torch.zeros((8, 8, 4))]], planar=True)
+    """The texture routes that raised NotImplementedError until the
+    animated-geometry slice (moving, scaling, the sampled pass, traced
+    rotation) now render a texture over a background as the reference
+    does."""
+    res = (16, 16)
+    src = np.random.RandomState(2).rand(8, 8, 4).astype(np.float32)
+    bg = jcomp.LayoutStatic(content="color", static_rect=(0, 0, 16, 16))
+    statics = [bg, static]
+    params = [_params(width=16, height=16, color=(0.1, 0.2, 0.3, 1.0)),
+              _params(top=3.4, left=4.6, width=8, height=8, rotation=20.0,
+                      radius=(2, 2, 2, 2), crop=(0, 0, 8, 8))]
+    ref = np.asarray(jcomp.compose_layouts(res, statics, params, [[jnp.asarray(src)]],
+                                           planar=True))
+    st, pr, sources = _port(statics, params, src)
+    got = tcomp.compose_layouts(res, st, pr, sources, planar=True).numpy()
+    _assert_canvas_close(got, ref)

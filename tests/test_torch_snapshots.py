@@ -1,24 +1,26 @@
-"""The golden snapshots of `tests/test_snapshots.py`, rendered through the
-PyTorch port's `Renderer` on the CPU and compared with the committed PNGs at
+"""The golden snapshots of `tests/test_snapshots.py`, and the transition
+sequences and input formats of `tests/test_snapshots_extended.py` and
+`tests/test_snapshots_round5.py`, rendered through the PyTorch port's
+`Renderer` on the CPU and compared with the committed PNGs at
 `harness.ALLOWED_ERROR` (mean absolute u8 error per channel).
 
 Only the goldens are read here: nothing is written, so a missing golden
 fails instead of being created. The scenes are built with the reference's
 components and reach the port's renderer (on the CPU) through
-`interop.from_reference`.
+`interop.from_reference`. A transition renders as its snapshot test does:
+the first scene at pts 0, the second scene, two warm-up frames (so that
+the planner sees the layout animate and takes the traced routes), then the
+frames compared.
 
-Scenes of `tests/test_snapshots.py` left out, with what stops each (ROADMAP
-Queue 1):
-  - text_align_center_fixed, text_wrap_word, text_background_bold,
-    text_lower_third_overlay: Text components, item 7;
-  - image_png_fit, image_natural_size_absolute, image_svg_circle: Image
-    components, item 7;
-  - shader_invert, shader_param_gradient: Shader components, item 7;
-  - pixel_format_rgba, pixel_format_bgra: inputs that are not planar YUV,
-    item 1;
-  - transition_spin_midpoint (a texture whose angle animates) and
-    transition_zoom_midpoint (a texture whose size animates): animated
-    texture paths, item 6.
+Scenes of those files left out, with what stops each (ROADMAP Queue 1):
+  - every Text scene (`text_*`): Text components, item 7;
+  - every Image scene (`image_*`): Image components, item 7;
+  - every Shader scene (`shader_*`, the circle layout of
+    `tests/test_snapshots_round5b.py`): Shader components, item 7;
+  - the static scenes of `tests/test_snapshots_extended.py` and
+    `tests/test_snapshots_round5.py` (4K outputs, rotated and bordered
+    layouts, tile counts): they need nothing the port lacks, and wait only
+    for a test of their own.
 """
 
 from __future__ import annotations
@@ -177,7 +179,137 @@ CASES = {
             200.0, 110.0, WHITE, _inputs(1), top=35.0, left=60.0,
             rotation_degrees=25.0)]))]),
     "simple_passthrough": (1, [(0.0, comp.Rescaler(child=_inputs(1)[0]))]),
+    # tests/test_snapshots_extended.py
+    "rescaler_rotated_shadow_border": (1, [(0.0, comp.View(
+        background_color=BLUE, children=[comp.Rescaler(
+            child=_inputs(1)[0], border_radius=BorderRadius(14.0, 14.0, 14.0, 14.0),
+            border_width=3.0, border_color=RGBAColor(255, 255, 255, 220),
+            box_shadow=[BoxShadow(offset_x=8.0, offset_y=8.0, blur_radius=18.0,
+                                  color=RGBAColor(0, 0, 0, 170))],
+            position=AbsolutePosition(width=200.0, height=110.0, top=35.0, left=60.0,
+                                      rotation_degrees=20.0))]))]),
+    "rescaler_rotated_negative": (1, [(0.0, comp.View(
+        background_color=BLUE, children=[comp.Rescaler(
+            child=_inputs(1)[0], border_radius=BorderRadius(10.0, 10.0, 10.0, 10.0),
+            position=AbsolutePosition(width=200.0, height=110.0, top=35.0, left=60.0,
+                                      rotation_degrees=-25.0))]))]),
+    "view_border_radius_asymmetric": (1, [(0.0, comp.View(
+        background_color=BLUE, children=[comp.View(
+            position=AbsolutePosition(width=220.0, height=120.0, top=30.0, left=50.0),
+            background_color=WHITE, border_radius=BorderRadius(40.0, 0.0, 24.0, 8.0),
+            overflow=Overflow.HIDDEN, children=_inputs(1))]))]),
+    "view_box_shadow_large_blur": (0, [(0.0, comp.View(
+        background_color=BLUE, children=[comp.View(
+            position=AbsolutePosition(width=140.0, height=80.0, top=50.0, left=90.0),
+            background_color=WHITE, border_radius=BorderRadius(12.0, 12.0, 12.0, 12.0),
+            box_shadow=[BoxShadow(offset_x=0.0, offset_y=0.0, blur_radius=48.0,
+                                  color=RGBAColor(0, 0, 0, 220))])]))]),
+    "absolute_overlap_stacking": (3, [(0.0, comp.View(
+        background_color=BLUE, children=[
+            _abs_view(160.0, 90.0, WHITE, [comp.InputStream(input_id=f"input_{i}")],
+                      top=10.0 + 25.0 * i, left=20.0 + 45.0 * i) for i in range(3)]))]),
+    "tiles_07_inputs": (7, [(0.0, comp.Tiles(background_color=DARK,
+                                             children=_inputs(7)))]),
+    "rescaler_fill_tall_slot": (1, [(0.0, comp.View(
+        background_color=BLUE, children=[comp.Rescaler(
+            child=_inputs(1)[0], mode=RescaleMode.FILL,
+            position=AbsolutePosition(width=90.0, height=160.0, top=10.0,
+                                      left=115.0))]))]),
+    # tests/test_snapshots_round5.py
+    "view_rotation_75deg": (1, [(0.0, comp.View(
+        background_color=BLUE, children=[_abs_view(
+            160.0, 90.0, WHITE, _inputs(1), top=45.0, left=80.0,
+            rotation_degrees=75.0)]))]),
+    "tiles_13_inputs": (13, [(0.0, comp.Tiles(background_color=RGBAColor(24, 24, 24, 255),
+                                              children=_inputs(13)))]),
+    "rescaler_fill_wide_slot": (1, [(0.0, comp.View(
+        background_color=BLUE, children=[comp.View(
+            position=AbsolutePosition(width=300.0, height=60.0, top=60.0, left=10.0),
+            children=[comp.Rescaler(child=_inputs(1)[0], mode=RescaleMode.FILL)])]))]),
+    "view_border_radius_circle": (1, [(0.0, comp.View(
+        background_color=BLUE, children=[comp.View(
+            position=AbsolutePosition(width=120.0, height=120.0, top=30.0, left=100.0),
+            border_radius=BorderRadius(200.0, 200.0, 200.0, 200.0),
+            background_color=WHITE, children=_inputs(1))]))]),
 }
+
+
+def _card(tr=None, **pos):
+    """The card of the transition snapshots: a white absolute View around
+    input_0."""
+    return comp.View(background_color=BLUE, children=[comp.View(
+        id="card", position=AbsolutePosition(**pos), background_color=WHITE,
+        transition=tr, children=[comp.InputStream(input_id="input_0")])])
+
+
+def _tiles(order, tr=None):
+    return comp.Tiles(id="t", background_color=DARK, transition=tr, children=[
+        comp.InputStream(id=f"tile_{i}", input_id=f"input_{i}") for i in order])
+
+
+def _grid(n):
+    return comp.Tiles(id="grid", background_color=RGBAColor(24, 24, 24, 255),
+                      children=_inputs(n), transition=Transition(duration=2.0))
+
+
+def _box(tr=None, **kw):
+    return comp.View(background_color=BLUE, children=[comp.View(id="box", transition=tr,
+                                                                **kw)])
+
+
+T2 = Transition(duration=2.0)
+# name -> (number of inputs, first scene, second scene, warm-up pts, compared
+# pts): `_transition_midpoint` of tests/test_snapshots.py (golden `name`),
+# `_transition_sequence` of tests/test_snapshots_extended.py and `_sequence`
+# of tests/test_snapshots_round5.py (goldens `name_t05`, ...)
+TRANSITIONS = {
+    "transition_spin_midpoint": (
+        1, _card(width=180.0, height=100.0, top=40.0, left=70.0, rotation_degrees=0.0),
+        _card(T2, width=180.0, height=100.0, top=40.0, left=70.0, rotation_degrees=80.0),
+        (0.2, 0.4), (1.0,)),
+    "transition_zoom_midpoint": (
+        1, _card(width=80.0, height=45.0, top=70.0, left=120.0),
+        _card(T2, width=280.0, height=158.0, top=10.0, left=20.0), (0.2, 0.4), (1.0,)),
+    "seq_spin": (
+        1, _card(width=180.0, height=100.0, top=40.0, left=70.0, rotation_degrees=0.0),
+        _card(T2, width=180.0, height=100.0, top=40.0, left=70.0, rotation_degrees=80.0),
+        (0.1, 0.2), (0.5, 1.0, 1.5)),
+    "seq_zoom": (
+        1, _card(width=80.0, height=45.0, top=70.0, left=120.0),
+        _card(T2, width=280.0, height=158.0, top=10.0, left=20.0), (0.1, 0.2),
+        (0.5, 1.0, 1.5)),
+    "seq_slide": (
+        1, _card(width=120.0, height=68.0, top=10.0, left=10.0),
+        _card(T2, width=120.0, height=68.0, top=100.0, left=190.0), (0.1, 0.2),
+        (0.5, 1.0, 1.5)),
+    "seq_tiles_reorder": (3, _tiles([0, 1, 2]), _tiles([2, 0, 1], T2), (0.1, 0.2),
+                          (0.5, 1.0, 1.5)),
+    "seq_rotozoom": (
+        1, _card(width=80.0, height=45.0, top=20.0, left=30.0, rotation_degrees=0.0),
+        _card(T2, width=240.0, height=135.0, top=30.0, left=60.0, rotation_degrees=70.0),
+        (0.1, 0.2), (1.0,)),
+    "seq_cubic_bezier": (
+        1, _card(width=100.0, height=60.0, top=60.0, left=10.0),
+        _card(Transition(duration=2.0, easing=Easing.cubic_bezier(0.65, 0.0, 0.35, 1.0)),
+              width=100.0, height=60.0, top=60.0, left=210.0), (0.1, 0.2), (1.0,)),
+    "seq_width": (
+        0, _box(position=StaticPosition(width=40.0), background_color=RED),
+        _box(T2, position=StaticPosition(width=280.0), background_color=RED),
+        (0.1, 0.2), (0.5, 1.0, 1.5)),
+    "seq_bounce": (
+        0, _box(position=AbsolutePosition(width=60.0, height=60.0, top=60.0, left=0.0),
+                background_color=GREEN),
+        _box(Transition(duration=2.0, easing=Easing.BOUNCE),
+             position=AbsolutePosition(width=60.0, height=60.0, top=60.0, left=240.0),
+             background_color=GREEN),
+        (0.1, 0.2), (0.5, 1.0, 1.5)),
+    "seq_tiles_add": (3, _grid(2), _grid(3), (0.1, 0.2), (0.5, 1.0, 1.5)),
+}
+TRANSITION_GOLDENS = [
+    (name, pts, name if name.startswith("transition_")
+     else f"{name}_t{str(pts).replace('.', '')}")
+    for name in sorted(TRANSITIONS) for pts in TRANSITIONS[name][4]
+]
 
 
 def _golden(name: str) -> np.ndarray:
@@ -206,6 +338,75 @@ def test_port_renders_golden(name):
         out = r.render(from_reference(FrameSet(pts=pts, frames=frames))).frames["out"]
     rgb = out.data.numpy()[..., :3]
     err = _mean_error(name, rgb)
+    assert err <= ALLOWED_ERROR, f"{name}: mean error {err:.3f} > {ALLOWED_ERROR}"
+
+
+@pytest.mark.parametrize("name,pts,golden", TRANSITION_GOLDENS,
+                         ids=[g for _, _, g in TRANSITION_GOLDENS])
+def test_port_renders_golden_transition(name, pts, golden):
+    """The transition frames up to `pts` (the planner's history included),
+    the last one compared."""
+    n_inputs, scene0, scene1, warm, compared = TRANSITIONS[name]
+    r = Renderer(device="cpu")
+    for i in range(n_inputs):
+        r.register_input(f"input_{i}")
+
+    def render(p, frame_pts):
+        frames = {f"input_{i}": make_test_input(i, IN_RES, frame_pts)
+                  for i in range(n_inputs)}
+        return r.render(from_reference(FrameSet(pts=p, frames=frames))).frames["out"]
+
+    r.update_scene("out", *from_reference((scene0, RES, PixelFormat.RGBA)))
+    render(0.0, 0.0)
+    r.update_scene("out", *from_reference((scene1, RES, PixelFormat.RGBA)))
+    for p in warm + compared[: compared.index(pts) + 1]:
+        out = render(p, p)
+    err = _mean_error(golden, out.data.numpy()[..., :3])
+    assert err <= ALLOWED_ERROR, f"{golden}: mean error {err:.3f} > {ALLOWED_ERROR}"
+
+
+def _format_frame(fmt):
+    """The bar pattern of the pixel-format snapshots in `fmt`, built as the
+    snapshot test of that format builds it."""
+    import test_snapshots
+    import test_snapshots_extended
+
+    from smelter_tpu.core.types import Frame
+
+    if fmt in (PixelFormat.RGBA, PixelFormat.BGRA):
+        return test_snapshots._frame_from_rgba(
+            test_snapshots._rgb_test_pattern(IN_RES), fmt, IN_RES)
+    rgba = test_snapshots_extended._rgb_test_pattern(IN_RES)
+    if fmt == PixelFormat.PLANAR_YUVJ422:  # tests/test_snapshots_round5.py
+        import jax.numpy as jnp
+
+        from smelter_tpu.ops import color_convert as jcc
+
+        planes = jcc.rgba_to_planar_yuv422(jnp.asarray(rgba.astype(np.float32) / 255.0),
+                                           full_range=True)
+        return Frame(data=tuple(np.asarray(p) for p in planes), format=fmt,
+                     resolution=IN_RES, pts=0.0)
+    return test_snapshots_extended._frame_from_rgba(rgba, fmt, IN_RES)
+
+
+# every input format but the planar YUV420 pair (test_port_renders_golden_yuv_input)
+OTHER_FORMATS = [f for f in PixelFormat
+                 if f not in (PixelFormat.PLANAR_YUV420, PixelFormat.PLANAR_YUVJ420)]
+
+
+@pytest.mark.parametrize("fmt", OTHER_FORMATS, ids=lambda f: f.value)
+def test_port_renders_golden_input_format(fmt):
+    """The bar pattern through every other input format, converted to a
+    full-resolution RGBA mip pyramid (planar YUV: deferred, converted where
+    a route asks for mips) under a Rescaler."""
+    r = Renderer(device="cpu")
+    r.register_input("input_0")
+    r.update_scene("out", *from_reference((comp.View(background_color=BLUE, children=[
+        comp.Rescaler(child=_inputs(1)[0])]), RES, PixelFormat.RGBA)))
+    frame = _format_frame(fmt)
+    out = r.render(from_reference(FrameSet(pts=0.0, frames={"input_0": frame}))).frames["out"]
+    name = f"pixel_format_{fmt.value}"
+    err = _mean_error(name, out.data.numpy()[..., :3])
     assert err <= ALLOWED_ERROR, f"{name}: mean error {err:.3f} > {ALLOWED_ERROR}"
 
 
