@@ -48,7 +48,26 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      frame made a synchronising call (`set_sync_debug_mode`; the count of
      every frame is printed), and that the same sequence at 4 x 256x144 ->
      768x432 matches the port run on the CPU;
-  8. times the kernels (CUDA events around 50 launches queued back to
+  8. drives the pipeline (`smelter_tpu_torch.pipeline.Pipeline`), the
+     entry point the server builds, through raw in-process inputs and a
+     raw output sink: (a) offline (ahead-of-time, never-drop), 16 inputs
+     of 2 s at 1080p 30 fps (input 0 with a stereo tone) into a 4K raw
+     video and audio output, the renderer scene's overlays moving from
+     0.1 s, `animated_scene` from 0.5 s and animating from 1.0 s (scheduled
+     updates), the last input unregistered at 1.5 s; checks 60 +- 1 frames
+     of host u8 planes, OUTPUT_DONE and no OUTPUT_ERROR, K1 and K2 on every
+     frame and K3 on some, every frame equal (max abs err 0) to the port's
+     renderer on the card driven directly with the pipeline's own calls
+     (compared after the run), no synchronising call on the renderer
+     thread in a frame that built no new structure, and the same run at
+     4 x 256x144 -> 768x432 against the port's Pipeline on the CPU; (b) in
+     real time, inputs fed at 30 fps for 5 s by one thread each, at
+     16 x 1080p -> 4K and 4 x 1080p -> 1080p: the delivered frame rate, the
+     dropped frames, the latency from a frame's send to its delivery (p50,
+     p95), the render, fetch-host and plan spans, the host enqueue time of
+     render() and the card's busy share over the window (recorded, not
+     gated);
+  9. times the kernels (CUDA events around 50 launches queued back to
      back, one synchronised call, and the device time torch.profiler
      reads for the kernel alone) against their plain versions and
      their bounds (bytes and operations at the H100 SXM's peaks), the whole
@@ -56,18 +75,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      animated-texture frames (animating and stable, plan(), and a
      torch.profiler breakdown of one animating frame);
 and prints a JSON line of the animated-texture numbers, a JSON line of the
-kernels, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`. Any failed phase ends the run with a
+pipeline's numbers (`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON
+line of the kernels (`launches` from the pipeline's offline 4K run, the
+other paths' counts under `launches_by_path`), the nvidia-smi line, and
+last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -833,6 +856,432 @@ def animated_timings(dev, frames, stamp):
                 launches=n_launch)
 
 
+class Delivered:
+    """Counts the frames a sink has delivered. `barrier(n)` is a queue event
+    that waits for the n-th: scheduled at the pts of a scene update or an
+    unregister, just before it, it holds the queue until the renderer thread
+    has caught up, so that the update lands between the same two renders in
+    every run (the renderer thread may otherwise be up to two frames behind
+    the queue when the queue runs the event)."""
+
+    def __init__(self):
+        self.count = 0
+        self.times = []  # (perf_counter at delivery, frame pts)
+        self.cond = threading.Condition()
+
+    def add(self, pts):
+        with self.cond:
+            self.count += 1
+            self.times.append((time.perf_counter(), pts))
+            self.cond.notify_all()
+
+    def barrier(self, n):
+        def wait():
+            with self.cond:
+                self.cond.wait_for(lambda: self.count >= n, timeout=120)
+
+        return wait
+
+
+class RenderLog:
+    """Wraps the renderer of a pipeline before anything is registered: logs
+    every call the pipeline makes on it (to replay them on a fresh renderer
+    afterwards) and, per render, the kernel launches, whether the frame built
+    a new structure, and the synchronising calls that
+    `torch.cuda.set_sync_debug_mode("warn")` flags on the renderer thread
+    while `capture_syncs()` is on."""
+
+    def __init__(self, renderer):
+        from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+
+        self.calls, self.frames, self.syncs = [], [], []
+        self._frame = None
+        for name in ("register_input", "unregister_input", "update_scene"):
+            def logged(*args, _orig=getattr(renderer, name), _name=name):
+                self.calls.append((_name, args))
+                return _orig(*args)
+
+            setattr(renderer, name, logged)
+        render = renderer.render
+
+        def logged_render(frame_set):
+            self.calls.append(("render", (frame_set,)))
+            self._frame = len(self.frames)
+            progs = list(renderer._programs.values())
+            before = [len(p._build_cache) for p in progs]
+            counts = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES, sdf_layers.LAUNCHES)
+            out = render(frame_set)
+            after = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES, sdf_layers.LAUNCHES)
+            self.frames.append(dict(
+                pts=frame_set.pts, built=any(len(p._build_cache) > b for p, b in zip(progs, before)),
+                k1=after[0] - counts[0], k2=after[1] - counts[1], k3=after[2] - counts[2]))
+            return out
+
+        renderer.render = logged_render
+
+    def _showwarning(self, message, *_args, **_kw):
+        if "synchroniz" in str(message):
+            self.syncs.append((threading.current_thread().name, self._frame))
+
+    @contextlib.contextmanager
+    def capture_syncs(self):
+        """A context in which synchronising calls are recorded, by thread and
+        by the index of the frame the renderer was rendering."""
+        import torch
+
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self._showwarning
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def replay(self, dev):
+        """The logged calls on a fresh renderer on `dev`: each rendered
+        output frame's planes, on the host."""
+        from smelter_tpu_torch import interop
+        from smelter_tpu_torch.render.renderer import Renderer, RendererOptions
+
+        r = Renderer(RendererOptions(stream_fallback_timeout=0.5), device=dev)
+        outs = []
+        for name, args in self.calls:
+            result = getattr(r, name)(*args)
+            if name == "render":
+                outs.append(interop.planes_to_host(result.frames["out"].data))
+        return outs
+
+
+def _feed_video(src, frames, n_frames, pace=None):
+    """Push `n_frames` of one input (cycling over `frames`, its (y, u, v)
+    pools) at pts k / FPS (less a microsecond), then close the channel; with `pace` (a start
+    time on perf_counter), frame k is sent at start + k / FPS. Returns
+    {id of a frame's plane tuple: (its send time, the tuple)}: the tuples
+    are kept so that no id is reused."""
+    from smelter_tpu_torch.core.types import Frame, PixelFormat, Resolution
+    from smelter_tpu_torch.utils.channels import Closed
+
+    y, u, v = frames
+    sent = {}
+    res = Resolution(y.shape[2], y.shape[1])
+    # a microsecond before k / FPS: the queue maps an output pts to input
+    # time as (pts + start) - start, which rounds below k / FPS for some
+    # start times and would then take frame k - 1; this frame is taken
+    # either way
+    pts = [max(k / FPS - 1e-6, 0.0) for k in range(n_frames)]
+    try:
+        for k in range(n_frames):
+            if pace is not None:
+                time.sleep(max(0.0, pace + k / FPS - time.perf_counter()))
+            data = (y[k % len(y)], u[k % len(u)], v[k % len(v)])
+            sent[id(data)] = (time.perf_counter(), data)
+            src.video.send(Frame(data=data, format=PixelFormat.PLANAR_YUV420,
+                                 resolution=res, pts=pts[k]))
+    except Closed:  # the input was unregistered
+        return sent
+    src.video.close()
+    return sent
+
+
+def _feed_tone(src, seconds, hz=440.0):
+    """A stereo 48 kHz tone in 20 ms chunks, then close the channel (or stop
+    where it was closed: the queue may leave the last chunks unread)."""
+    import numpy as np
+
+    from smelter_tpu_torch.core.types import AudioSamples
+    from smelter_tpu_torch.utils.channels import Closed
+
+    try:
+        for chunk in range(int(seconds * 50)):
+            n = np.arange(chunk * 960, (chunk + 1) * 960)
+            tone = 0.3 * np.sin(2 * np.pi * hz * n / 48000.0)
+            src.audio.send(AudioSamples(np.stack([tone, tone], 1), chunk * 960 / 48000))
+    except Closed:
+        return
+    src.audio.close()
+
+
+def _drain(channel, into, on_item=None):
+    from smelter_tpu_torch.utils.channels import Closed
+
+    while True:
+        try:
+            item = channel.recv(timeout=120)
+        except (Closed, TimeoutError):
+            return
+        into.append(item)
+        if on_item is not None:
+            on_item(item)
+
+
+def _threads(targets):
+    ts = [threading.Thread(target=fn, args=args, daemon=True) for fn, args in targets]
+    for t in ts:
+        t.start()
+    return ts
+
+
+def pipeline_offline(dev, n, in_w, in_h, out_w, out_h, seed=7, capture_syncs=False):
+    """Phase 8a: the port's Pipeline offline (ahead-of-time, never-drop) on
+    `dev`: n raw YUV420 inputs of 2 s at 30 fps (input 0 with a stereo
+    tone), raw video and audio out at out_w x out_h into a
+    RawDataOutputSink; the video ends with all inputs, the audio with input
+    0's. The scene:
+    `renderer_scene` stage 0, updated (scheduled) to stage 1 at 0.1 s
+    (the overlays move: K3), to `animated_scene` stage 0 at 0.5 s and
+    stage 1 at 1.0 s (the texture routes animate), and the last input
+    unregistered at 1.5 s. Returns the delivered frames, audio and events
+    and the renderer's log (with the synchronising calls flagged during the
+    run when `capture_syncs`)."""
+    from smelter_tpu_torch.audio.mixer import AudioMixerConfig, AudioMixerInputConfig
+    from smelter_tpu_torch.core.types import Framerate, Resolution
+    from smelter_tpu_torch.pipeline import (
+        AudioEncoderOptions, EndCondition, OutputAudioOptions, OutputVideoOptions, Pipeline,
+        PipelineOptions, RawDataOutputSink, RegisterInputOptions, VideoEncoderOptions)
+    from smelter_tpu_torch.pipeline.input import RawDataInput
+
+    p = Pipeline(PipelineOptions(output_framerate=Framerate(FPS), ahead_of_time_processing=True,
+                                 never_drop_output_frames=True), device=dev)
+    log = RenderLog(p.renderer)
+    sources = {}
+    for i in range(n):
+        sources[f"input_{i}"] = RawDataInput(has_video=True, has_audio=i == 0)
+        p.register_input(f"input_{i}", sources[f"input_{i}"],
+                         RegisterInputOptions(required=True, offset=0.0))
+    sink = RawDataOutputSink()
+    p.register_output(
+        "out", sink,
+        video=OutputVideoOptions(resolution=Resolution(out_w, out_h),
+                                 encoder=VideoEncoderOptions(codec="raw"),
+                                 initial_root=renderer_scene(out_w, out_h, n, 0),
+                                 end_condition=EndCondition(all_inputs=True)),
+        audio=OutputAudioOptions(encoder=AudioEncoderOptions(codec="raw"),
+                                 initial_mixer_config=AudioMixerConfig(
+                                     inputs=[AudioMixerInputConfig("input_0")]),
+                                 # the inputs without audio never end an
+                                 # audio track
+                                 end_condition=EndCondition(any_of=("input_0",))))
+    delivered = Delivered()
+    for at, root in ((0.1, renderer_scene(out_w, out_h, n, 1)),
+                     (0.5, animated_scene(out_w, out_h, n, 0)),
+                     (1.0, animated_scene(out_w, out_h, n, 1))):
+        p.queue.schedule_event(at, delivered.barrier(round(at * FPS) + 1))
+        p.update_output("out", root=root, schedule_time=at)
+    p.queue.schedule_event(1.5, delivered.barrier(round(1.5 * FPS) + 1))
+    p.unregister_input(f"input_{n - 1}", schedule_time=1.5)
+    y, u, v = host_frames(2 * n, in_w, in_h, seed)
+    video, audio = [], []
+    with log.capture_syncs() if capture_syncs else contextlib.nullcontext():
+        p.start()
+        feeders = _threads([(_feed_video, (src, (y[2 * i:2 * i + 2], u[2 * i:2 * i + 2],
+                                                 v[2 * i:2 * i + 2]), 2 * FPS))
+                            for i, src in enumerate(sources.values())]
+                           + [(_feed_tone, (sources["input_0"], 2.0))])
+        drains = _threads([(_drain, (sink.audio, audio))])
+        _drain(sink.video, video, lambda f: delivered.add(f.pts))
+        for t in drains:
+            t.join(timeout=60)
+        p.wait_for_outputs_done(timeout=60)
+    # the unregistered input's feeder, and input 0's tone past the last
+    # frame, wait on channels nobody reads any more
+    for src in sources.values():
+        src.video.close()
+        if src.audio is not None:
+            src.audio.close()
+    for t in feeders:
+        t.join(timeout=10)
+    p.close()
+    check(not any(t.is_alive() for t in feeders + drains), "pipeline: a feeder or drain hung")
+    return dict(frames=video, audio=audio, log=log,
+                events=[(e.kind, e.entity_id) for e in p.events.history()])
+
+
+def pipeline_phase(dev):
+    """Phase 8a's checks: at 16 x 1080p -> 4K on the card, 60 +- 1 frames of
+    host u8 planes, OUTPUT_DONE and no OUTPUT_ERROR, K1 and K2 on every
+    frame (K3 on the frames whose overlays animate), every frame equal (max
+    abs err 0) to the port's Renderer on the card driven directly with the
+    same calls (compared after the run), no synchronising call flagged on
+    the renderer thread on a frame that built no new structure; then the
+    same run at 4 x 256x144 -> 768x432 on the card against the port's
+    Pipeline on the CPU at parity_vs_cpu's tolerance. Returns the kernel
+    launches of the 4K run and its numbers."""
+    import numpy as np
+
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+
+    scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+    t0 = time.perf_counter()
+    run = pipeline_offline(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, capture_syncs=True)
+    wall = time.perf_counter() - t0
+    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                "sdf_layers": sdf_layers.LAUNCHES}
+    frames, log = run["frames"], run["log"]
+    errors = [e for e in run["events"] if e[0] == "OUTPUT_ERROR"]
+    print(f"pipeline offline 16x1080p->4K: {len(frames)} frames, {len(run['audio'])} audio "
+          f"chunks in {wall:.1f} s; launches {launches}; events {run['events']}")
+    check(not errors, f"pipeline: {errors}")
+    check(("OUTPUT_DONE", "out") in run["events"], "pipeline: no OUTPUT_DONE")
+    check(abs(len(frames) - 2 * FPS) <= 1, f"pipeline: {len(frames)} frames, not 60 +- 1")
+    for k, f in enumerate(frames):
+        check(all(isinstance(p, np.ndarray) for p in f.data), f"pipeline frame {k}: not host")
+        check_planes(f"pipeline frame {k}", f.data, OUT_W, OUT_H)
+    check(all(np.isfinite(np.asarray(s)).all() and np.abs(np.asarray(s)).max() > 0
+              for s, _ in run["audio"][10:50]), "pipeline: no mixed tone")
+    per = log.frames
+    check(all(f["k1"] == 1 and f["k2"] == 1 for f in per),
+          f"pipeline: K1/K2 not once per frame: {[(f['k1'], f['k2']) for f in per]}")
+    k3_frames = [k for k, f in enumerate(per) if f["k3"]]
+    print(f"pipeline: K3 on frames {k3_frames}; new structures on frames "
+          f"{[k for k, f in enumerate(per) if f['built']]}")
+    check(k3_frames, "pipeline: K3 never ran (the overlays' transition)")
+    on_renderer = [k for name, k in log.syncs if name == "renderer"]
+    stable = [k for k in on_renderer if k is not None and not per[k]["built"]]
+    print(f"pipeline: synchronising calls flagged: {len(log.syncs)}, on the renderer thread "
+          f"by frame {on_renderer}, on frames that built no structure {len(stable)}")
+    check(not stable, f"pipeline: the renderer thread synchronised on stable frames {stable}")
+    # the renderer may render a frame past the output's end, which the
+    # output drops: frames are matched by pts
+    t0 = time.perf_counter()
+    replayed = dict(zip((f["pts"] for f in per), log.replay(dev)))
+    check(all(f.pts in replayed for f in frames), "pipeline: a delivered frame was not rendered")
+    mx = max(lsb_stats(replayed[f.pts], f.data)[0] for f in frames)
+    print(f"pipeline vs the renderer driven directly on the card, {len(frames)} frames of "
+          f"{len(replayed)} renders: max abs err {mx} ({time.perf_counter() - t0:.1f} s)")
+    check(mx == 0, f"pipeline vs renderer: max abs err {mx}")
+    del replayed
+
+    # the same run at a CPU size, on the CPU and on the card
+    small = (4, 256, 144, 768, 432)
+    t0 = time.perf_counter()
+    ref = pipeline_offline("cpu", *small)
+    t1 = time.perf_counter()
+    got = pipeline_offline(dev, *small)
+    print(f"pipeline at 4x256x144 -> 768x432: {t1 - t0:.1f} s on the CPU, "
+          f"{time.perf_counter() - t1:.1f} s on the card")
+    check(len(ref["frames"]) == len(got["frames"]), "pipeline card vs CPU: frame counts")
+    check([f.pts - ref["frames"][0].pts for f in ref["frames"]]
+          == [f.pts - got["frames"][0].pts for f in got["frames"]], "pipeline card vs CPU: pts")
+    mx, n_diff, n_gt1, total, off = 0, 0, 0, 0, []
+    for k, (a, b) in enumerate(zip(ref["frames"], got["frames"])):
+        m, d, g, t = lsb_stats(a.data, b.data)
+        mx, n_diff, n_gt1, total = max(mx, m), n_diff + d, n_gt1 + g, total + t
+        off += [(k, m)] if m > 1 else []
+    print(f"parity card vs CPU pipeline 4x256x144 -> 768x432, {len(ref['frames'])} frames: "
+          f"max {mx} LSB, {n_diff} of {total} pixels differ, {n_gt1} by 2+")
+    check(mx <= 2 and n_gt1 * 10000 < total,
+          f"pipeline: card vs CPU off ({mx} LSB; (frame, LSB) over 1: {off})")
+    return launches, dict(offline_frames=len(frames), offline_wall_s=wall,
+                          k3_frames=len(k3_frames), renderer_thread_syncs=len(on_renderer),
+                          stable_frame_syncs=len(stable))
+
+
+def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
+    """Phase 8b: the port's Pipeline in real time (no ahead-of-time
+    processing, frames may drop) on `dev`: n raw 1080p inputs fed by one
+    thread each at 30 fps for `seconds`, `renderer_scene` stage 0 at
+    out_w x out_h into a RawDataOutputSink. Returns the delivered frame
+    rate, the dropped frames, the latency from a frame's send to its
+    delivery (input 0's frame in each output frame), the render, fetch-host
+    and plan spans, the host enqueue time of render() (`compose_latency`,
+    /stats) and the card's busy share over the window (torch.profiler
+    device time over wall time)."""
+    import concurrent.futures
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smelter_tpu_torch.core.types import Framerate, Resolution
+    from smelter_tpu_torch.pipeline import (
+        EndCondition, OutputVideoOptions, Pipeline, PipelineOptions, RawDataOutputSink,
+        RegisterInputOptions, VideoEncoderOptions)
+    from smelter_tpu_torch.pipeline.input import RawDataInput
+    from smelter_tpu_torch.utils import tracing
+
+    t_run = time.perf_counter()
+    p = Pipeline(PipelineOptions(output_framerate=Framerate(FPS)), device=dev)
+    sources = {}
+    for i in range(n):
+        sources[f"input_{i}"] = RawDataInput(has_video=True, has_audio=False)
+        p.register_input(f"input_{i}", sources[f"input_{i}"], RegisterInputOptions())
+    sink = RawDataOutputSink(video_capacity=10 * FPS)
+    p.register_output("out", sink, video=OutputVideoOptions(
+        resolution=Resolution(out_w, out_h), encoder=VideoEncoderOptions(codec="raw"),
+        initial_root=renderer_scene(out_w, out_h, n, 0),
+        end_condition=EndCondition(all_inputs=True)))
+    used = {}  # output pts -> id of input 0's plane tuple in that frame
+    render = p.renderer.render
+
+    def logged_render(frame_set):
+        f0 = frame_set.frames.get("input_0")
+        if f0 is not None:
+            used[frame_set.pts] = id(f0.data)
+        return render(frame_set)
+
+    p.renderer.render = logged_render
+    y, u, v = host_frames(2 * n, IN_W, IN_H, seed=9)
+    delivered, video = Delivered(), []
+    p.start()
+    on_card = torch.device(dev).type == "cuda"
+    drains = _threads([(_drain, (sink.video, video, lambda f: delivered.add(f.pts)))])
+    sent = {}
+    with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]) as prof:
+        # the window opens when the feeders start: the queue has ticked
+        # without inputs since start()
+        tracing.reset()
+        dropped0 = p.stats.video_frames_dropped
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(n) as pool:
+            futs = [pool.submit(_feed_video, src, (y[2 * i:2 * i + 2], u[2 * i:2 * i + 2],
+                                                   v[2 * i:2 * i + 2]), int(seconds * FPS), t0)
+                    for i, src in enumerate(sources.values())]
+            for fut in futs:
+                sent.update(fut.result())
+        if on_card:
+            torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    p.wait_for_outputs_done(timeout=60)
+    for t in drains:
+        t.join(timeout=60)
+    dropped = p.stats.video_frames_dropped - dropped0
+    compose = p.stats.render_latency.percentiles()
+    spans = tracing.report()
+    events = [(e.kind, e.entity_id) for e in p.events.history()]
+    p.close()
+    check(not [e for e in events if e[0] == "OUTPUT_ERROR"], f"pipeline live: {events}")
+    lat = sorted((t - sent[used[pts]][0]) * 1e3 for t, pts in delivered.times
+                 if pts in used and used[pts] in sent)
+    in_window = [t for t, _ in delivered.times if 0 <= t - t0 <= window]
+    fps = (len(in_window) - 1) / (in_window[-1] - in_window[0]) if len(in_window) > 1 else 0.0
+    busy = None
+    if on_card:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+        busy = sum(e.device_time_total for e in rows) / 1e3 / (window * 1e3)
+
+    def span(name):
+        s = spans.get(name, {})
+        return {k: s.get(k) for k in ("count", "p50_ms", "p95_ms", "avg_ms")}
+
+    # video_frames_dropped counts, as the reference's does, every queue
+    # batch sent past its deadline, the audio mixer's included; the video
+    # frames the window should have had and the sink did not get:
+    missed = round(window * FPS) - len(in_window)
+    out = dict(inputs=n, out=f"{out_w}x{out_h}", window_s=window,
+               frames_delivered=len(in_window), video_frames_missed=missed,
+               fps_delivered=fps, video_frames_dropped=dropped,
+               latency_p50_ms=statistics.median(lat) if lat else None,
+               latency_p95_ms=lat[int(0.95 * (len(lat) - 1))] if lat else None,
+               render=span("render.frame"), fetch_host=span("render.fetch_host"),
+               plan=span("render.plan"), compose_latency=compose, device_busy=busy,
+               run_s=time.perf_counter() - t_run, card=stamp)
+    print(f"pipeline live {n}x1080p->{out_w}x{out_h} at {FPS} fps for {seconds} s: "
+          f"{json.dumps(out)}")
+    check(len(video) > 0, "pipeline live: no frame delivered")
+    return out
+
+
 def host_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Median host wall time of one call, in ms."""
     for _ in range(warmup):
@@ -977,7 +1426,15 @@ def main() -> int:
     anim_frames = animated_inputs(N_INPUTS, IN_W, IN_H, seed=5)
     anim_launches = animated_phase(dev, anim_frames)
 
-    # phase 8: timings (medians of ITERS runs after WARMUP)
+    # phase 8: the pipeline, offline (checked) and in real time (measured)
+    t_phase = time.perf_counter()
+    pipe_launches, pipe_offline = pipeline_phase(dev)
+    check(all(pipe_launches.values()), f"pipeline: a kernel never launched: {pipe_launches}")
+    pipe_live = [pipeline_live(dev, N_INPUTS, OUT_W, OUT_H, stamp),
+                 pipeline_live(dev, 4, IN_W, IN_H, stamp)]
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # phase 9: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
     # synchronised call (cuda_ms), "plain" = the plain version, one call;
     # "bound" from this run's inputs: the bytes each must move and the
@@ -1102,14 +1559,20 @@ def main() -> int:
     print(json.dumps({"animated_textures": {"kernel_launches": anim_launches, **anim_times,
                                             "card": card}}))
 
+    print(json.dumps({"pipeline": {"offline": {**pipe_offline, "kernel_launches": pipe_launches},
+                                   "live": pipe_live, "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
-    # no single PyTorch call computes any of the three functions:
+    # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
+    # slice's main path; no single PyTorch call computes any of the three functions:
     # library_ms is null
     kernels = [
         {"name": "scene_assembly", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/scene_assembly.cu",
          "replaces": "smelter_tpu/ops/pallas/scene_assembly.py:194",
-         "launches": render_launches["scene_assembly"], "max_abs_err": k1_err,
+         "launches": pipe_launches["scene_assembly"],
+         "launches_by_path": {"renderer": render_launches["scene_assembly"],
+                              "animated": anim_launches["scene_assembly"],
+                              "pipeline": pipe_launches["scene_assembly"]}, "max_abs_err": k1_err,
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": None, "call_ms": k1_main["call_ms"],
@@ -1117,14 +1580,20 @@ def main() -> int:
         {"name": "yuv_out", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/yuv_out.cu",
          "replaces": "smelter_tpu/ops/pallas/yuv_out.py:82",
-         "launches": render_launches["yuv_out"], "max_abs_err": k2_err,
+         "launches": pipe_launches["yuv_out"],
+         "launches_by_path": {"renderer": render_launches["yuv_out"],
+                              "animated": anim_launches["yuv_out"],
+                              "pipeline": pipe_launches["yuv_out"]}, "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
          "bytes": k2_bytes},
         {"name": "sdf_layers", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/sdf_layers.cu",
          "replaces": "smelter_tpu/ops/pallas/sdf_layers.py:66",
-         "launches": render_launches["sdf_layers"], "max_abs_err": k3_err,
+         "launches": pipe_launches["sdf_layers"],
+         "launches_by_path": {"renderer": render_launches["sdf_layers"],
+                              "animated": anim_launches["sdf_layers"],
+                              "pipeline": pipe_launches["sdf_layers"]}, "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": None, "call_ms": k3_main["call_ms"],

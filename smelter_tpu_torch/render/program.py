@@ -664,7 +664,8 @@ class OutputProgram:
         """Render one frame: plan, upload the two buffers, run the program of
         the frame's structure (built on first sight, on the host). Returns
         the output planes on the device, without waiting for it."""
-        key, plan = self.plan(pts, input_frames)
+        with tracing.span("render.plan"):
+            key, plan = self.plan(pts, input_frames)
         fn = self._build_cache.get(key)
         if fn is None:
             fn = self._build(key, input_frames)

@@ -150,3 +150,73 @@ def test_sdf_layers_kernel_refuses_bad_tables(cuda):
         sdf_layers.compose_sdf_layers_planar(canvas[:, :, ::2], params, kinds)
     with pytest.raises(ValueError):
         sdf_layers.compose_sdf_layers_planar(canvas, params.cpu(), kinds)
+
+
+def _pipeline_run(device):
+    """An offline Pipeline on `device`: 2 raw 192x108 inputs of 20 frames
+    under a rounded, bordered, shadowed box, raw 384x216 YUV420 out. Returns
+    the delivered frames' host planes."""
+    import numpy as np
+
+    from smelter_tpu_torch.core.types import Frame, Framerate, PixelFormat, RGBAColor, Resolution
+    from smelter_tpu_torch.pipeline import (
+        EndCondition, OutputVideoOptions, Pipeline, PipelineOptions, RawDataOutputSink,
+        RegisterInputOptions, VideoEncoderOptions)
+    from smelter_tpu_torch.pipeline.input import RawDataInput
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.scene.layout_types import BorderRadius, BoxShadow
+    from smelter_tpu_torch.utils.channels import Closed
+
+    p = Pipeline(PipelineOptions(output_framerate=Framerate(30), ahead_of_time_processing=True,
+                                 never_drop_output_frames=True), device=device)
+    sources = [RawDataInput(has_video=True, has_audio=False) for _ in range(2)]
+    for i, src in enumerate(sources):
+        p.register_input(f"in_{i}", src, RegisterInputOptions(required=True, offset=0.0))
+    box = comp.View(position=comp.AbsolutePosition(width=120.0, height=60.0, top=30.0, left=40.0),
+                    background_color=RGBAColor(230, 40, 40, 220),
+                    border_radius=BorderRadius(10.0, 10.0, 10.0, 10.0), border_width=3.0,
+                    border_color=RGBAColor(255, 255, 255, 255),
+                    box_shadow=[BoxShadow(blur_radius=8.0, color=RGBAColor(0, 0, 0, 160))])
+    root = comp.View(background_color=RGBAColor(0, 0, 0), children=[
+        comp.Tiles(children=[comp.InputStream(input_id=f"in_{i}") for i in range(2)]), box])
+    sink = RawDataOutputSink()
+    p.register_output("out", sink, video=OutputVideoOptions(
+        resolution=Resolution(384, 216), encoder=VideoEncoderOptions(codec="raw"),
+        initial_root=root, end_condition=EndCondition(all_inputs=True)))
+    p.start()
+    rng = np.random.RandomState(0)
+    for k in range(20):
+        for src in sources:
+            planes = (rng.randint(16, 235, (108, 192), dtype=np.uint8),
+                      rng.randint(16, 240, (54, 96), dtype=np.uint8),
+                      rng.randint(16, 240, (54, 96), dtype=np.uint8))
+            # a microsecond early: the queue's mapping of output pts to
+            # input time may round below k / 30
+            src.video.send(Frame(data=planes, format=PixelFormat.PLANAR_YUV420,
+                                 resolution=Resolution(192, 108), pts=max(k / 30 - 1e-6, 0.0)))
+    for src in sources:
+        src.video.close()
+    frames = []
+    while True:
+        try:
+            frames.append(sink.video.recv(timeout=60))
+        except (Closed, TimeoutError):
+            break
+    p.close()
+    return [f.data for f in frames]
+
+
+def test_pipeline_on_the_card_matches_the_cpu(cuda):
+    """The port's Pipeline on the card against itself on the CPU: the frames
+    reach the sink as host u8 planes, within 1 LSB."""
+    import numpy as np
+
+    before = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES)
+    got = _pipeline_run(cuda)
+    assert scene_assembly.LAUNCHES > before[0] and yuv_out.LAUNCHES >= before[1] + len(got)
+    ref = _pipeline_run("cpu")
+    assert len(got) == len(ref) >= 18
+    for a, b in zip(ref, got):
+        for pa, pb in zip(a, b):
+            assert isinstance(pb, np.ndarray) and pb.dtype == np.uint8 and pb.shape == pa.shape
+            assert int(np.abs(pa.astype(np.int32) - pb.astype(np.int32)).max()) <= 1

@@ -1,8 +1,9 @@
 """The PyTorch port imports without JAX, Triton, PIL or any module of the
 reference package (and renders a View/Tiles scene built from its own
-components without them); its entry points refuse to run without a card
-unless given `device="cpu"`; and `chip_smoke.py` refuses to run (non-zero
-exit, no "ok" line) where torch sees no CUDA card."""
+components without them), and its pipeline without aiohttp or pydantic; its
+entry points refuse to run without a card unless given `device="cpu"`; and
+`chip_smoke.py` refuses to run (non-zero exit, no "ok" line) where torch
+sees no CUDA card."""
 
 from __future__ import annotations
 
@@ -70,6 +71,19 @@ def test_port_imports_without_jax_or_triton():
     assert n_reference == "0"  # no module of the reference package loaded
 
 
+def test_pipeline_imports_without_the_server_stack():
+    """The card's machine has neither aiohttp nor pydantic: the pipeline
+    must import without them (only the server and the API schema need
+    them)."""
+    code = ("import sys, smelter_tpu_torch.pipeline\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'aiohttp', 'pydantic', 'jax', 'smelter_tpu'}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_entry_points_need_a_card_unless_given_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("torch sees a CUDA card here: the entry points would run on it")
@@ -78,16 +92,18 @@ def test_entry_points_need_a_card_unless_given_the_cpu():
         make_flagship_compose,
         make_flagship_general_compose,
     )
+    from smelter_tpu_torch.pipeline import Pipeline
     from smelter_tpu_torch.render.program import OutputProgram
     from smelter_tpu_torch.render.renderer import Renderer
 
     tiny = dict(n_inputs=1, in_res=Resolution(64, 32), out_res=Resolution(64, 32))
-    for entry in (Renderer, lambda: make_flagship_compose(**tiny),
+    for entry in (Renderer, Pipeline, lambda: make_flagship_compose(**tiny),
                   lambda: make_flagship_general_compose(**tiny),
                   lambda: OutputProgram(None, Resolution(64, 32), PixelFormat.RGBA)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             entry()
     assert Renderer(device="cpu").device == torch.device("cpu")
+    assert Pipeline(device="cpu").renderer.device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_cuda():
