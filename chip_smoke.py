@@ -65,8 +65,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      16 x 1080p -> 4K and 4 x 1080p -> 1080p: the delivered frame rate, the
      dropped frames, the latency from a frame's send to its delivery (p50,
      p95), the render, fetch-host and plan spans, the host enqueue time of
-     render() and the card's busy share over the window (recorded, not
-     gated);
+     render() and the card's busy share over the window's last second
+     (recorded, not gated);
+  10. drives the renderer through Shader, Image and WebView nodes
+     (`nodes_scene`): 16 host 1080p inputs into 4K PLANAR_YUV420, NV12 and
+     PLANAR_YUV444 outputs at once, a Tiles grid under the docs' `pulse`
+     shader of input 0, a `gradient` shader of no input, a 4-input
+     `circle_layout` shader (JAX-syntax sources run by the port's torch
+     `jnp`), a 3-frame animated image built in numpy, a WebView with no
+     browser behind it and a banner that slides for one second, 41 frames
+     at 30 fps; checks K1 on every frame of every output, K2 on every
+     YUV420 and NV12 frame and never for YUV444, K3 on exactly the banner's
+     moving frames 2-30, no synchronising call on frames 2-40, NV12 equal
+     to the YUV420 output interleaved, and the card within 1 LSB of the CPU
+     at 4 x 256x144 -> 768x432; times the frames (three outputs together
+     and each alone), one animating frame under torch.profiler and each
+     shader;
   9. times the kernels (CUDA events around 50 launches queued back to
      back, one synchronised call, and the device time torch.profiler
      reads for the kernel alone) against their plain versions and
@@ -74,10 +88,12 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      frames, the host time of the renderer's per-frame planning, and the
      animated-texture frames (animating and stable, plan(), and a
      torch.profiler breakdown of one animating frame);
-and prints a JSON line of the animated-texture numbers, a JSON line of the
-pipeline's numbers (`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON
-line of the kernels (`launches` from the pipeline's offline 4K run, the
-other paths' counts under `launches_by_path`), the nvidia-smi line, and
+(phase 10 runs between 8 and 9) and prints a JSON line of the
+animated-texture numbers, a JSON line of the pipeline's numbers
+(`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON line of the nodes
+phase (`{"nodes": ...}`), a JSON line of the kernels (`launches` from the
+pipeline's offline 4K run, each path's counts under `launches_by_path`, the
+nodes phase's included), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -1185,8 +1201,9 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
     rate, the dropped frames, the latency from a frame's send to its
     delivery (input 0's frame in each output frame), the render, fetch-host
     and plan spans, the host enqueue time of render() (`compose_latency`,
-    /stats) and the card's busy share over the window (torch.profiler
-    device time over wall time)."""
+    /stats), the card's busy share over the window's last second
+    (torch.profiler device time over wall time), and the seconds of set-up,
+    trace processing and teardown around the window."""
     import concurrent.futures
 
     import torch
@@ -1200,6 +1217,12 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
     from smelter_tpu_torch.utils import tracing
 
     t_run = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        # the process's first profiler start initialises CUPTI for seconds,
+        # holding the interpreter: pay it before the window opens
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
     p = Pipeline(PipelineOptions(output_framerate=Framerate(FPS)), device=dev)
     sources = {}
     for i in range(n):
@@ -1223,24 +1246,37 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
     y, u, v = host_frames(2 * n, IN_W, IN_H, seed=9)
     delivered, video = Delivered(), []
     p.start()
-    on_card = torch.device(dev).type == "cuda"
     drains = _threads([(_drain, (sink.video, video, lambda f: delivered.add(f.pts)))])
     sent = {}
-    with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]) as prof:
-        # the window opens when the feeders start: the queue has ticked
-        # without inputs since start()
-        tracing.reset()
-        dropped0 = p.stats.video_frames_dropped
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(n) as pool:
-            futs = [pool.submit(_feed_video, src, (y[2 * i:2 * i + 2], u[2 * i:2 * i + 2],
-                                                   v[2 * i:2 * i + 2]), int(seconds * FPS), t0)
-                    for i, src in enumerate(sources.values())]
-            for fut in futs:
-                sent.update(fut.result())
-        if on_card:
-            torch.cuda.synchronize()
-        window = time.perf_counter() - t0
+    t_setup = time.perf_counter() - t_run
+    # the window opens when the feeders start: the queue has ticked without
+    # inputs since start()
+    tracing.reset()
+    dropped0 = p.stats.video_frames_dropped
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(n) as pool:
+        futs = [pool.submit(_feed_video, src, (y[2 * i:2 * i + 2], u[2 * i:2 * i + 2],
+                                               v[2 * i:2 * i + 2]), int(seconds * FPS), t0)
+                for i, src in enumerate(sources.values())]
+        # the card's busy share over the window's last second: a trace of
+        # the whole window took longer to process than the window itself
+        time.sleep(max(0.0, t0 + seconds - 1.0 - time.perf_counter()))
+        prof = profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU])
+        prof.start()
+        t_prof = time.perf_counter()
+        for fut in futs:
+            sent.update(fut.result())
+    if on_card:
+        torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    window, prof_span = t_end - t0, t_end - t_prof
+    prof.stop()
+    busy = None
+    if on_card:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+        busy = sum(e.device_time_total for e in rows) / 1e3 / (prof_span * 1e3)
+    t_trace = time.perf_counter() - t_end
     p.wait_for_outputs_done(timeout=60)
     for t in drains:
         t.join(timeout=60)
@@ -1249,16 +1285,12 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
     spans = tracing.report()
     events = [(e.kind, e.entity_id) for e in p.events.history()]
     p.close()
+    t_teardown = time.perf_counter() - t_end - t_trace
     check(not [e for e in events if e[0] == "OUTPUT_ERROR"], f"pipeline live: {events}")
     lat = sorted((t - sent[used[pts]][0]) * 1e3 for t, pts in delivered.times
                  if pts in used and used[pts] in sent)
     in_window = [t for t, _ in delivered.times if 0 <= t - t0 <= window]
     fps = (len(in_window) - 1) / (in_window[-1] - in_window[0]) if len(in_window) > 1 else 0.0
-    busy = None
-    if on_card:
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-        busy = sum(e.device_time_total for e in rows) / 1e3 / (window * 1e3)
 
     def span(name):
         s = spans.get(name, {})
@@ -1275,11 +1307,362 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
                latency_p95_ms=lat[int(0.95 * (len(lat) - 1))] if lat else None,
                render=span("render.frame"), fetch_host=span("render.fetch_host"),
                plan=span("render.plan"), compose_latency=compose, device_busy=busy,
-               run_s=time.perf_counter() - t_run, card=stamp)
+               busy_window_s=prof_span, run_s=time.perf_counter() - t_run,
+               setup_s=t_setup, trace_s=t_trace, teardown_s=t_teardown, card=stamp)
     print(f"pipeline live {n}x1080p->{out_w}x{out_h} at {FPS} fps for {seconds} s: "
           f"{json.dumps(out)}")
     check(len(video) > 0, "pipeline live: no frame delivered")
     return out
+
+
+# the nodes phase (10): shaders in the JAX syntax of the wire contract, run
+# by the port's torch-backed jnp: the docs' `pulse`, the `gradient` of
+# tests/test_snapshots.py and the `circle_layout` of
+# tests/test_snapshots_round5b.py
+PULSE = (
+    "def main(inputs, params, resolution, time):\n"
+    "    # grayscale with a slow pulse back to color\n"
+    "    tex = inputs[0]\n"
+    "    rgb = tex[..., :3]\n"
+    "    luma = (0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1]\n"
+    "            + 0.0722 * rgb[..., 2])[..., None]\n"
+    "    mix = 0.5 + 0.5 * jnp.sin(time * 2.0)\n"
+    "    out = rgb * mix + luma * (1.0 - mix)\n"
+    "    return jnp.concatenate([out, tex[..., 3:4]], axis=-1)\n")
+GRADIENT = (
+    "def main(inputs, params, resolution, time):\n"
+    "    w, h = resolution[0], resolution[1]\n"
+    "    gain = params['gain'] if params else 1.0\n"
+    "    x = jnp.linspace(0.0, gain, w)\n"
+    "    y = jnp.linspace(0.0, 1.0, h)\n"
+    "    g = jnp.outer(y, x)\n"
+    "    rgba = jnp.stack([g, g * 0.5, 1.0 - g, jnp.ones_like(g)], axis=-1)\n"
+    "    return rgba.astype(jnp.float32)\n")
+CIRCLE = (
+    "def main(inputs, params, resolution, time):\n"
+    "    w, h = resolution[0], resolution[1]\n"
+    "    canvas = jnp.zeros((h, w, 4), jnp.float32)\n"
+    "    cx, cy = params['center']['x'], params['center']['y']\n"
+    "    radius = params['radius']\n"
+    "    for i, ang in enumerate(params['angles_deg']):\n"
+    "        tile = inputs[i][::2, ::2]\n"
+    "        th, tw = tile.shape[0], tile.shape[1]\n"
+    "        a = ang * math.pi / 180.0\n"
+    "        x = jnp.round(cx + radius * jnp.cos(a) - tw / 2)\n"
+    "        y = jnp.round(cy + radius * jnp.sin(a) - th / 2)\n"
+    "        canvas = lax.dynamic_update_slice(\n"
+    "            canvas, tile,\n"
+    "            (y.astype(jnp.int32), x.astype(jnp.int32),\n"
+    "             jnp.zeros((), jnp.int32)))\n"
+    "    return canvas\n")
+NODE_OUTPUTS = ("PLANAR_YUV420", "NV12", "PLANAR_YUV444")
+
+
+def nodes_scene(out_w, out_h, n_inputs, stage):
+    """The nodes phase's scene: an opaque root View over a Tiles grid of the
+    inputs, and on top of it a 1280x720 `pulse` shader of input 0, a
+    1280x720 `gradient` shader of no input, a 1280x720 `circle_layout`
+    shader of inputs 1-4, the 3-frame animated image "logo" at its natural
+    size, a 960x540 WebView of input 5 with no browser behind it
+    (transparent), and a bordered, shadowed lower-third banner that slides
+    right in a one-second transition (stage 0 -> 1; K3). Sizes are those of
+    a 3840-wide output, scaled to `out_w`; the banner stays inside the
+    canvas, so it carries no mask."""
+    from smelter_tpu_torch.core.types import RGBAColor
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.scene.layout_types import BorderRadius, BoxShadow
+
+    s = out_w / 3840.0
+
+    def at(top, left, w, h, child):
+        return comp.View(position=comp.AbsolutePosition(
+            width=w * s, height=h * s, top=top * s, left=left * s), children=[child])
+
+    def shader(shader_id, inputs, param=None):
+        return comp.Shader(
+            shader_id=shader_id, shader_param=param, width=float(round(1280 * s)),
+            height=float(round(720 * s)),
+            children=[comp.InputStream(input_id=f"input_{i % n_inputs}") for i in inputs])
+
+    circle = {"center": {"x": 640.0 * s, "y": 360.0 * s}, "radius": 200.0 * s,
+              "angles_deg": [0.0, 90.0, 180.0, 270.0]}
+    bw, bh = 2400 * s, 240 * s
+    banner = comp.View(
+        id="banner",
+        position=comp.AbsolutePosition(width=bw, height=bh, top=out_h - bh - 120 * s,
+                                       left=(160 if stage == 0 else 1200) * s),
+        background_color=RGBAColor(20, 90, 200, 230),
+        border_radius=BorderRadius(24 * s, 24 * s, 24 * s, 24 * s),
+        border_width=4 * s, border_color=RGBAColor(255, 255, 255, 255),
+        box_shadow=[BoxShadow(offset_x=8 * s, offset_y=8 * s, blur_radius=30 * s,
+                              color=RGBAColor(0, 0, 0, 160))],
+        transition=comp.Transition(duration=1.0))
+    tiles = comp.Tiles(
+        children=[comp.Rescaler(child=comp.InputStream(input_id=f"input_{i}"))
+                  for i in range(n_inputs)],
+        background_color=RGBAColor(16, 16, 16), margin=8.0 * s)
+    return comp.View(background_color=RGBAColor(0, 0, 0), children=[
+        tiles,
+        at(80, 80, 1280, 720, shader("pulse", [0])),
+        at(80, 2480, 1280, 720, shader("gradient", [], {"gain": 1.0})),
+        at(880, 80, 1280, 720, shader("circle_layout", [1, 2, 3, 4], circle)),
+        at(880, 2480, 320, 320, comp.Image(image_id="logo")),
+        at(880, 1440, 960, 540, comp.WebView(
+            instance_id="page", children=[comp.InputStream(input_id=f"input_{5 % n_inputs}")])),
+        banner,
+    ])
+
+
+def logo_asset(side, seed=11):
+    """A 3-frame animated `ImageAsset` of side x side straight-alpha RGBA
+    frames made in numpy (no decoding), 0.1 s a frame."""
+    import numpy as np
+
+    from smelter_tpu_torch.render.image import ImageAsset
+
+    rng = np.random.RandomState(seed)
+    frames = []
+    for i in range(3):
+        f = rng.randint(0, 256, (side, side, 4), dtype=np.uint8)
+        f[..., 3] = np.where(np.add.outer(np.arange(side), np.arange(side)) % 7 == i, 0, 220)
+        frames.append(f)
+    return ImageAsset("animated", frames, [0.1, 0.1, 0.1], side, side)
+
+
+def nodes_renderer(dev, out_w, out_h, n, frames, formats=NODE_OUTPUTS):
+    """A renderer on `dev` with the three shaders, the logo and the web
+    instance registered, one output per format of `formats` (named by the
+    format) showing `nodes_scene` stage 0 rendered at pts 0, then stage 1."""
+    from smelter_tpu_torch.core.types import FrameSet, PixelFormat, Resolution
+    from smelter_tpu_torch.render.renderer import Renderer
+    from smelter_tpu_torch.render.web import WebRendererSpec
+
+    os.environ["SMELTER_WEB_RENDERER_BROWSER"] = "/nonexistent/browser"  # no sidecar
+    os.environ.pop("SMELTER_WEB_RENDERER_CDP_URL", None)
+    r = Renderer(device=dev)
+    for iid in frames:
+        r.register_input(iid)
+    for shader_id, src in (("pulse", PULSE), ("gradient", GRADIENT), ("circle_layout", CIRCLE)):
+        r.register_shader(shader_id, src)
+    r.images.put("logo", logo_asset(max(int(round(320 * out_w / 3840.0)), 8)))
+    s = out_w / 3840.0
+    inst = r.web.register(WebRendererSpec(
+        instance_id="page", url="about:blank",
+        resolution=(int(round(960 * s)), int(round(540 * s)))))
+    check(not inst.active, "nodes: a web renderer sidecar started")
+    res = Resolution(out_w, out_h)
+    for fmt in formats:
+        r.update_scene(fmt, nodes_scene(out_w, out_h, n, 0), res, PixelFormat[fmt])
+    first = r.render(FrameSet(pts=0.0, frames=frames)).frames
+    for fmt in formats:
+        r.update_scene(fmt, nodes_scene(out_w, out_h, n, 1), res, PixelFormat[fmt])
+    return r, first
+
+
+class ProgramLaunches:
+    """Per output format, per render of an `OutputProgram` while installed
+    (a `with` block): the K1, K2 and K3 launches it made."""
+
+    def __init__(self):
+        self.runs = {}
+
+    def __enter__(self):
+        from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+        from smelter_tpu_torch.render.program import OutputProgram
+
+        self._orig = orig = OutputProgram.render
+
+        def counted(prog, *args, **kw):
+            before = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES, sdf_layers.LAUNCHES)
+            out = orig(prog, *args, **kw)
+            after = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES, sdf_layers.LAUNCHES)
+            self.runs.setdefault(prog.out_format.name, []).append(
+                tuple(a - b for a, b in zip(after, before)))
+            return out
+
+        OutputProgram.render = counted
+        return self
+
+    def __exit__(self, *exc):
+        from smelter_tpu_torch.render.program import OutputProgram
+
+        OutputProgram.render = self._orig
+        return False
+
+
+def render_nodes(dev, n, out_w, out_h, frames, ks, on_frame=None, formats=NODE_OUTPUTS):
+    """`nodes_renderer`, then the frames at pts k / FPS for k in `ks` (after
+    frame 0). Returns each frame's output frames by format, on `dev`;
+    `on_frame(k, render)` renders frame k (`render()` returns its frames)."""
+    from smelter_tpu_torch.core.types import FrameSet
+
+    r, first = nodes_renderer(dev, out_w, out_h, n, frames, formats)
+    outs = [first]
+    for k in ks:
+        def render(k=k):
+            return r.render(FrameSet(pts=k / FPS, frames=frames)).frames
+
+        outs.append(render() if on_frame is None else on_frame(k, render))
+    r.close()
+    return outs
+
+
+def nodes_phase(dev, frames, stamp):
+    """Phase 10: `nodes_scene` at 16 x 1080p -> 4K to PLANAR_YUV420, NV12
+    and PLANAR_YUV444 outputs, 41 frames. Checks K1 on every frame of every
+    output, K2 on every YUV420 and NV12 frame and never for YUV444, K3 on
+    exactly the banner's moving frames 2-30, no synchronising call on frames
+    2-40, NV12's UV plane equal to the YUV420 output's U and V interleaved on
+    every frame, the planes of frames 0-2, 15, 30, 31 and 40, and the card
+    within 1 LSB of the port on the CPU at 4 x 256x144 -> 768x432 on frames
+    0-2, 15 and 31. Times the frames of each output alone (`cuda_ms`,
+    animating frames 3-10, settled 33-35) and of the three together
+    (animating 3-16, settled 33-35), frame 15 of the three under
+    torch.profiler, and each shader alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smelter_tpu_torch import interop
+    from smelter_tpu_torch.core.types import FrameSet
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+
+    t_phase = time.perf_counter()
+    ks = list(range(1, N_RENDER_FRAMES + 1))
+    sync_after = []
+
+    def counted_syncs(k, render):
+        sync_after.append(len(syncs))  # after frame k - 1
+        return render()
+
+    scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs, ProgramLaunches() as counted:
+        warnings.simplefilter("always")
+        outs = render_nodes(dev, N_INPUTS, OUT_W, OUT_H, frames, ks, on_frame=counted_syncs)
+        sync_after.append(len(syncs))
+    torch.cuda.set_sync_debug_mode("default")
+    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                "sdf_layers": sdf_layers.LAUNCHES}
+    per_frame_syncs = [sync_after[0]] + [b - a for a, b in zip(sync_after, sync_after[1:])]
+    print(f"nodes: launches over {len(outs)} frames x {len(NODE_OUTPUTS)} outputs: {launches}; "
+          f"synchronising calls flagged per frame: {per_frame_syncs}")
+    check(len(per_frame_syncs) == len(outs) and max(per_frame_syncs[2:]) == 0,
+          "nodes: a frame of 2-40 synchronised")
+    moving = list(range(2, FPS + 1))
+    for fmt in NODE_OUTPUTS:
+        runs = counted.runs[fmt]
+        check(len(runs) == len(outs), f"nodes {fmt}: {len(runs)} renders, not {len(outs)}")
+        k1 = [k for k, r in enumerate(runs) if r[0]]
+        k2 = [r[1] for r in runs]
+        k3 = [k for k, r in enumerate(runs) if r[2]]
+        print(f"nodes {fmt}: K1 on {len(k1)} of {len(runs)} frames, K2 per frame {set(k2)}, "
+              f"K3 on frames {k3}")
+        check(len(k1) == len(runs), f"nodes {fmt}: K1 did not run on every frame")
+        want_k2 = 0 if fmt == "PLANAR_YUV444" else 1
+        check(set(k2) == {want_k2}, f"nodes {fmt}: K2 launches per frame {set(k2)}")
+        check(k3 == moving, f"nodes {fmt}: K3 on frames {k3}, not 2..{FPS}")
+    for k, out in enumerate(outs):
+        y, u, v = out["PLANAR_YUV420"].data
+        ny, uv = out["NV12"].data
+        check(torch.equal(ny, y) and torch.equal(uv, torch.stack([u, v], dim=-1)),
+              f"nodes frame {k}: NV12 is not the YUV420 output interleaved")
+        p444 = out["PLANAR_YUV444"].data
+        check([tuple(p.shape) for p in p444] == [(OUT_H, OUT_W)] * 3
+              and all(p.dtype == torch.uint8 for p in p444), f"nodes frame {k}: YUV444 planes")
+        if k in (0, 1, 2, 15, FPS, FPS + 1, N_RENDER_FRAMES):
+            check_planes(f"nodes frame {k} YUV420", interop.planes_to_host((y, u, v)),
+                         OUT_W, OUT_H)
+    print(f"nodes: NV12 = YUV420 interleaved and YUV444 plane shapes on all {len(outs)} frames")
+    del outs
+    t_check = time.perf_counter() - t_phase
+
+    # the card against the port on the CPU, at a CPU size
+    sub = [1, 2, 15, FPS + 1]
+    small_frames = renderer_inputs(4, 256, 144, seed=12)
+    ref = render_nodes("cpu", 4, 768, 432, small_frames, sub)
+    got = render_nodes(dev, 4, 768, 432, small_frames, sub)
+    for fmt in NODE_OUTPUTS:
+        mx, n_diff, n_gt1, total = 0, 0, 0, 0
+        for a, b in zip(ref, got):
+            m, d, g, t = lsb_stats(interop.planes_to_host(a[fmt].data),
+                                   interop.planes_to_host(b[fmt].data))
+            mx, n_diff, n_gt1, total = max(mx, m), n_diff + d, n_gt1 + g, total + t
+        print(f"parity card vs CPU nodes {fmt} 4x256x144 -> 768x432, frames {[0] + sub}: "
+              f"max {mx} LSB, {n_diff} of {total} pixels differ")
+        check(mx <= 1, f"nodes {fmt}: card vs CPU off by {mx} LSB")
+    del ref, got
+    t_parity = time.perf_counter() - t_phase - t_check
+
+    def frame_times(formats, last, profile_at=None):
+        """Frames 1-`last` of the transition and, after a jump, 32-35 timed
+        one by one (`cuda_ms`), frame `profile_at` under torch.profiler
+        instead; medians over animating frames 3-`last` and settled frames
+        33-35 (32 moves the banner from its place at `last`). Returns the
+        renderer, (profile, its wall ms) and the medians."""
+        r, _ = nodes_renderer(dev, OUT_W, OUT_H, N_INPUTS, frames, formats)
+        ms, prof, wall = {}, None, None
+        for k in list(range(1, last + 1)) + list(range(FPS + 2, FPS + 6)):
+            fs = FrameSet(pts=k / FPS, frames=frames)
+            if k == profile_at:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    r.render(fs)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                continue
+            ms[k] = cuda_ms(lambda: r.render(fs), iters=1, warmup=0)
+        return r, (prof, wall), dict(
+            animating_ms=statistics.median(ms[k] for k in range(3, last + 1) if k in ms),
+            stable_ms=statistics.median(ms[k] for k in range(FPS + 3, FPS + 6)))
+
+    times = {}
+    for fmt in NODE_OUTPUTS:
+        r, _, times[fmt] = frame_times((fmt,), 10)
+        r.close()
+    # the three outputs together, their frame 15 under the profiler
+    r, (prof, wall), times["all three"] = frame_times(NODE_OUTPUTS, 16, profile_at=15)
+    for name, t in times.items():
+        print(f"time nodes frame 16x1080p->4K, {name}: animating median "
+              f"{t['animating_ms']:.4f} ms, stable median {t['stable_ms']:.4f} ms {stamp}")
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    dev_ms = sum(e.device_time_total for e in rows) / 1e3
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    print(f"profile nodes frame 15 (16x1080p->4K, three outputs): device {dev_ms:.4f} ms in "
+          f"{sum(e.count for e in rows)} device ops ({n_launch} kernel launches), wall "
+          f"{wall:.4f} ms under the profiler, device busy {dev_ms / wall:.0%} {stamp}")
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
+        print(f"  device {e.device_time_total / 1e3:.4f} ms x{e.count}: {e.key[:100]}")
+
+    # each shader alone at 1280x720, on random 1080p textures
+    shader_ms = {}
+    tex = [torch.rand((IN_H, IN_W, 4), device=dev) for _ in range(4)]
+    t15 = torch.full((), 15 / FPS, device=dev)
+    args = {"pulse": (tex[:1], None), "gradient": ([], {"gain": 1.0}),
+            "circle_layout": (tex, {"center": {"x": 640.0, "y": 360.0}, "radius": 200.0,
+                                    "angles_deg": [0.0, 90.0, 180.0, 270.0]})}
+    for shader_id, (inputs, param) in args.items():
+        fn = r.shaders.get(shader_id)
+        call = lambda fn=fn, inputs=inputs, param=param: fn(inputs, param, (1280, 720), t15)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as sp:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        d = sum(e.device_time_total for e in sp.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 10
+        shader_ms[shader_id] = dict(device_ms=d, call_ms=cuda_ms(call))
+        print(f"time shader {shader_id} 1280x720: device {d:.4f} ms, call "
+              f"{shader_ms[shader_id]['call_ms']:.4f} ms {stamp}")
+    r.close()
+    took = time.perf_counter() - t_phase
+    print(f"nodes phase: {took:.1f} s (checked run {t_check:.1f} s, parity {t_parity:.1f} s)")
+    return launches, dict(frame_ms=times, profile_frame15=dict(
+        device_ms=dev_ms, wall_ms=wall, busy=dev_ms / wall, launches=n_launch),
+        shaders=shader_ms, phase_s=took, card=stamp)
 
 
 def host_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
@@ -1434,6 +1817,9 @@ def main() -> int:
                  pipeline_live(dev, 4, IN_W, IN_H, stamp)]
     print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
 
+    # phase 10: Shader, Image and WebView nodes, three output formats, 4K
+    node_launches, nodes = nodes_phase(dev, render_frames, stamp)
+
     # phase 9: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
     # synchronised call (cuda_ms), "plain" = the plain version, one call;
@@ -1561,6 +1947,7 @@ def main() -> int:
 
     print(json.dumps({"pipeline": {"offline": {**pipe_offline, "kernel_launches": pipe_launches},
                                    "live": pipe_live, "card": card}}))
+    print(json.dumps({"nodes": {"kernel_launches": node_launches, **nodes}}))
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
     # slice's main path; no single PyTorch call computes any of the three functions:
@@ -1572,7 +1959,8 @@ def main() -> int:
          "launches": pipe_launches["scene_assembly"],
          "launches_by_path": {"renderer": render_launches["scene_assembly"],
                               "animated": anim_launches["scene_assembly"],
-                              "pipeline": pipe_launches["scene_assembly"]}, "max_abs_err": k1_err,
+                              "pipeline": pipe_launches["scene_assembly"],
+                              "nodes": node_launches["scene_assembly"]}, "max_abs_err": k1_err,
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": None, "call_ms": k1_main["call_ms"],
@@ -1583,7 +1971,8 @@ def main() -> int:
          "launches": pipe_launches["yuv_out"],
          "launches_by_path": {"renderer": render_launches["yuv_out"],
                               "animated": anim_launches["yuv_out"],
-                              "pipeline": pipe_launches["yuv_out"]}, "max_abs_err": k2_err,
+                              "pipeline": pipe_launches["yuv_out"],
+                              "nodes": node_launches["yuv_out"]}, "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
          "bytes": k2_bytes},
@@ -1593,7 +1982,8 @@ def main() -> int:
          "launches": pipe_launches["sdf_layers"],
          "launches_by_path": {"renderer": render_launches["sdf_layers"],
                               "animated": anim_launches["sdf_layers"],
-                              "pipeline": pipe_launches["sdf_layers"]}, "max_abs_err": k3_err,
+                              "pipeline": pipe_launches["sdf_layers"],
+                              "nodes": node_launches["sdf_layers"]}, "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": None, "call_ms": k3_main["call_ms"],

@@ -1,11 +1,12 @@
 """BT.709 colour conversion for the compose path.
 
-Port of `smelter_tpu/ops/color_convert.py` but its 4:2:2/4:4:4/NV12
-output converters: u8 <-> f32, YUV <-> RGB, the chroma up- and
-down-sampling, the deferred-YUV tile convert (`yuv_tile_rgba_cm`), the
-full-resolution RGBA conversion of every input format
-(`convert_to_rgba_f32`, `DeferredYuvSource.mips`) and the channel-major
-canvas -> YUV420 output, which runs kernel K2 (`ops/hopper/yuv_out.py`).
+Port of `smelter_tpu/ops/color_convert.py` but its 4:2:2 output
+converters: u8 <-> f32, YUV <-> RGB, the chroma up- and down-sampling, the
+deferred-YUV tile convert (`yuv_tile_rgba_cm`), the full-resolution RGBA
+conversion of every input format (`convert_to_rgba_f32`,
+`DeferredYuvSource.mips`) and the canvas -> YUV420, NV12 and YUV444
+outputs. The YUV420 output (and so NV12, its interleaved form) runs kernel
+K2 (`ops/hopper/yuv_out.py`); YUV444 is elementwise, with no kernel.
 
 Everything is f32 in [0, 1]; constants and operation order follow the
 reference so that the two packages agree to the u8 LSB. Internal RGBA
@@ -331,3 +332,32 @@ def rgba_to_planar_yuv420(
     function as `planar_rgba_to_yuv420` on the channel-major copy (the
     reference's interleaved converter runs the same operations)."""
     return planar_rgba_to_yuv420(rgba.permute(2, 0, 1).contiguous(), full_range)
+
+
+def planar_rgba_to_yuv444(
+    rgba_cm: torch.Tensor, full_range: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(4, H, W) RGBA f32 [0, 1] -> (y, u, v) u8 planes, 4:4:4."""
+    y, u, v = rgb_planes_to_yuv(rgba_cm[0], rgba_cm[1], rgba_cm[2], full_range)
+    return f32_to_u8(y), f32_to_u8(u), f32_to_u8(v)
+
+
+def rgba_to_planar_yuv444(
+    rgba: torch.Tensor, full_range: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(H, W, 4) RGBA f32 [0, 1] -> (y, u, v) u8 planes, 4:4:4."""
+    y, u, v = rgb_planes_to_yuv(rgba[..., 0], rgba[..., 1], rgba[..., 2], full_range)
+    return f32_to_u8(y), f32_to_u8(u), f32_to_u8(v)
+
+
+def planar_rgba_to_nv12(rgba_cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(4, H, W) RGBA f32 [0, 1] -> NV12: y (H, W) u8 and the interleaved
+    uv (H/2, W/2, 2) u8, through `planar_rgba_to_yuv420` (K2 on the card)."""
+    y, u, v = planar_rgba_to_yuv420(rgba_cm)
+    return y, torch.stack([u, v], dim=-1)
+
+
+def rgba_to_nv12(rgba: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H, W, 4) RGBA f32 [0, 1] -> NV12 (y, uv), as `planar_rgba_to_nv12`."""
+    y, u, v = rgba_to_planar_yuv420(rgba)
+    return y, torch.stack([u, v], dim=-1)

@@ -1,11 +1,11 @@
 """Separable resizing as dense per-axis GEMMs, and bilinear sampling at
 coordinates that live on the device.
 
-Port of `smelter_tpu/ops/resample.py` but `resize_lanczos3`,
-`resize_matmul_u8` and `resize_bilinear`: the static weights and
-`resize_matmul`, the traced-size `resize_matmul_traced` (weights built on
-the device from the size and crop of the frame), `box_downsample_2x`,
-`build_mips`, `sample_bilinear` and `sample_bilinear_mip`. The static
+Port of `smelter_tpu/ops/resample.py` but `resize_lanczos3` and
+`resize_matmul_u8`: the static weights and `resize_matmul`, the traced-size
+`resize_matmul_traced` (weights built on the device from the size and crop
+of the frame), `box_downsample_2x`, `build_mips`, `resize_bilinear`,
+`sample_bilinear` and `sample_bilinear_mip`. The static
 weight matrices are numpy, copied from the reference line for line so both
 packages build identical matrices; a resize is two `torch.matmul` calls.
 
@@ -193,6 +193,37 @@ def resize_matmul_traced(
     x = to_bf16_values(img.to(torch.float32))
     x = to_bf16_values(torch.matmul(wh, x))
     return torch.matmul(x, ww.t())
+
+
+@functools.lru_cache(maxsize=64)
+def _bilinear_taps(out_size: int, in_size: int, device: torch.device):
+    """(lo, hi, frac) of `resize_bilinear` along one axis, on `device`: the
+    texel-centre positions in f32, clamped to the edges (CLAMP_TO_EDGE),
+    their floor, the next texel and the fraction, as the reference computes
+    them. Uploaded once per size, without waiting."""
+    from smelter_tpu_torch.interop import upload
+
+    pos = np.clip(_axis_positions(out_size, in_size).astype(np.float32),
+                  np.float32(0.0), np.float32(in_size - 1.0))
+    lo = np.floor(pos)
+    frac = (pos - lo).astype(np.float32)
+    lo_i = lo.astype(np.int64)
+    hi_i = np.clip(lo_i + 1, 0, in_size - 1)
+    return tuple(upload(torch.from_numpy(a), device) for a in (lo_i, hi_i, frac))
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(H, W, C) -> (out_h, out_w, C): the GPU sampler's bilinear resize,
+    texel-centre aligned and clamped to the edges, as plain index and lerp
+    operations in the reference's order (not `F.interpolate`, whose sample
+    positions differ)."""
+    y0, y1, fy = _bilinear_taps(out_h, img.shape[0], img.device)
+    x0, x1, fx = _bilinear_taps(out_w, img.shape[1], img.device)
+    r0, r1 = img.index_select(0, y0), img.index_select(0, y1)
+    fx, gx = fx[None, :, None], (1 - fx)[None, :, None]
+    top = r0.index_select(1, x0) * gx + r0.index_select(1, x1) * fx
+    bot = r1.index_select(1, x0) * gx + r1.index_select(1, x1) * fx
+    return top * (1 - fy)[:, None, None] + bot * fy[:, None, None]
 
 
 def box_downsample_2x(img: torch.Tensor) -> torch.Tensor:

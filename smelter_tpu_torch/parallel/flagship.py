@@ -3,11 +3,12 @@
 Port of the single-device builders of `smelter_tpu/parallel/flagship.py`,
 the driver's north-star shape, in its two scenes:
 
-  - `make_flagship_compose`: the Tiles grid. The scene is an opaque
-    axis-aligned grid, so the compose stays in YUV: each tile is a
-    separable Lanczos3 resize (two GEMMs per plane, batched over the inputs
-    when the tiles are uniform), rounded to u8 and assembled by
-    concatenation when the tiles partition the canvas.
+  - `make_flagship_compose`: the Tiles grid. When the scene is an opaque
+    axis-aligned grid, the compose stays in YUV: each tile is a separable
+    Lanczos3 resize (two GEMMs per plane, batched over the inputs when the
+    tiles are uniform), rounded to u8 and assembled by concatenation when
+    the tiles partition the canvas. Otherwise it falls back, as the
+    reference does, to the general RGBA compose (`_make_general_compose`).
   - `make_flagship_general_compose` (`general_4k`): rounded, half-bordered
     tiles with box shadows on every third and two static rotations, through
     the general compose (`ops/compose.py`: kernel K1 paints the colour and
@@ -34,7 +35,7 @@ from smelter_tpu_torch.core.types import Resolution, RGBAColor
 from smelter_tpu_torch.interop import resolve_device
 from smelter_tpu_torch.ops import color_convert as cc
 from smelter_tpu_torch.ops.compose import compose_layouts
-from smelter_tpu_torch.ops.resample import resize_matmul
+from smelter_tpu_torch.ops.resample import build_mips, resize_matmul
 from smelter_tpu_torch.render.program import split_layout
 from smelter_tpu_torch.scene import components as comp
 from smelter_tpu_torch.scene.layout_types import RenderChildNode, RenderColor
@@ -132,13 +133,9 @@ def make_flagship_compose(
     device = resolve_device(device)
     flat = _tiles_layouts(n_inputs, in_res, out_res)
     grid = _analyze_opaque_grid(flat, out_res)
-    if grid is None:
-        raise NotImplementedError(
-            "a Tiles scene that is not an opaque grid needs the general RGBA "
-            "compose of the frame program, not ported yet: ROADMAP Queue 1 "
-            "item 5"
-        )
-    return _make_yuv_grid_compose(grid, n_inputs, in_res, out_res, device)
+    if grid is not None:
+        return _make_yuv_grid_compose(grid, n_inputs, in_res, out_res, device)
+    return _make_general_compose(flat, n_inputs, in_res, out_res, device)
 
 
 def _general_layouts(n_inputs: int, in_res: Resolution, out_res: Resolution):
@@ -295,6 +292,33 @@ def _make_yuv_grid_compose(grid, n_inputs, in_res: Resolution, out_res: Resoluti
 def _round_u8(x: torch.Tensor) -> torch.Tensor:
     # +0.5 then truncate (the reference's rounding here, not half-to-even)
     return torch.clamp(x.to(torch.float32) + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def _make_general_compose(flat, n_inputs, in_res: Resolution, out_res: Resolution,
+                          device=None):
+    """The Tiles scene that is not an opaque grid (`_analyze_opaque_grid`
+    refuses it), through the general RGBA compose, as the reference's: each
+    input converted to a 2-level RGBA mip pyramid, the layouts split as not
+    planner-stable and composed channel-major (the colour layers through K3
+    on the card, the tiles through the sampled pass), and the canvas
+    converted to YUV420 (K2)."""
+    device = resolve_device(device)
+    statics, params = zip(*(split_layout(l, device=device) for l in flat))
+    levels = 2
+    cache: dict = {}
+
+    def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        sources = [build_mips(cc.planar_yuv_to_rgba(y[i], u[i], v[i]), levels)
+                   for i in range(n_inputs)]
+        canvas = compose_layouts(
+            (out_res.width, out_res.height), statics, params, sources,
+            planar=True, cache=cache, device=device,
+        )
+        return cc.planar_rgba_to_yuv420(canvas)
+
+    example_args = _example_args(n_inputs, in_res, device)
+    fn(*example_args)
+    return fn, example_args
 
 
 def _example_args(n_inputs: int, in_res: Resolution, device=None):

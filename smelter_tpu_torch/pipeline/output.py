@@ -437,15 +437,18 @@ class HostCopy:
         return self.frame
 
 
-def _yuv420_on_device(frame: Frame) -> Tuple[torch.Tensor, ...]:
-    """The planes of a rendered PLANAR_YUV420 frame; an RGBA frame converts
-    on its device to PLANAR_YUV420 (BT.709 limited range, K2 on the card)."""
-    if frame.format == PixelFormat.PLANAR_YUV420:
-        return tuple(frame.data)
+def _planes_on_device(frame: Frame) -> Tuple[PixelFormat, Tuple[torch.Tensor, ...]]:
+    """The format and planes of a rendered PLANAR_YUV420 or PLANAR_YUV444
+    frame; an RGBA frame converts on its device to PLANAR_YUV420 (BT.709
+    limited range, K2 on the card). NV12 leaves through the renderer only,
+    as in the reference."""
+    if frame.format in (PixelFormat.PLANAR_YUV420, PixelFormat.PLANAR_YUV444):
+        return frame.format, tuple(frame.data)
     if frame.format == PixelFormat.RGBA:
         from smelter_tpu_torch.ops.color_convert import rgba_to_planar_yuv420, u8_to_f32
 
-        return rgba_to_planar_yuv420(u8_to_f32(torch.as_tensor(frame.data)))
+        return PixelFormat.PLANAR_YUV420, rgba_to_planar_yuv420(
+            u8_to_f32(torch.as_tensor(frame.data)))
     raise ValueError(f"unsupported output frame format {frame.format}")
 
 
@@ -454,9 +457,9 @@ def to_host_async(frame: Frame) -> HostCopy:
     rendered frame's u8 planes into fresh pinned host memory, after the
     frame's compose on the same stream, and record an event; nothing waits.
     A frame on the CPU is its own host copy. The pipeline's outputs are
-    YUV420 (RGBA converts on the card first); PLANAR_YUV444 is not ported
-    (ROADMAP Queue 1 item 1: `Renderer.update_scene` refuses it)."""
-    planes = _yuv420_on_device(frame)
+    YUV420 or, for 4:4:4 and 4:2:2 encoders, YUV444 (RGBA converts to
+    YUV420 on the card first)."""
+    fmt, planes = _planes_on_device(frame)
     ready = None
     if planes[0].device.type == "cuda":
         pinned = tuple(torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
@@ -468,7 +471,7 @@ def to_host_async(frame: Frame) -> HostCopy:
         planes = pinned
     # numpy views keep their tensors (and so the pinned memory) alive for as
     # long as a consumer holds the frame
-    host = Frame(data=tuple(p.numpy() for p in planes), format=PixelFormat.PLANAR_YUV420,
+    host = Frame(data=tuple(p.numpy() for p in planes), format=fmt,
                  resolution=frame.resolution, pts=frame.pts)
     return HostCopy(host, ready)
 
@@ -493,7 +496,7 @@ def _frame_to_planes(frame: Frame, resolution: Resolution,
             u = ((u[:, 0::2].astype(np.uint16) + u[:, 1::2]) // 2).astype(np.uint8)
             v = ((v[:, 0::2].astype(np.uint16) + v[:, 1::2]) // 2).astype(np.uint8)
         return (y, u, v)
-    return tuple(_host(p) for p in _yuv420_on_device(frame))
+    return tuple(_host(p) for p in _planes_on_device(frame)[1])
 
 
 # ---------------------------------------------------------------------------

@@ -18,16 +18,21 @@ table, K3's kinds table; never parameters). Scene transitions change only
 numbers, and the structure only where the planner moves a layout between
 the stable (region-local) and animating (traced or full-canvas) routes.
 
-Ported: InputStream nodes in every input format (planar YUV as deferred
-YUV sources, the others converted to a full-resolution RGBA mip pyramid),
-also as the scene's root; layout nodes (View, Tiles, Rescaler) with every
-animated-geometry route; the YUV grid program; RGBA and PLANAR_YUV420
-outputs. Shader, text, image and web nodes (ROADMAP Queue 1 item 7) and
-other output formats (item 1) raise NotImplementedError.
+Every node of the reference: InputStream nodes in every input format
+(planar YUV as deferred YUV sources, the others converted to a
+full-resolution RGBA mip pyramid); layout nodes (View, Tiles, Rescaler) with
+every animated-geometry route; text, image and web nodes, whose host RGBA
+textures (aux textures) upload only when they change (`_dev_aux`) and are
+premultiplied and mipped on the device; shader nodes, user programs in the
+JAX syntax run on the device through the torch-backed `jnp`
+(`render/shader_ns.py`), with the frame time on the device. Any node can be
+the root. The YUV grid program, and the RGBA, PLANAR_YUV420, PLANAR_YUV444
+and NV12 outputs.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
@@ -44,8 +49,10 @@ from smelter_tpu_torch.ops.compose import (
     LayoutStatic,
     compose_layouts,
 )
-from smelter_tpu_torch.ops.resample import build_mips, resize_matmul
+from smelter_tpu_torch.ops.resample import build_mips, resize_bilinear, resize_matmul
 from smelter_tpu_torch.ops.rotate import MAX_SHEAR_BANDS, rotation_band_count
+from smelter_tpu_torch.render import shader_validation as sv
+from smelter_tpu_torch.render.shader_ns import ShaderArray, ShaderNamespace
 from smelter_tpu_torch.scene.layout_types import (
     Mask,
     RenderBoxShadow,
@@ -53,13 +60,19 @@ from smelter_tpu_torch.scene.layout_types import (
     RenderColor,
     RenderLayout,
 )
-from smelter_tpu_torch.scene.scene_state import InputStreamNode, LayoutNode, Node
+from smelter_tpu_torch.scene.scene_state import (
+    ImageNode,
+    InputStreamNode,
+    LayoutNode,
+    Node,
+    ShaderNode,
+    TextNode,
+    WebNode,
+)
 from smelter_tpu_torch.utils import tracing
 
-UNPORTED_NODES = (
-    "shader, text, image and web nodes are not ported yet: ROADMAP Queue 1 item 7"
-)
-SUPPORTED_OUTPUTS = (PixelFormat.RGBA, PixelFormat.PLANAR_YUV420)
+SUPPORTED_OUTPUTS = (PixelFormat.RGBA, PixelFormat.PLANAR_YUV420,
+                     PixelFormat.PLANAR_YUV444, PixelFormat.NV12)
 
 
 def _mip_levels(res: Resolution) -> int:
@@ -367,6 +380,10 @@ class FramePlan:
     raw_planes: Dict[str, object]
     # every LayoutParams field flattened (sorted by node id) + [time] tail
     packed_params: np.ndarray
+    # text, image and web textures by node id: (H, W, 4) u8 straight alpha
+    # on the device (`OutputProgram._dev_aux`)
+    aux_textures: Dict[int, torch.Tensor]
+    shader_params: Dict[int, object]
 
 
 def _is_packable(data) -> bool:
@@ -496,21 +513,101 @@ def _to_device(planes, device: torch.device):
 # ---------------------------------------------------------------------------
 
 
+class ShaderRegistry:
+    """User shader components: a restricted Python source in the JAX syntax
+    registered by id, exposing `main(inputs, params, resolution, time) ->
+    (H, W, 4)` float.
+
+    Sources are AST-allowlisted, executed against a closed builtins set, and
+    traced on "meta" tensors at registration (`render/shader_validation.py`);
+    their ``jnp`` and ``lax`` are this registry's torch-backed namespace on
+    its device (`render/shader_ns.py`). The texture cap mirrors the
+    reference's `shader.rs:15` SHADER_INPUT_TEXTURES_AMOUNT and is enforced
+    at scene plan time. A registered shader is a function of torch tensors:
+    the (H, W, 4) f32 input textures, the params, (width, height) and the
+    0-d f32 time, returning a tensor."""
+
+    MAX_TEXTURES = 16
+
+    def __init__(self, device=None) -> None:
+        self.namespace = ShaderNamespace(resolve_device(device))
+        self._shaders: Dict[str, Callable] = {}
+
+    def register(self, shader_id: str, source: str) -> None:
+        if shader_id in self._shaders:
+            raise ValueError(f"shader {shader_id!r} already registered")
+        traced = sv.compile_sandboxed(shader_id, source, ShaderNamespace("meta"))
+        sv.validate_traced(shader_id, traced, self.MAX_TEXTURES)
+        self._shaders[shader_id] = _run_sandboxed(
+            sv.compile_sandboxed(shader_id, source, self.namespace))
+
+    def register_fn(self, shader_id: str, fn: Callable) -> None:
+        """A trusted Python function of torch tensors (not sandboxed)."""
+        if shader_id in self._shaders:
+            raise ValueError(f"shader {shader_id!r} already registered")
+        self._shaders[shader_id] = fn
+
+    def unregister(self, shader_id: str) -> None:
+        del self._shaders[shader_id]
+
+    def get(self, shader_id: str) -> Callable:
+        if shader_id not in self._shaders:
+            raise ValueError(f"shader {shader_id!r} not registered")
+        return self._shaders[shader_id]
+
+    def has(self, shader_id: str) -> bool:
+        return shader_id in self._shaders
+
+
+def _run_sandboxed(main: Callable) -> Callable:
+    """A sandboxed `main` as a function of torch tensors: the textures and
+    the time go in as `ShaderArray`s, the output comes out as a tensor."""
+    def fn(inputs, params, resolution, time):
+        out = main([ShaderArray(t) for t in inputs], params, resolution,
+                   ShaderArray(time))
+        return out.t if isinstance(out, ShaderArray) else torch.as_tensor(out)
+
+    return fn
+
+
+def _frame_rgba_np(frame) -> np.ndarray:
+    """Host-side RGBA of an input frame (any upload format), for the
+    web-renderer uplink; numpy only, never the device."""
+    from smelter_tpu_torch.pipeline.side_channel import _frame_to_rgba_bytes
+
+    h, w = frame.resolution.height, frame.resolution.width
+    return np.frombuffer(_frame_to_rgba_bytes(frame), np.uint8).reshape(h, w, 4)
+
+
+def _premultiplied(tex: torch.Tensor) -> torch.Tensor:
+    """A straight-alpha (H, W, 4) u8 texture as premultiplied f32."""
+    rgba = cc.u8_to_f32(tex)
+    return torch.cat([rgba[..., :3] * rgba[..., 3:4], rgba[..., 3:4]], dim=-1)
+
+
 class OutputProgram:
     """Plans one output's node tree each frame and keeps the programs built
     for its structures, on one device (the CUDA card unless another is
-    named: `interop.resolve_device`)."""
+    named: `interop.resolve_device`). `shaders`, `web`, `image_store` and
+    `text_renderer` are the renderer's registries (a bare program of
+    InputStream and layout nodes needs none)."""
 
     # long-running servers see many distinct stable geometries; bound the
     # program cache (evict oldest) so memory stays flat
     MAX_CACHED_PROGRAMS = 32
 
     def __init__(self, root: Node, resolution: Resolution,
-                 out_format: PixelFormat, device=None) -> None:
+                 out_format: PixelFormat, device=None,
+                 shaders: Optional[ShaderRegistry] = None, web=None,
+                 image_store=None, text_renderer=None) -> None:
         self.root = root
         self.resolution = resolution
         self.out_format = out_format
         self.device = resolve_device(device)
+        self.shaders = shaders
+        self.web = web  # WebRendererRegistry
+        self.image_store = image_store
+        self.text_renderer = text_renderer
         self._node_ids: Dict[int, int] = {}
         self._nodes: Dict[int, Node] = {}
         self._next_id = 0
@@ -519,6 +616,23 @@ class OutputProgram:
         # (node_id, layout_index) -> last rect signature; used to detect
         # animating layouts (transitions) and route them to the general path
         self._rect_history: Dict[tuple, tuple] = {}
+        # the live scene keeps rendering its images and shaders even if they
+        # are unregistered afterwards (the registries only gate future scene
+        # updates, reference integration-tests unregistering.rs): resolve
+        # them now, while the scene update's validation still holds
+        self._pinned_images: Dict[str, object] = {}
+        self._pinned_shaders: Dict[str, Callable] = {}
+        for node in self._nodes.values():
+            p = node.params
+            if isinstance(p, ImageNode) and image_store is not None:
+                self._pinned_images[p.image_id] = image_store.get(p.image_id)
+            if isinstance(p, ShaderNode) and shaders is not None and shaders.has(p.shader_id):
+                self._pinned_shaders[p.shader_id] = shaders.get(p.shader_id)
+        # node id -> (host texture, its device copy)
+        self._aux_dev: Dict[int, tuple] = {}
+        self._used_frames: Dict[str, Frame] = {}
+        # chromium_embedding of non-input subtrees: per-child sub-programs
+        self._embed_programs: Dict[int, "OutputProgram"] = {}
 
     def _assign_ids(self, node: Node) -> None:
         self._node_ids[id(node)] = self._next_id
@@ -534,13 +648,15 @@ class OutputProgram:
 
     def plan(self, pts: float, input_frames: Dict[str, Frame]
              ) -> Tuple[tuple, FramePlan]:
-        """Walk the node tree at ``pts``: compute flattened layout params and
-        build the static structure key."""
+        """Walk the node tree at ``pts``: compute flattened layout params,
+        gather aux textures, and build the static structure key."""
         layout_params: Dict[int, List[LayoutParams]] = {}
         # per layout nid: merged (RenderLayout, source nid) entries, in that
         # node's canvas coords — consumed by the node's parent for collapse
         collapsed_entries: Dict[int, List[Tuple[RenderLayout, Optional[int]]]] = {}
+        aux: Dict[int, np.ndarray] = {}
         used_frames: Dict[str, Frame] = {}
+        shader_params: Dict[int, object] = {}
         key_parts: List[object] = [self.resolution, self.out_format]
 
         def visit(node: Node) -> Optional[Resolution]:
@@ -557,8 +673,37 @@ class OutputProgram:
                 )
                 used_frames[p.input_id] = frame
                 return frame.resolution
-            if not isinstance(p, LayoutNode):
-                raise NotImplementedError(f"{type(p).__name__}: {UNPORTED_NODES}")
+            if isinstance(p, TextNode):
+                rendered = self.text_renderer.render(p.component)
+                aux[nid] = rendered.rgba
+                res = Resolution(rendered.rgba.shape[1], rendered.rgba.shape[0])
+                key_parts.append((nid, "text", res))
+                return res
+            if isinstance(p, ImageNode):
+                asset = self._pinned_images.get(p.image_id)
+                if asset is None:
+                    asset = self.image_store.get(p.image_id)
+                    self._pinned_images[p.image_id] = asset
+                frame = asset.frame_at(pts)
+                aux[nid] = frame
+                res = Resolution(frame.shape[1], frame.shape[0])
+                key_parts.append((nid, "image", res))
+                return res
+            if isinstance(p, ShaderNode):
+                if len(node.children) > ShaderRegistry.MAX_TEXTURES:
+                    # reference shader.rs:15 SHADER_INPUT_TEXTURES_AMOUNT
+                    raise ValueError(
+                        f"shader {p.shader_id!r} has {len(node.children)} "
+                        "input textures; the limit is "
+                        f"{ShaderRegistry.MAX_TEXTURES}"
+                    )
+                child_res = [visit(ch) for ch in node.children]
+                shader_params[nid] = p.shader_param
+                res = Resolution(int(p.size[0]), int(p.size[1]))
+                key_parts.append((nid, "shader", p.shader_id, res, tuple(child_res)))
+                return res
+            if isinstance(p, WebNode):
+                return visit_web(node, nid, p)
             child_res = [visit(ch) for ch in node.children]
             nested = p.layouts(pts, child_res)
             res = p.resolution(pts)
@@ -648,6 +793,44 @@ class OutputProgram:
             )
             return res
 
+        def visit_web(node: Node, nid: int, p: WebNode) -> Optional[Resolution]:
+            # the web renderer runs as a host sidecar (render/web.py): its
+            # latest page frame enters like an image texture; without a
+            # sidecar the node renders transparent (reference
+            # web_renderer_fallback.rs)
+            child_res = [visit(ch) for ch in node.children]
+            inst = self.web.get(p.instance_id) if self.web else None
+            method = inst.spec.embedding_method if inst is not None else "chromium_embedding"
+            if inst is not None and inst.active and method == "chromium_embedding":
+                # uplink: push child frames INTO the page (embedder.rs:83
+                # embed_sources). InputStream children convert their host
+                # frame directly; any other subtree renders through a cached
+                # sub-program to RGBA and is read back, only when its
+                # content signature changes
+                embeds = []
+                for ch, cres in zip(node.children, child_res):
+                    cp = ch.params
+                    entry = None
+                    if isinstance(cp, InputStreamNode):
+                        f = input_frames.get(cp.input_id)
+                        if f is not None:
+                            # a thunk: embed_sources dedups by pts before
+                            # converting, so a paused input costs nothing
+                            entry = (f.pts, lambda f=f: _frame_rgba_np(f))
+                    elif cres is not None:
+                        entry = self._plan_subtree_embed(ch, cres, pts, input_frames)
+                    embeds.append(entry)
+                if any(e is not None for e in embeds):
+                    inst.embed_sources(embeds)
+            frame = inst.frame() if inst is not None else None
+            if frame is None:
+                key_parts.append((nid, "web", None, method))
+                return None
+            aux[nid] = frame
+            res = Resolution(frame.shape[1], frame.shape[0])
+            key_parts.append((nid, "web", res, method))
+            return res
+
         visit(self.root)
         frame_buf, raw_planes = _pack_frame_buf(
             used_frames, pin=self.device.type == "cuda")
@@ -655,8 +838,73 @@ class OutputProgram:
             frame_buf=frame_buf,
             raw_planes=raw_planes,
             packed_params=_pack_layout_params(layout_params, pts),
+            aux_textures={nid: self._dev_aux(nid, a) for nid, a in aux.items()},
+            shader_params=shader_params,
         )
+        self._used_frames = used_frames
         return tuple(key_parts), plan
+
+    def _plan_subtree_embed(self, child: Node, res: Resolution, pts: float,
+                            input_frames):
+        """Embed entry for a non-InputStream child of a chromium_embedding
+        WebView: the child subtree renders to RGBA through a cached
+        sub-program and is read back (the CDP analogue of the reference
+        copying every child's texture into CEF shared memory). Returns
+        (signature, thunk): embed_sources dedups on the signature before the
+        thunk runs, so a static subtree renders and reads back once."""
+        nid = self.node_id(child)
+        sub = self._embed_programs.get(nid)
+        if sub is None or sub.resolution != res:
+            sub = OutputProgram(
+                child, res, PixelFormat.RGBA, self.device, self.shaders,
+                web=self.web, image_store=self.image_store,
+                text_renderer=self.text_renderer,
+            )
+            self._embed_programs[nid] = sub
+        try:
+            skey, splan = sub.plan(pts, input_frames)
+        except Exception:
+            logging.getLogger("smelter.render").exception(
+                "web-embed subtree plan failed (node %d)", nid
+            )
+            return None
+        # the packed params' last element is the frame time: it joins the
+        # signature only when the subtree holds a shader, the one
+        # time-driven node
+        has_shader = any(isinstance(n.params, ShaderNode) for n in sub._nodes.values())
+        params = splan.packed_params
+        param_bytes = params.tobytes() if has_shader else params[:-1].tobytes()
+        sig = hash((
+            skey,
+            param_bytes,
+            tuple(sorted((iid, f.pts) for iid, f in sub._used_frames.items())),
+            tuple(sorted((anid, id(a)) for anid, a in splan.aux_textures.items())),
+        ))
+
+        def thunk(sub=sub):
+            out = sub.render(pts, input_frames)
+            arr = out.cpu().numpy()  # (H, W, 4) u8, premultiplied
+            # the page's putImageData expects straight alpha
+            a = arr[..., 3:4].astype(np.float32)
+            scale = np.where(a > 0.0, 255.0 / np.maximum(a, 1.0), 0.0)
+            rgb = np.clip(arr[..., :3].astype(np.float32) * scale, 0.0, 255.0
+                          ).astype(np.uint8)
+            return np.concatenate([rgb, arr[..., 3:]], axis=-1)
+
+        return (sig, thunk)
+
+    def _dev_aux(self, nid: int, arr: np.ndarray) -> torch.Tensor:
+        """The device copy of an aux (text/image/web) texture, uploaded only
+        when its host array changes (identity-keyed: an animated image
+        uploads on the frames it changes), through pinned memory without
+        waiting (`interop.upload`)."""
+        ent = self._aux_dev.get(nid)
+        if ent is not None and ent[0] is arr:
+            return ent[1]
+        host = np.ascontiguousarray(arr) if arr.flags.writeable else arr.copy()
+        dev = upload(torch.from_numpy(host), self.device)
+        self._aux_dev[nid] = (arr, dev)
+        return dev
 
     # -- build + run ------------------------------------------------------------
 
@@ -676,6 +924,8 @@ class OutputProgram:
             upload(plan.frame_buf, dev),
             {iid: _to_device(p, dev) for iid, p in plan.raw_planes.items()},
             upload(packed, dev),
+            plan.aux_textures,
+            plan.shader_params,
         )
 
     def _store_program(self, key: tuple, fn) -> None:
@@ -695,10 +945,10 @@ class OutputProgram:
         resolution = self.resolution
         device = self.device
         node_id = self.node_id
+        shaders = self.shaders
+        pinned_shaders = self._pinned_shaders
         if out_format not in SUPPORTED_OUTPUTS:
-            raise NotImplementedError(
-                f"output format {out_format.value} is not ported yet: "
-                "ROADMAP Queue 1 item 1")
+            raise ValueError(f"unsupported output format {out_format}")
         input_formats = {
             iid: (f.format, f.resolution) for iid, f in input_frames.items()
         }
@@ -715,11 +965,14 @@ class OutputProgram:
         access = _InputAccess(used)
         static_statics: Dict[int, Tuple[LayoutStatic, ...]] = {}
         layout_sources: Dict[int, Tuple[int, ...]] = {}
+        web_methods: Dict[int, str] = {}
         # statics are re-derived from the structure key captured at plan time
         for part in key:
             if isinstance(part, tuple) and len(part) >= 3 and part[1] == "layout":
                 static_statics[part[0]] = part[2]
                 layout_sources[part[0]] = part[5] if len(part) > 5 else ()
+            elif isinstance(part, tuple) and len(part) >= 4 and part[1] == "web":
+                web_methods[part[0]] = part[3]
 
         root_nid = node_id(root)
         nodes = self._nodes
@@ -742,8 +995,9 @@ class OutputProgram:
         root_planar = (isinstance(root.params, LayoutNode)
                        and out_format != PixelFormat.RGBA)
 
-        def run(frame_buf, raw_planes, packed_params):
+        def run(frame_buf, raw_planes, packed_params, aux_textures, shader_params):
             layout_params = _unpack_layout_params(packed_params, static_statics)
+            time = packed_params[-1]  # a 0-d view on the device
             node_memo: Dict[int, object] = {}
             input_memo: Dict[str, object] = {}
 
@@ -754,7 +1008,8 @@ class OutputProgram:
                 return node_memo[nid]
 
             def _eval(node: Node, nid: int):
-                """A DeferredYuvSource, a mip list, or the root's [canvas]."""
+                """A DeferredYuvSource, a mip list, the root's [canvas], or
+                None (an absent input, a web node without a page)."""
                 p = node.params
                 is_root = nid == root_nid
                 if isinstance(p, InputStreamNode):
@@ -773,6 +1028,24 @@ class OutputProgram:
                             rgba = cc.convert_to_rgba_f32(fmt.value, planes)
                             input_memo[p.input_id] = build_mips(rgba, _mip_levels(res))
                     return input_memo[p.input_id]
+                if isinstance(p, (TextNode, ImageNode)):
+                    tex = aux_textures[nid]
+                    res = Resolution(tex.shape[1], tex.shape[0])
+                    return build_mips(_premultiplied(tex), _mip_levels(res))
+                if isinstance(p, ShaderNode):
+                    children = [eval_node(ch) for ch in node.children]
+                    inputs = [_full_rgba(c) for c in children if c is not None]
+                    fn = pinned_shaders.get(p.shader_id)
+                    if fn is None:
+                        fn = shaders.get(p.shader_id)
+                    res = (int(p.size[0]), int(p.size[1]))
+                    out = fn(inputs, shader_params.get(nid), res, time)
+                    out = out.to(torch.float32)
+                    if is_root:
+                        return [out]
+                    return build_mips(out, _mip_levels(Resolution(*res)))
+                if isinstance(p, WebNode):
+                    return eval_web(node, nid)
                 # a layout node: sources are looked up by node id (collapse
                 # may reference grandchildren); only referenced nodes are
                 # evaluated, so collapsed canvases never materialize
@@ -791,26 +1064,62 @@ class OutputProgram:
                     return [canvas]
                 return build_mips(canvas, _mip_levels(res))
 
+            def eval_web(node: Node, nid: int):
+                method = web_methods.get(nid, "chromium_embedding")
+                child_outs = [eval_node(ch) for ch in node.children]
+                page = _premultiplied(aux_textures[nid]) if nid in aux_textures else None
+                if method == "chromium_embedding":
+                    # the children were pushed into the page itself
+                    if page is None:
+                        return None
+                    return build_mips(page, _mip_levels(
+                        Resolution(page.shape[1], page.shape[0])))
+                # native embedding: the children composite above or below
+                # the page (web_renderer.rs NativeEmbedding*Content)
+                children = [_full_rgba(c) for c in child_outs if c is not None]
+                if page is None and not children:
+                    return None
+                if page is None:
+                    canvas, layers = torch.zeros_like(children[0]), children
+                elif method == "native_embedding_under_content":
+                    canvas, layers = torch.zeros_like(page), children + [page]
+                else:  # native_embedding_over_content
+                    canvas, layers = torch.zeros_like(page), [page] + children
+                for layer in layers:
+                    if layer.shape[:2] != canvas.shape[:2]:
+                        layer = resize_bilinear(layer, canvas.shape[0], canvas.shape[1])
+                    canvas = layer + canvas * (1.0 - layer[..., 3:4])
+                return build_mips(canvas, _mip_levels(
+                    Resolution(canvas.shape[1], canvas.shape[0])))
+
             out = eval_node(root)
-            if out is None:  # a bare InputStream root with no frame
+            if out is None:  # a root with nothing to show
                 rgba = torch.zeros((resolution.height, resolution.width, 4),
                                    dtype=torch.float32, device=device)
             else:
                 rgba = _full_rgba(out)
             # un-premultiply is NOT done: outputs are opaque video frames
-            if out_format == PixelFormat.PLANAR_YUV420:
-                if root_planar:
+            if root_planar:
+                if out_format == PixelFormat.PLANAR_YUV420:
                     return cc.planar_rgba_to_yuv420(rgba)
+                if out_format == PixelFormat.PLANAR_YUV444:
+                    return cc.planar_rgba_to_yuv444(rgba)
+                return cc.planar_rgba_to_nv12(rgba)
+            if out_format == PixelFormat.RGBA:
+                return cc.f32_to_u8(rgba).contiguous()
+            if out_format == PixelFormat.PLANAR_YUV420:
                 return cc.rgba_to_planar_yuv420(rgba)
-            return cc.f32_to_u8(rgba).contiguous()
+            if out_format == PixelFormat.PLANAR_YUV444:
+                return cc.rgba_to_planar_yuv444(rgba)
+            return cc.rgba_to_nv12(rgba)
 
         return run
 
 
 def _full_rgba(src):
     """Full-resolution (H, W, 4) f32 RGBA of an eval_node result (a mip
-    list, or a DeferredYuvSource converted on first use); a root layout's
-    [canvas] gives its canvas."""
+    list, or a DeferredYuvSource converted on first use); a root's [canvas]
+    or [shader output] gives that."""
     if hasattr(src, "mips"):
         return src.mips()[0]
     return src[0] if isinstance(src, list) else src
@@ -907,7 +1216,7 @@ def _try_yuv_grid_program(
         [(tile, tile[1], tile[2], tile[3], tile[4]) for tile in tiles], H, W
     )
 
-    def run(frame_buf, raw_planes, packed_params):
+    def run(frame_buf, raw_planes, packed_params, aux_textures, shader_params):
         # the parameters are unused: the grid's geometry is all static
         def tile_planes(tile):
             iid, t, l, h, w, (ct, cl, chh, cww) = tile

@@ -1,32 +1,32 @@
 """Renderer facade, ported from `smelter_tpu/render/renderer.py`.
 
-Owns the scene state and one frame program per output, on one device. The
-hot call is ``render(FrameSet) -> FrameSet``; `update_scene` swaps scenes
-with transition support. Output frame data are tensors on the device: u8
-(y, u, v) planes for PLANAR_YUV420, an (H, W, 4) u8 tensor for RGBA.
-
-Ported: scenes of View, Tiles, Rescaler and InputStream components (any
-of them the root), every animated transition of their geometry, inputs in
-every pixel format, RGBA and PLANAR_YUV420 outputs. `update_scene` raises
-NotImplementedError for what is not ported yet (Text, Image, Shader and
-WebView components: ROADMAP Queue 1 item 7; other output formats: item 1).
-The scene state's text, image and web hooks raise NotImplementedError too:
-no supported scene reaches them.
+Owns the scene state, one frame program per output, and the shader, image,
+text and web-renderer registries, on one device. The hot call is
+``render(FrameSet) -> FrameSet``; `update_scene` swaps scenes with
+transition support; registering inputs, shaders and images mirrors the
+reference API. Every component kind renders (View, Tiles, Rescaler,
+InputStream, Text, Image, Shader, WebView; any of them the root), to RGBA,
+PLANAR_YUV420, PLANAR_YUV444 or NV12. Output frame data are tensors on the
+device: u8 (y, u, v) planes for the planar formats, (y, uv) for NV12, an
+(H, W, 4) u8 tensor for RGBA.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 from smelter_tpu_torch.core.types import Frame, FrameSet, Framerate, PixelFormat, Resolution
 from smelter_tpu_torch.interop import resolve_device
+from smelter_tpu_torch.render.image import ImageStore
 from smelter_tpu_torch.render.program import (
     SUPPORTED_OUTPUTS,
-    UNPORTED_NODES,
     OutputProgram,
+    ShaderRegistry,
 )
+from smelter_tpu_torch.render.text import TextRenderer
+from smelter_tpu_torch.render.web import WebRendererRegistry
 from smelter_tpu_torch.scene import components as comp
 from smelter_tpu_torch.scene.scene_state import OutputScene, SceneState
 from smelter_tpu_torch.utils import tracing
@@ -54,6 +54,11 @@ class Renderer:
         self.options = options
         self.device = resolve_device(device)
         self.scene = SceneState()
+        # the shaders' jnp allocates on this renderer's device
+        self.shaders = ShaderRegistry(self.device)
+        self.images = ImageStore()
+        self.text = TextRenderer()
+        self.web = WebRendererRegistry()
         self._inputs: Dict[str, float] = {}  # input_id -> last frame pts
         self._last_frames: Dict[str, Frame] = {}
         self._programs: Dict[str, OutputProgram] = {}
@@ -70,6 +75,26 @@ class Renderer:
             self._inputs.pop(input_id, None)
             self._last_frames.pop(input_id, None)
 
+    def register_shader(self, shader_id: str, source: str) -> None:
+        with self._lock:
+            self.shaders.register(shader_id, source)
+
+    def register_shader_fn(self, shader_id: str, fn: Callable) -> None:
+        with self._lock:
+            self.shaders.register_fn(shader_id, fn)
+
+    def unregister_shader(self, shader_id: str) -> None:
+        with self._lock:
+            self.shaders.unregister(shader_id)
+
+    def register_image(self, image_id: str, **kwargs) -> None:
+        with self._lock:
+            self.images.register(image_id, **kwargs)
+
+    def unregister_image(self, image_id: str) -> None:
+        with self._lock:
+            self.images.unregister(image_id)
+
     # -- scene -----------------------------------------------------------------
 
     def update_scene(
@@ -83,12 +108,14 @@ class Renderer:
             self._validate_components(root, output_format)
             node = self.scene.update_scene(
                 OutputScene(output_id, root, resolution),
-                text_measurer=_unported("text measurement"),
-                image_store=_unported("the image store"),
-                web_size=_unported("the web renderer"),
+                text_measurer=lambda t: self.text.measure(t),
+                image_store=lambda i: self.images.natural_size(i),
+                web_size=self._web_size,
             )
             self._programs[output_id] = OutputProgram(
                 node.node, resolution, output_format, self.device,
+                self.shaders, web=self.web, image_store=self.images,
+                text_renderer=self.text,
             )
             self._output_formats[output_id] = output_format
 
@@ -101,13 +128,20 @@ class Renderer:
     def _validate_components(self, root: comp.Component,
                              output_format: PixelFormat) -> None:
         if output_format not in SUPPORTED_OUTPUTS:
-            raise NotImplementedError(
-                f"output format {output_format.value} is not ported yet: "
-                "ROADMAP Queue 1 item 1")
+            raise ValueError(f"unsupported output format {output_format}")
 
         def visit(c: comp.Component):
-            if isinstance(c, (comp.Text, comp.Image, comp.Shader, comp.WebView)):
-                raise NotImplementedError(f"{type(c).__name__}: {UNPORTED_NODES}")
+            if isinstance(c, comp.Shader):
+                if not self.shaders.has(c.shader_id):
+                    raise ValueError(f"shader {c.shader_id!r} not registered")
+                if len(c.children) > self.shaders.MAX_TEXTURES:
+                    # reference shader.rs:15 SHADER_INPUT_TEXTURES_AMOUNT
+                    raise ValueError(
+                        f"shader {c.shader_id!r} has {len(c.children)} input "
+                        f"textures; the limit is {self.shaders.MAX_TEXTURES}"
+                    )
+            if isinstance(c, comp.Image) and not self.images.has(c.image_id):
+                raise ValueError(f"image {c.image_id!r} not registered")
             if isinstance(c, comp.InputStream) and c.input_id not in self._inputs:
                 raise ValueError(f"input {c.input_id!r} not registered")
             for ch in _children(c):
@@ -116,7 +150,15 @@ class Renderer:
         visit(root)
 
     def close(self) -> None:
-        """Nothing to release: no web renderer sidecar is ever started."""
+        """Release the web renderer sidecars."""
+        self.web.close_all()
+
+    def _web_size(self, instance_id: str) -> tuple:
+        inst = self.web.get(instance_id)
+        if inst is None:
+            return (0.0, 0.0)
+        w, h = inst.spec.resolution
+        return (float(w), float(h))
 
     # -- hot path ----------------------------------------------------------------
 
@@ -158,16 +200,6 @@ class Renderer:
                 )
                 out.frames[output_id] = frame
             return out
-
-
-def _unported(what: str):
-    """A scene-state hook for Text, Image or WebView components, which
-    `_validate_components` refuses before the scene state could call it."""
-
-    def hook(*_args):
-        raise NotImplementedError(f"{what}: {UNPORTED_NODES}")
-
-    return hook
 
 
 def _children(c: comp.Component) -> List[comp.Component]:

@@ -15,11 +15,10 @@ for registered MP4s, error bodies `{"error_code", "message", ...}`.
 
 The port's server composes on the CUDA card; ``SMELTER_DEVICE=cpu`` runs
 it on the CPU, and without a card it refuses to start. It carries MP4 and
-HLS inputs and outputs. The other protocols (RTP, RTMP, WHIP/WHEP, MoQ,
-V4L2, DeckLink; ROADMAP Queue 1 item 10) and the shader, image,
-web-renderer and font resources (item 7) answer NOT_IMPLEMENTED (501) with
-the reference's error body, after validating the request, and register
-nothing.
+HLS inputs and outputs, and the shader, image, web-renderer and font
+resources. The other protocols (RTP, RTMP, WHIP/WHEP, MoQ, V4L2, DeckLink;
+ROADMAP Queue 1 item 10) answer NOT_IMPLEMENTED (501) with the reference's
+error body, after validating the request, and register nothing.
 """
 
 from __future__ import annotations
@@ -49,7 +48,6 @@ import pydantic
 logger = logging.getLogger("smelter.server")
 
 PROTOCOL_EDGES = "ROADMAP Queue 1 item 10 (protocol edges)"
-RENDER_NODES = "ROADMAP Queue 1 item 7 (shader, text, image, web)"
 
 _REGISTER_INPUT = pydantic.TypeAdapter(api.RegisterInput)
 _REGISTER_OUTPUT = pydantic.TypeAdapter(api.RegisterOutput)
@@ -399,21 +397,126 @@ def build_app(state: ApiState) -> web.Application:
 
     # ------------------------------------------------------------- resources
 
-    def unported_resource(kind: str, schema=None):
-        """A handler that validates the request like the reference's and
-        answers that `kind` is not ported (item 7)."""
+    async def register_shader(request: web.Request) -> web.Response:
+        shader_id = request.match_info["id"]
+        try:
+            body = await request.json()
+            spec = api.ShaderSpec.model_validate(body)
+            await _run_blocking(
+                state.pipeline.renderer.register_shader, shader_id, spec.source
+            )
+            return _json_ok()
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
 
-        async def handler(request: web.Request) -> web.Response:
-            try:
-                if schema is not None:
-                    schema.model_validate(await request.json())
-                else:
-                    await _unregister_schedule(request)
-                raise _not_ported(kind, RENDER_NODES)
-            except Exception as exc:  # noqa: BLE001
-                return _error_response(exc)
+    async def unregister_shader(request: web.Request) -> web.Response:
+        shader_id = request.match_info["id"]
+        try:
+            when = await _unregister_schedule(request)
+            if when is not None:
+                _schedule_unregister(
+                    state, when, f"shader {shader_id!r}",
+                    lambda: state.pipeline.renderer.unregister_shader(shader_id),
+                )
+            else:
+                await _run_blocking(
+                    state.pipeline.renderer.unregister_shader, shader_id
+                )
+            return _json_ok()
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
 
-        return handler
+    async def register_image(request: web.Request) -> web.Response:
+        image_id = request.match_info["id"]
+        try:
+            body = await request.json()
+            spec = api.ImageSpec.model_validate(body)
+
+            def do() -> None:
+                state.pipeline.renderer.register_image(
+                    image_id,
+                    path=spec.path,
+                    url=spec.url,
+                    kind=None if spec.asset_type == "auto" else spec.asset_type,
+                    resolution=(
+                        (spec.resolution.width, spec.resolution.height)
+                        if spec.resolution is not None else None
+                    ),
+                )
+
+            await _run_blocking(do)
+            return _json_ok()
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
+
+    async def unregister_image(request: web.Request) -> web.Response:
+        image_id = request.match_info["id"]
+        try:
+            when = await _unregister_schedule(request)
+            if when is not None:
+                _schedule_unregister(
+                    state, when, f"image {image_id!r}",
+                    lambda: state.pipeline.renderer.unregister_image(image_id),
+                )
+            else:
+                await _run_blocking(
+                    state.pipeline.renderer.unregister_image, image_id
+                )
+            return _json_ok()
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
+
+    async def register_web_renderer(request: web.Request) -> web.Response:
+        instance_id = request.match_info["id"]
+        try:
+            body = await request.json()
+            spec = api.WebRendererSpec.model_validate(body)
+            from smelter_tpu_torch.render.web import WebRendererSpec as _Spec
+
+            def do() -> dict:
+                inst = state.pipeline.renderer.web.register(_Spec(
+                    instance_id=instance_id,
+                    url=spec.url,
+                    resolution=(spec.resolution.width, spec.resolution.height),
+                    embedding_method=spec.embedding_method
+                    or "chromium_embedding",
+                ))
+                # reference behavior: registration succeeds; without a
+                # browser the instance renders transparent
+                # (web_renderer_fallback.rs)
+                return {"sidecar_active": inst.active}
+
+            return _json_ok(await _run_blocking(do))
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
+
+    async def unregister_web_renderer(request: web.Request) -> web.Response:
+        instance_id = request.match_info["id"]
+        try:
+            when = await _unregister_schedule(request)
+            if when is not None:
+                _schedule_unregister(
+                    state, when, f"web renderer {instance_id!r}",
+                    lambda: state.pipeline.renderer.web.unregister(instance_id),
+                )
+            else:
+                await _run_blocking(
+                    state.pipeline.renderer.web.unregister, instance_id
+                )
+            return _json_ok()
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
+
+    async def register_font(request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+            spec = api.FontSpec.model_validate(body)
+            from smelter_tpu_torch.render.text import register_font
+
+            await _run_blocking(register_font, spec.path or spec.url)
+            return _json_ok()
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
 
     # ------------------------------------------------------------- control
 
@@ -550,14 +653,13 @@ def build_app(state: ApiState) -> web.Application:
     app.router.add_post("/api/output/{id}/unregister", unregister_output)
     app.router.add_post("/api/output/{id}/update", update_output)
     app.router.add_post("/api/output/{id}/request_keyframe", request_keyframe)
-    for kind, schema in (("shader", api.ShaderSpec), ("image", api.ImageSpec),
-                         ("web-renderer", api.WebRendererSpec)):
-        app.router.add_post(f"/api/{kind}/{{id}}/register",
-                            unported_resource(f"{kind} registration", schema))
-        app.router.add_post(f"/api/{kind}/{{id}}/unregister",
-                            unported_resource(f"{kind} registration"))
-    app.router.add_post("/api/font/register",
-                        unported_resource("font registration", api.FontSpec))
+    app.router.add_post("/api/shader/{id}/register", register_shader)
+    app.router.add_post("/api/shader/{id}/unregister", unregister_shader)
+    app.router.add_post("/api/image/{id}/register", register_image)
+    app.router.add_post("/api/image/{id}/unregister", unregister_image)
+    app.router.add_post("/api/web-renderer/{id}/register", register_web_renderer)
+    app.router.add_post("/api/web-renderer/{id}/unregister", unregister_web_renderer)
+    app.router.add_post("/api/font/register", register_font)
     app.router.add_post("/api/start", start)
     app.router.add_post("/api/reset", reset)
     app.router.add_get("/status", status)

@@ -220,3 +220,86 @@ def test_pipeline_on_the_card_matches_the_cpu(cuda):
         for pa, pb in zip(a, b):
             assert isinstance(pb, np.ndarray) and pb.dtype == np.uint8 and pb.shape == pa.shape
             assert int(np.abs(pa.astype(np.int32) - pb.astype(np.int32)).max()) <= 1
+
+
+# the shaders of the repo's tests and docs, in the wire contract's JAX
+# syntax: (source, number of input textures, params)
+SHADERS = {
+    "invert": ("def main(inputs, params, resolution, time):\n"
+               "    tex = inputs[0]\n"
+               "    return jnp.concatenate([1.0 - tex[..., :3], tex[..., 3:4]], axis=-1)\n",
+               1, None),
+    "gain": ("def main(inputs, params, resolution, time):\n"
+             "    g = params['gain'] if params else 1.0\n"
+             "    tex = inputs[0]\n"
+             "    rgb = jnp.clip(tex[..., :3] * g, 0.0, 1.0)\n"
+             "    return jnp.concatenate([rgb, tex[..., 3:4]], axis=-1)\n", 1, {"gain": 1.7}),
+    "swap": ("def main(inputs, params, resolution, time):\n"
+             "    tex = inputs[0]\n"
+             "    rgb = tex[..., :3][..., ::-1]\n"
+             "    return jnp.concatenate([rgb, tex[..., 3:4]], axis=-1)\n", 1, None),
+    "contract": ("def main(inputs, params, resolution, time):\n"
+                 "    h, w = resolution[1], resolution[0]\n"
+                 "    n = len(inputs)\n"
+                 "    col = jnp.array([n / 8.0, time / 4.0, w / 1024.0, 1.0], jnp.float32)\n"
+                 "    return jnp.broadcast_to(col, (h, w, 4))\n", 2, None),
+    "wave": ("def main(inputs, params, resolution, time):\n"
+             "    w, h = resolution[0], resolution[1]\n"
+             "    x = jnp.linspace(0.0, 6.28, w)\n"
+             "    y = jnp.linspace(0.0, 6.28, h)\n"
+             "    g = 0.5 + 0.5 * jnp.sin(jnp.outer(y, x) * 0.5 + time * 4.0)\n"
+             "    rgba = jnp.stack([g, 0.2 + 0.0 * g, 1.0 - g, jnp.ones_like(g)], axis=-1)\n"
+             "    return rgba.astype(jnp.float32)\n", 0, None),
+    "circle": ("def main(inputs, params, resolution, time):\n"
+               "    w, h = resolution[0], resolution[1]\n"
+               "    canvas = jnp.zeros((h, w, 4), jnp.float32)\n"
+               "    for i, ang in enumerate(params['angles_deg']):\n"
+               "        tile = inputs[i][::2, ::2]\n"
+               "        a = ang * math.pi / 180.0\n"
+               "        x = jnp.round(40.0 + 30.0 * jnp.cos(a) - tile.shape[1] / 2)\n"
+               "        y = jnp.round(24.0 + 30.0 * jnp.sin(a) - tile.shape[0] / 2)\n"
+               "        canvas = lax.dynamic_update_slice(canvas, tile,\n"
+               "            (y.astype(jnp.int32), x.astype(jnp.int32), jnp.zeros((), jnp.int32)))\n"
+               "    return canvas\n", 4, {"angles_deg": [0.0, 90.0, 180.0, 270.0]}),
+    "where_max": ("def main(inputs, params, resolution, time):\n"
+                  "    tex = jnp.maximum(inputs[0], 0.25)\n"
+                  "    tex = jnp.where(tex > 0.5, tex, 0.0)\n"
+                  "    tex = tex.at[0, 0].set(jnp.float32(0.5)).at[1].add(jnp.cos(0.5))\n"
+                  "    return tex.at[..., 3].set(jnp.clip(jnp.sin(time) + tex[..., 0], 0.0, 1.0))\n",
+                  1, None),
+    "time_slide": ("def main(inputs, params, resolution, time):\n"
+                   "    canvas = jnp.zeros((resolution[1], resolution[0], 4), jnp.float32)\n"
+                   "    x = (time * 10.0).astype(jnp.int32)\n"
+                   "    return lax.dynamic_update_slice(canvas, inputs[0][:16, :16], (4, x, 0))\n",
+                   1, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHADERS))
+def test_shader_on_the_card_matches_the_cpu(cuda, name):
+    """A shader through the port's torch `jnp` on the card and on the CPU,
+    on the same textures: equal to 1e-5, with no synchronising call on the
+    card (a value derived from `time` stays on the device; index maths on
+    params stays on the host)."""
+    from smelter_tpu_torch.render.program import ShaderRegistry
+
+    source, n, params = SHADERS[name]
+    gen = torch.Generator().manual_seed(5)
+    textures = [torch.rand((48, 80, 4), generator=gen) for _ in range(n)]
+    outs = []
+    for dev in ("cpu", cuda):
+        reg = ShaderRegistry(dev)
+        reg.register(name, source)
+        fn = reg.get(name)
+        ins = [t.to(dev) for t in textures]
+        time = torch.full((), 2.5, device=dev)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(ins, params, (80, 48), time)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append(out.cpu())
+    assert outs[1].shape == (48, 80, 4) and outs[1].dtype == torch.float32
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-5

@@ -1,6 +1,8 @@
-"""The PyTorch port imports without JAX, Triton, PIL or any module of the
-reference package (and renders a View/Tiles scene built from its own
-components without them), and its pipeline without aiohttp or pydantic; its
+"""The PyTorch port imports without JAX, Triton, PIL, websockets or any
+module of the reference package (and renders a scene of its own components
+with a shader, an image asset and a WebView without them: PIL is loaded
+only to raster a Text or decode an image, websockets only to reach a
+browser), and its pipeline without aiohttp or pydantic; its
 entry points refuse to run without a card unless given `device="cpu"`; and
 `chip_smoke.py` refuses to run (non-zero exit, no "ok" line) where torch
 sees no CUDA card."""
@@ -30,6 +32,12 @@ from smelter_tpu_torch.render.renderer import Renderer
 from smelter_tpu_torch.scene import components as comp
 
 r = Renderer(device="cpu")
+r.register_shader("fade", "def main(inputs, params, resolution, time):\\n"
+                  "    return inputs[0] * (0.5 + 0.5 * jnp.sin(time))\\n")
+from smelter_tpu_torch.render.image import ImageAsset
+from smelter_tpu_torch.render.web import WebRendererSpec
+r.images.put("logo", ImageAsset("bitmap", [np.full((8, 8, 4), 200, np.uint8)], [0.0], 8, 8))
+r.web.register(WebRendererSpec(instance_id="page", url="about:blank", resolution=(16, 8)))
 inputs = {}
 for i in range(2):
     r.register_input(f"in_{i}")
@@ -40,13 +48,16 @@ for i in range(2):
 r.update_scene("out", comp.View(background_color=RGBAColor(0, 0, 0), children=[
     comp.Tiles(children=[comp.InputStream(input_id=i) for i in inputs]),
     comp.View(position=comp.AbsolutePosition(width=40.0, height=20.0, top=4.0, left=4.0),
-              background_color=RGBAColor(200, 0, 0, 200))]),
+              background_color=RGBAColor(200, 0, 0, 200)),
+    comp.Shader(shader_id="fade", width=64.0, height=32.0,
+                children=[comp.InputStream(input_id="in_0")]),
+    comp.Image(image_id="logo"), comp.WebView(instance_id="page")]),
     Resolution(128, 72), PixelFormat.PLANAR_YUV420)
 y, u, v = r.render(FrameSet(pts=0.0, frames=inputs)).frames["out"].data
 assert tuple(y.shape) == (72, 128) and tuple(u.shape) == (36, 64)
 reference = [m for m in sys.modules if m == "smelter_tpu" or m.startswith("smelter_tpu.")]
 print(len(names), "jax" in sys.modules, "triton" in sys.modules, "PIL" in sys.modules,
-      len(reference))
+      "websockets" in sys.modules, len(reference))
 """
 
 
@@ -63,11 +74,12 @@ def test_port_imports_without_jax_or_triton():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n_modules, has_jax, has_triton, has_pil, n_reference = out.stdout.split()
+    n_modules, has_jax, has_triton, has_pil, has_ws, n_reference = out.stdout.split()
     assert int(n_modules) >= 10  # every module of the port was imported
     assert has_jax == "False"
     assert has_triton == "False"
-    assert has_pil == "False"
+    assert has_pil == "False"  # no Text rendered, no image decoded
+    assert has_ws == "False"  # no web renderer sidecar connected
     assert n_reference == "0"  # no module of the reference package loaded
 
 

@@ -7,8 +7,8 @@ package's, on the CPU (`device="cpu"`), at small sizes.
     0.5 s, and an input unregistered at 1.2 s. The two runs must deliver the
     same output pts (relative to the queue's start) and frame count, planes
     within 1 u8 LSB, the same mixed audio, and the same events per entity.
-  - `_frame_to_planes` on tensor and numpy planes; a yuv444p encoder refused
-    at `register_output` (output format not ported: ROADMAP Queue 1 item 1).
+  - `_frame_to_planes` on tensor and numpy planes; a yuv444p encoder
+    registered, its output rendered as PLANAR_YUV444.
   - An MP4 -> MP4 run through both packages, the decoded frames compared at
     the harness tolerance.
 
@@ -306,20 +306,25 @@ def test_frame_to_planes_matches_the_reference(fmt, as_tensor):
 
 
 def test_yuv444_encoder_output_is_not_ported():
+    """A yuv444p encoder, which this test once saw refused, now registers:
+    the renderer renders PLANAR_YUV444 for it, and the output delivers
+    4:4:4 host planes (held to the reference frame by frame in
+    `tests/test_torch_output_formats.py`)."""
     pkg = _pkg(PORT)
     pl = pkg.pipeline
     pipeline = _new_pipeline(pkg, PORT)
     try:
         pipeline.register_input("cam", pkg.input.RawDataInput(has_video=True, has_audio=False),
                                 pl.RegisterInputOptions(required=True, offset=0.0))
-        with pytest.raises(NotImplementedError, match="item 1"):
-            pipeline.register_output(
-                "out", pl.EncodedDataOutputSink(),
-                video=pl.OutputVideoOptions(
-                    resolution=pkg.types.Resolution(128, 96),
-                    encoder=pl.VideoEncoderOptions(codec="h264", pixel_format="yuv444p"),
-                    initial_root=pkg.comp.Rescaler(child=pkg.comp.InputStream(input_id="cam"))))
-        assert "out" not in pipeline._outputs
+        pipeline.register_output(
+            "out", pl.EncodedDataOutputSink(),
+            video=pl.OutputVideoOptions(
+                resolution=pkg.types.Resolution(128, 96),
+                encoder=pl.VideoEncoderOptions(codec="h264", pixel_format="yuv444p"),
+                initial_root=pkg.comp.Rescaler(child=pkg.comp.InputStream(input_id="cam"))))
+        assert "out" in pipeline._outputs
+        fmt = pipeline.renderer._output_formats["out"]
+        assert fmt == pkg.types.PixelFormat.PLANAR_YUV444
     finally:
         pipeline.close()
 

@@ -18,6 +18,10 @@ Scenes:
   (e) a card whose border and shadow colours change while every rect stays
       put: K1 paints each frame with that frame's colours, and the compose
       cache of a structure holds no parameters.
+Text, Image, Shader and WebView scenes and the YUV444 and NV12 outputs are
+held to the reference in `tests/test_torch_text_image.py`,
+`test_torch_shader.py`, `test_torch_web.py` and
+`test_torch_output_formats.py`.
 """
 
 from __future__ import annotations
@@ -309,7 +313,38 @@ ROUND_TRIP = {
     "layouts": lambda: list(_render_layouts().values()),
     "frames": lambda: _frames(4, 0.5),
     "output": lambda: (OUT, PixelFormat.PLANAR_YUV420, FORMATS),
+    "nodes": lambda: _nodes_scene(),
+    "image_asset": lambda: _image_asset(),
+    "web_spec": lambda: _web_spec(),
 }
+
+
+def _nodes_scene():
+    """Shader (with a nested param), Text, Image and WebView components."""
+    from smelter_tpu.scene.components import TextDimensions, TextStyle, TextWrap
+
+    return comp.View(background_color=WHITE, children=[
+        comp.Shader(shader_id="circle", width=64.0, height=32.0,
+                    shader_param={"center": {"x": 1.0, "y": 2.5}, "angles": [0.0, 90.0]},
+                    children=[comp.InputStream(input_id="input_0")]),
+        comp.Text(text="hi", font_size=20.0, style=TextStyle.ITALIC, wrap=TextWrap.WORD,
+                  dimensions=TextDimensions(mode="fitted_column", width=80.0)),
+        comp.Image(image_id="logo", width=32.0),
+        comp.WebView(instance_id="page", children=[comp.InputStream(input_id="input_1")])])
+
+
+def _image_asset():
+    from smelter_tpu.render.image import ImageAsset
+
+    return ImageAsset("animated", [np.zeros((4, 4, 4), np.uint8), np.ones((4, 4, 4), np.uint8)],
+                      [0.1, 0.2], 4, 4)
+
+
+def _web_spec():
+    from smelter_tpu.render.web import WebRendererSpec
+
+    return WebRendererSpec(instance_id="page", url="about:blank", resolution=(64, 48),
+                           embedding_method="native_embedding_under_content")
 
 
 @pytest.mark.parametrize("name", sorted(ROUND_TRIP))
@@ -449,10 +484,13 @@ def test_layout_collapse_matches_reference():
 
 
 def test_unported_scenes_raise_at_update_scene():
-    r = TorchRenderer(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        r.update_scene("out", *from_reference((
-            comp.View(children=[comp.Text(text="x")]), OUT, PixelFormat.RGBA)))
-    with pytest.raises(NotImplementedError, match="item 1"):
-        r.update_scene("out", *from_reference((comp.View(), OUT, PixelFormat.NV12)))
-    assert "out" not in r._programs
+    """The scenes this test once saw refused (a Text component, an NV12
+    output) now render, as the reference renders them: within 1 LSB of the
+    JAX renderer, and nothing raises."""
+    cases = [(comp.View(children=[comp.Text(text="x")]), PixelFormat.RGBA),
+             (comp.View(), PixelFormat.NV12)]
+    for scene, fmt in cases:
+        ref, _ = _render_seq(JaxRenderer, [(scene, 0.0)], fmt, 0)
+        got, r = _render_seq(TorchRenderer, [(scene, 0.0)], fmt, 0)
+        assert "out" in r._programs
+        _assert_frames_match(ref, got, f"{type(scene.children[0]).__name__ if scene.children else 'View'} {fmt.value}")

@@ -1,9 +1,10 @@
 """The port's HTTP server (`smelter_tpu_torch.server`) on the CPU
 (``SMELTER_DEVICE=cpu``), beside the reference's where the two must answer
 alike: the MP4 end-to-end flow, validation errors, the `/status`
-configuration block, the HLS output and the `/ws` events; requests for what
-is not ported answer NOT_IMPLEMENTED with the ROADMAP item and register
-nothing."""
+configuration block, the HLS output and the `/ws` events, the shader, image,
+web-renderer and font routes (and a shader registered over HTTP rendering
+into an MP4); requests for the protocol edges, which are not ported, answer
+NOT_IMPLEMENTED with the ROADMAP item and register nothing."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import httpx
 import pytest
 import torch
 
+from tests.test_api_features import _decode_video
 from tests.test_pipeline import _decode_output, _make_source_mp4
 from tests.test_server import ServerThread, _scene_json
 
@@ -139,6 +141,84 @@ def test_server_mp4_end_to_end(server, tmp_path):
     assert audio.shape[0] > 48000 * 1.5
 
 
+def _shader_flow(s, src: str, out_path: str, tmp_path) -> list:
+    """`tests/test_api_features.py`'s shader flow on server `s`: a channel
+    swapping shader registered over HTTP (and two refused ones), an MP4 of
+    the red source through it at 320x240, an image and a font route. Returns
+    the (status, error code) of every request."""
+    from io import BytesIO
+
+    from PIL import Image as PILImage
+
+    png = BytesIO()
+    PILImage.new("RGBA", (16, 8), (10, 200, 30, 255)).save(png, format="PNG")
+    png_path = tmp_path / f"logo_{id(s)}.png"
+    png_path.write_bytes(png.getvalue())
+    source = ("def main(inputs, params, resolution, time):\n"
+              "    tex = inputs[0]\n"
+              "    rgb = tex[..., :3][..., ::-1]  # swap R<->B\n"
+              "    return jnp.concatenate([rgb, tex[..., 3:4]], axis=-1)\n")
+    requests = [
+        ("/api/shader/swap/register", {"source": source}),
+        ("/api/shader/evil/register",
+         {"source": "def main(i, p, r, t):\n    return __import__('os').system('true')\n"}),
+        ("/api/shader/badshape/register",
+         {"source": "def main(inputs, params, resolution, time):\n"
+                    "    return jnp.zeros((10, 10, 4), jnp.float32)\n"}),
+        ("/api/shader/swap/register", {"source": source}),  # already registered
+        ("/api/image/logo/register", {"asset_type": "png", "path": str(png_path)}),
+        ("/api/image/logo/unregister", {}),
+        ("/api/image/logo/unregister", {}),
+        ("/api/font/register", {"path": "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"}),
+        ("/api/input/a/register", {"type": "mp4", "path": src, "required": True,
+                                   "offset_ms": 0}),
+        ("/api/output/out/register", {
+            "type": "mp4", "path": out_path,
+            "video": {"resolution": {"width": 320, "height": 240},
+                      "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
+                      "initial": {"root": {
+                          "type": "shader", "shader_id": "swap",
+                          "resolution": {"width": 320, "height": 240},
+                          "children": [{"type": "input_stream", "input_id": "a"}]}},
+                      "send_eos_when": {"all_inputs": True}}}),
+        ("/api/start", {}),
+    ]
+    answers = []
+    with httpx.Client(base_url=s.base, timeout=120) as c:
+        for path, body in requests:
+            r = c.post(path, json=body)
+            answers.append((path, r.status_code, r.json().get("error_code")))
+    _wait_done(s, "out")
+    return answers
+
+
+def test_server_shader_flow_matches_the_reference(server, reference_server, tmp_path):
+    """The shader, image and font routes answer as the reference's, and the
+    MP4 rendered through a shader registered over HTTP decodes to the
+    reference's frames at the harness tolerance."""
+    from tests.harness import ALLOWED_ERROR
+
+    src = str(tmp_path / "a.mp4")
+    _make_source_mp4(src, "red", 440.0)
+    runs = []
+    for name, s in (("ref", reference_server), ("port", server)):
+        out_path = str(tmp_path / f"out_{name}.mp4")
+        answers = _shader_flow(s, src, out_path, tmp_path)
+        runs.append((answers, _decode_video(out_path)))
+    (ref_answers, ref_frames), (answers, frames) = runs
+    assert answers == ref_answers
+    assert [a[1] for a in answers[:4]] == [200, 400, 400, 400]
+    assert frames[0][0].shape == (240, 320)
+    assert abs(len(frames) - len(ref_frames)) <= 1 and len(frames) >= 55
+    for a, b in zip(ref_frames, frames):
+        for pa, pb in zip(a[:3], b[:3]):
+            err = abs(pa.astype(float) - pb.astype(float)).mean()
+            assert err <= ALLOWED_ERROR, err
+    # the red input swapped to blue: U high, V low
+    mid = frames[len(frames) // 2]
+    assert float(mid[1].mean()) > 170 and float(mid[2].mean()) < 140
+
+
 def _bad_requests(tmp_path):
     """(method, path, json body) of requests the reference refuses."""
     return [
@@ -200,16 +280,36 @@ def test_server_status_reports_the_reference_configuration(server, reference_ser
     ("/whip/x", None, "item 10"),
     ("/whep/x", None, "item 10"),
 ])
-def test_unported_requests_register_nothing(server, path, body, item):
-    with httpx.Client(base_url=server.base, timeout=30) as c:
-        r = c.post(path, json=body) if body is not None else c.post(path, content=b"v=0")
-        assert r.status_code == 501, r.text
-        err = r.json()
-        assert sorted(err) == ["error_code", "message", "stack"]
-        assert err["error_code"] == "NOT_IMPLEMENTED"
-        assert f"ROADMAP Queue 1 {item}" in err["message"]
-        st = c.get("/status").json()
-    assert st["inputs"] == [] and st["outputs"] == []
+def test_unported_requests_register_nothing(server, path, body, item, request):
+    """The protocol edges (item 10) answer NOT_IMPLEMENTED with the ROADMAP
+    item. The shader, image, web-renderer and font routes (item 7, ported)
+    answer as the reference's server does to the same request: the same
+    status, the same `error_code` (the shader source given fails
+    validation, /a.png and /a.ttf do not exist). Neither registers an input
+    or an output."""
+    answers = []
+    servers = [server]
+    if item == "item 7":
+        servers = [request.getfixturevalue("reference_server"), server]
+    for s in servers:
+        with httpx.Client(base_url=s.base, timeout=30) as c:
+            r = c.post(path, json=body) if body is not None else c.post(path, content=b"v=0")
+            answers.append((r.status_code, r.json()))
+            st = c.get("/status").json()
+        assert st["inputs"] == [] and st["outputs"] == []
+    status, err = answers[-1]
+    if item == "item 7":
+        (ref_status, ref_body), (status, err) = answers
+        assert status == ref_status, (path, answers)
+        assert sorted(err) == sorted(ref_body) and err.get("error_code") == ref_body.get(
+            "error_code"), (path, answers)
+        if status == 200:
+            assert err == ref_body
+        return
+    assert status == 501, err
+    assert sorted(err) == ["error_code", "message", "stack"]
+    assert err["error_code"] == "NOT_IMPLEMENTED"
+    assert f"ROADMAP Queue 1 {item}" in err["message"]
 
 
 def test_server_hls_output_and_ws_events(server, tmp_path):

@@ -12,15 +12,15 @@ the first scene at pts 0, the second scene, two warm-up frames (so that
 the planner sees the layout animate and takes the traced routes), then the
 frames compared.
 
-Scenes of those files left out, with what stops each (ROADMAP Queue 1):
-  - every Text scene (`text_*`): Text components, item 7;
-  - every Image scene (`image_*`): Image components, item 7;
-  - every Shader scene (`shader_*`, the circle layout of
-    `tests/test_snapshots_round5b.py`): Shader components, item 7;
-  - the static scenes of `tests/test_snapshots_extended.py` and
-    `tests/test_snapshots_round5.py` (4K outputs, rotated and bordered
-    layouts, tile counts): they need nothing the port lacks, and wait only
-    for a test of their own.
+The 23 Text, Image and Shader goldens (`text_*`, `image_*`, `shader_*`) run
+the reference's own snapshot test functions, with their `Renderer` swapped
+for the port's (`test_torch_web.PortRenderer`) and their `assert_snapshot`
+for a comparison that writes nothing.
+
+Scenes of those files left out: the static scenes of
+`tests/test_snapshots_extended.py` and `tests/test_snapshots_round5.py` (4K
+outputs, rotated and bordered layouts, tile counts) need nothing the port
+lacks, and wait only for a test of their own.
 """
 
 from __future__ import annotations
@@ -439,3 +439,57 @@ def test_port_renders_golden_yuv_input(fmt):
     name = f"pixel_format_{fmt.value}"
     err = _mean_error(name, out.data.numpy()[..., :3])
     assert err <= ALLOWED_ERROR, f"{name}: mean error {err:.3f} > {ALLOWED_ERROR}"
+
+
+# golden -> (module, snapshot test function) of the Text, Image and Shader
+# scenes; the function renders the scene with the reference's calls
+NODE_GOLDENS = {
+    "text_align_center_fixed": ("test_snapshots", "test_text_align_center_fixed"),
+    "text_wrap_word": ("test_snapshots", "test_text_wrap_word"),
+    "text_background_bold": ("test_snapshots", "test_text_background_and_weight"),
+    "text_lower_third_overlay": ("test_snapshots", "test_text_over_input"),
+    "text_overlay": ("test_renderer", "test_text_overlay"),
+    "image_png_fit": ("test_snapshots", "test_image_png_fit"),
+    "image_natural_size_absolute": ("test_snapshots", "test_image_natural_size_absolute"),
+    "image_svg_circle": ("test_snapshots", "test_image_svg"),
+    "shader_invert": ("test_snapshots", "test_shader_invert_snapshot"),
+    "shader_param_gradient": ("test_snapshots", "test_shader_param_gradient"),
+    "text_fitted_trim": ("test_snapshots_extended", "test_text_fitted_trims_to_content"),
+    "text_fitted_column": ("test_snapshots_extended", "test_text_fitted_column_wraps"),
+    "text_align_right_fixed": ("test_snapshots_extended", "test_text_align_right_fixed"),
+    "shader_two_textures": ("test_snapshots_extended", "test_shader_two_textures_blend"),
+    "text_wrap_glyph": ("test_snapshots_round5", "test_text_wrap_glyph"),
+    "text_wrap_none_clips": ("test_snapshots_round5", "test_text_wrap_none_clips"),
+    "text_style_italic_light": ("test_snapshots_round5", "test_text_style_italic_light"),
+    "text_rtl_bidi": ("test_snapshots_round5", "test_text_rtl_bidi"),
+    "image_jpeg_fill": ("test_snapshots_round5", "test_image_jpeg_fill"),
+    "image_gif_t00": ("test_snapshots_round5", "test_image_gif_animated_by_pts"),
+    "image_gif_t035": ("test_snapshots_round5", "test_image_gif_animated_by_pts"),
+    "shader_time_t08": ("test_snapshots_round5", "test_shader_time_driven"),
+    "shader_circle_layout": ("test_snapshots_round5b", "test_shader_circle_layout_params"),
+}
+
+
+@pytest.mark.parametrize("golden", sorted(NODE_GOLDENS))
+def test_port_renders_golden_node(golden, monkeypatch):
+    """The reference's snapshot test of `golden` on the port's renderer: its
+    frame named `golden` compared with the committed PNG (the function's
+    other snapshots, if any, only rendered)."""
+    import importlib
+
+    from test_torch_web import PortRenderer
+
+    module_name, fn_name = NODE_GOLDENS[golden]
+    module = importlib.import_module(module_name)
+    errors = {}
+
+    def compare(name, frame, allowed_error=ALLOWED_ERROR):
+        assert frame.format.name == "RGBA", frame.format
+        errors[name] = _mean_error(name, np.asarray(frame.data)[..., :3])
+
+    monkeypatch.setattr(module, "Renderer", PortRenderer)
+    monkeypatch.setattr(module, "assert_snapshot", compare)
+    getattr(module, fn_name)()
+    assert golden in errors, f"{fn_name} rendered no frame named {golden}"
+    err = errors[golden]
+    assert err <= ALLOWED_ERROR, f"{golden}: mean error {err:.3f} > {ALLOWED_ERROR}"
