@@ -25,10 +25,12 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      0 on the f32 canvas (both kernels repeat their plain version's
      operations);
   5. drives the flagship builders, 16 x 1080p YUV420 -> one 4K YUV420 frame
-     (the Tiles grid, then general_4k), host frames going through pinned
-     memory to the card and the planes coming back; checks shapes and
-     dtypes, that general_4k launched K1 and K2, and that the card's frames
-     match the port run on the CPU;
+     (the Tiles grid, then general_4k), each captured into a CUDA graph
+     (`render.capture.capture`, as the reference jits them) and replayed;
+     checks shapes and dtypes, that a general_4k replay launched K1 and K2
+     once each, that each replay equals the eager function bit for bit, and
+     that the card's frames match the port run on the CPU; times both
+     eager and replayed;
   6. drives the renderer (`smelter_tpu_torch.render.renderer.Renderer`), the
      entry point a pipeline calls, on 16 host YUV420 inputs at 1080p into a
      4K YUV420 output: a Tiles grid under a highlight frame and a lower-third
@@ -88,10 +90,25 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      frames, the host time of the renderer's per-frame planning, and the
      animated-texture frames (animating and stable, plan(), and a
      torch.profiler breakdown of one animating frame);
-(phase 10 runs between 8 and 9) and prints a JSON line of the
+  11. drives the live pipeline (so the renderer's background capture),
+     16 x 1080p -> 4K, `renderer_scene` replaced mid-stream by a scene of
+     another structure (`marked_scene`, a green bar over the grid): checks
+     that every frame keeps the output's resolution and format, that the
+     renders after the update re-emit the last frame (bit-equal at the
+     sink) until the new graph lands and that every render after it shows
+     the new scene; prints the frozen frames and the time from the update to
+     the first new frame's delivery.
+The renderer phases (6, 7, 8's offline run and 10) run through captured
+programs: every render is also held bit for bit to the closure of its
+structure run eagerly on the same frame (`EagerCheck`, outside every count),
+no frame that replays a graph may synchronise, the kernel and route counts
+are those of the graphs' records, and each phase prints its captures,
+structure keys, capture times and graph memory.
+(phase 10 runs between 8 and 9, phase 11 after 8) and prints a JSON line of the
 animated-texture numbers, a JSON line of the pipeline's numbers
 (`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON line of the nodes
-phase (`{"nodes": ...}`), a JSON line of the kernels (`launches` from the
+phase (`{"nodes": ...}`), a JSON line of the captured programs of every
+phase (`{"captured_programs": ...}`), a JSON line of the kernels (`launches` from the
 pipeline's offline 4K run, each path's counts under `launches_by_path`, the
 nodes phase's included), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
@@ -607,20 +624,24 @@ class RouteCounter:
     """Counts the texture layouts each compose route function draws while
     installed (a `with` block), as the K1 capture of `renderer_kernel_runs`
     wraps K1 (`render_single_layout` also draws the colour layers of the
-    region-local groups: those are not counted)."""
+    region-local groups: those are not counted). A call made while a graph
+    is captured counts on each replay of that graph (`capture.each_run`);
+    none counts while `EagerCheck` runs its eager comparison."""
 
     def __init__(self):
         self.calls = {route: 0 for route in ANIM_ROUTES}
 
     def __enter__(self):
         from smelter_tpu_torch.ops import compose
+        from smelter_tpu_torch.render.capture import each_run
 
         self._saved = {}
         for route, name in ANIM_ROUTES.items():
             orig = self._saved[name] = getattr(compose, name)
 
             def counted(static, *args, _orig=orig, _route=route, **kw):
-                self.calls[_route] += static.content == "texture"
+                if static.content == "texture" and not EagerCheck.running:
+                    each_run(lambda: self.calls.__setitem__(_route, self.calls[_route] + 1))
                 return _orig(static, *args, **kw)
 
             setattr(compose, name, counted)
@@ -632,6 +653,111 @@ class RouteCounter:
         for name, orig in self._saved.items():
             setattr(compose, name, orig)
         return False
+
+
+class EagerCheck:
+    """While installed (a `with` block), every render of an `OutputProgram`
+    is held bit for bit to the closure of its frame's structure run eagerly
+    on the same frame's arguments, on the card (`prog._build(key,
+    frames)` on `prog._args(plan)`). The eager run is out of every count: the kernels' launch
+    counters are restored after it, `RouteCounter` pauses, and the sync
+    debug mode is off during it. Records per render whether it replayed a
+    captured graph, and every program captured (its structure key, capture
+    ms and graph memory)."""
+
+    running = False
+
+    def __init__(self, label):
+        self.label = label
+        self.renders = []  # (program id, key, "replay" / "capture" / "frozen")
+        self.programs = {}  # id(CapturedProgram) -> (capture ms, graph bytes)
+        self.mismatches = []
+
+    def __enter__(self):
+        import gc
+
+        import torch
+
+        from smelter_tpu_torch.render.program import OutputProgram
+
+        # the programs of earlier phases live in reference cycles: free them
+        # and their graph pools, so that the phase reports its own memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._render = render = OutputProgram.render
+        self._plan = plan = OutputProgram.plan
+
+        def planned(prog, *args, **kw):
+            key_plan = plan(prog, *args, **kw)
+            # render looks the key up right after planning
+            prog._smoke_plan = (key_plan, key_plan[0] in prog._build_cache)
+            return key_plan
+
+        def checked(prog, pts, input_frames, *args, **kw):
+            out = render(prog, pts, input_frames, *args, **kw)
+            (key, frame_plan), hit = prog._smoke_plan
+            kind = "frozen" if out is None else "replay" if hit else "capture"
+            self.renders.append((id(prog), key, kind))
+            program = prog._build_cache.get(key)
+            if program is not None:
+                self.programs.setdefault(id(program), (program.capture_ms, program.graph_bytes))
+            if out is not None:
+                self._compare(prog, pts, input_frames, key, frame_plan, out)
+            return out
+
+        OutputProgram.plan, OutputProgram.render = planned, checked
+        return self
+
+    def _compare(self, prog, pts, input_frames, key, frame_plan, out):
+        import torch
+
+        from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+        from smelter_tpu_torch.render.capture import _map_tensors
+
+        mods = (scene_assembly, sdf_layers, yuv_out)
+        counts = [m.LAUNCHES for m in mods]
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        EagerCheck.running = True
+        try:
+            args = _map_tensors(prog._args(frame_plan), lambda t: t.to(prog.device))
+            want = prog._build(key, input_frames)(*args)
+            got, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                self.mismatches.append((prog.out_format.name, pts))
+        finally:
+            EagerCheck.running = False
+            torch.cuda.set_sync_debug_mode(mode)
+            for m, c in zip(mods, counts):
+                m.LAUNCHES = c
+
+    def __exit__(self, *exc):
+        from smelter_tpu_torch.render.program import OutputProgram
+
+        OutputProgram.plan, OutputProgram.render = self._plan, self._render
+        return False
+
+    def report(self):
+        """Checks every render against its eager run and returns (and
+        prints) the phase's captures, distinct structure keys, capture ms
+        and graph memory."""
+        import torch
+
+        kinds = [k for _, _, k in self.renders]
+        ms = [t for t, _ in self.programs.values()]
+        graph_mb = [b / 2**20 for _, b in self.programs.values()]
+        out = dict(renders=len(kinds), replays=kinds.count("replay"),
+                   captures=kinds.count("capture"), frozen=kinds.count("frozen"),
+                   structure_keys=len({(pid, key) for pid, key, _ in self.renders}),
+                   capture_ms_median=statistics.median(ms) if ms else None,
+                   capture_ms_max=max(ms) if ms else None,
+                   graph_mb_total=sum(graph_mb), graph_mb_max=max(graph_mb) if graph_mb else None,
+                   reserved_mb=torch.cuda.memory_reserved() / 2**20,
+                   eager_mismatches=len(self.mismatches))
+        print(f"captured programs, {self.label}: {json.dumps(out)}")
+        check(not self.mismatches, f"{self.label}: replay differs from the eager closure on "
+                                   f"(output, pts) {self.mismatches[:8]}")
+        return out
 
 
 def start_transition(dev, n, in_w, in_h, out_w, out_h, frames, scene=renderer_scene):
@@ -684,7 +810,10 @@ def renderer_kernel_runs(dev, frames):
     launch = scene_assembly.assemble_scene_planar
 
     def capture(resolution, specs, params, spec_rows=None):
-        k1_runs.append(("renderer frame table", resolution, specs, params.clone()))
+        # the run of the frame, not the capture of its graph (which runs
+        # nothing on the card)
+        if not torch.cuda.is_current_stream_capturing():
+            k1_runs.append(("renderer frame table", resolution, specs, params.clone()))
         return launch(resolution, specs, params, spec_rows)
 
     scene_assembly.assemble_scene_planar = capture
@@ -773,11 +902,16 @@ def animated_phase(dev, frames):
     yuv_out.LAUNCHES = 0
     sdf_layers.LAUNCHES = 0
     torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as syncs, counter:
+    with warnings.catch_warnings(record=True) as syncs, counter, \
+            EagerCheck("animated textures") as eager:
         warnings.simplefilter("always")
         outs = render_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames,
                                  on_frame=record, scene=animated_scene)
     torch.cuda.set_sync_debug_mode("default")
+    stats = eager.report()
+    kinds = [kind for _, _, kind in eager.renders]
+    print(f"animated textures: frames captured "
+          f"{[k for k, c in enumerate(kinds) if c == 'capture']}, the rest replayed")
     launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
                 "sdf_layers": sdf_layers.LAUNCHES}
     route_frames = {route: [] for route in ANIM_ROUTES}
@@ -806,13 +940,15 @@ def animated_phase(dev, frames):
     print(f"animated textures: synchronising calls flagged per frame: stable frames "
           f"{stable}, animating frames {animating}")
     check(max(animating) == 0, "animated textures: an animating frame synchronised")
+    check(not [k for k in every if kinds[k] == "replay" and sync_by_frame[k]],
+          "animated textures: a replay frame synchronised")
     for k, planes in enumerate(outs):
         check_planes(f"animated textures frame {k}", interop.planes_to_host(planes),
                      OUT_W, OUT_H)
     del outs
     renderer_parity_vs_cpu(dev, 4, 256, 144, 768, 432, scene=animated_scene,
                            inputs=animated_inputs, label="animated textures")
-    return launches
+    return launches, stats
 
 
 def animated_timings(dev, frames, stamp):
@@ -826,25 +962,37 @@ def animated_timings(dev, frames, stamp):
     from smelter_tpu_torch.core.types import FrameSet
 
     r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames, animated_scene)
-    frame_ms, prof, prof_wall = {}, None, None
+    prog = r._programs["out"]
+    frame_ms, captured, prof, prof_wall, prof_k = {}, set(), None, None, None
     for k in range(1, 2 * FPS + 1):
         fs = FrameSet(pts=k / FPS, frames=frames)
-        if k == 15:
+        n_programs = len(prog._build_cache)
+        if k >= 15 and prof_k is None:
+            # the first replay frame from 15 on, under the profiler
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 r.render(fs)
                 torch.cuda.synchronize()
                 prof_wall = (time.perf_counter() - t0) * 1e3
+            if len(prog._build_cache) == n_programs:
+                prof_k = k
+            else:
+                captured.add(k)
             continue
         frame_ms[k] = cuda_ms(lambda: r.render(fs), iters=1, warmup=0)
-    anim = [frame_ms[k] for k in range(3, FPS + 1) if k in frame_ms]
-    stable = [frame_ms[k] for k in range(FPS + 3, 2 * FPS + 1)]
+        if len(prog._build_cache) != n_programs:
+            captured.add(k)
+    anim = [frame_ms[k] for k in range(3, FPS + 1) if k in frame_ms and k not in captured]
+    stable = [frame_ms[k] for k in range(FPS + 3, 2 * FPS + 1) if k not in captured]
+    capture_frames = [frame_ms[k] for k in sorted(captured) if k in frame_ms]
     t_anim, t_stable = statistics.median(anim), statistics.median(stable)
-    print(f"time animated textures frame 16x1080p->4K, animating ({len(anim)} frames): "
+    print(f"time animated textures frame 16x1080p->4K, animating replays ({len(anim)} frames): "
           f"median {t_anim:.4f} ms, max {max(anim):.4f} ms {stamp}")
-    print(f"time animated textures frame 16x1080p->4K, stable ({len(stable)} frames): "
+    print(f"time animated textures frame 16x1080p->4K, stable replays ({len(stable)} frames): "
           f"median {t_stable:.4f} ms, max {max(stable):.4f} ms {stamp}")
+    print(f"time animated textures frames that captured a structure "
+          f"{sorted(captured)}: {[round(t, 4) for t in capture_frames]} ms {stamp}")
     # the device's own events (kernels, copies, fills): the rows of the
     # aten ops that launched them carry the same time again
     rows = [e for e in prof.key_averages()
@@ -852,7 +1000,8 @@ def animated_timings(dev, frames, stamp):
     frame_device_ms = sum(e.device_time_total for e in rows) / 1e3
     n_launch = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
-    print(f"profile animated textures frame 15 (16x1080p->4K): device {frame_device_ms:.4f} ms in "
+    print(f"profile animated textures frame {prof_k} (16x1080p->4K, a replay): device "
+          f"{frame_device_ms:.4f} ms in "
           f"{sum(e.count for e in rows)} device ops ({n_launch} kernel launches), wall "
           f"{prof_wall:.4f} ms under the profiler, device busy "
           f"{frame_device_ms / prof_wall:.0%} {stamp}")
@@ -869,7 +1018,8 @@ def animated_timings(dev, frames, stamp):
     print(f"time animated textures plan() on the host, animating frames: median "
           f"{t_plan:.4f} ms {stamp}")
     return dict(anim_ms=t_anim, stable_ms=t_stable, plan_ms=t_plan, device_ms=frame_device_ms,
-                launches=n_launch)
+                launches=n_launch, profiled_frame=prof_k, busy=frame_device_ms / prof_wall,
+                capture_frames=sorted(captured), capture_frame_ms=capture_frames)
 
 
 class Delivered:
@@ -1129,8 +1279,10 @@ def pipeline_phase(dev):
 
     scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
     t0 = time.perf_counter()
-    run = pipeline_offline(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, capture_syncs=True)
+    with EagerCheck("pipeline offline") as eager:
+        run = pipeline_offline(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, capture_syncs=True)
     wall = time.perf_counter() - t0
+    stats = eager.report()
     launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
                 "sdf_layers": sdf_layers.LAUNCHES}
     frames, log = run["frames"], run["log"]
@@ -1190,7 +1342,7 @@ def pipeline_phase(dev):
           f"pipeline: card vs CPU off ({mx} LSB; (frame, LSB) over 1: {off})")
     return launches, dict(offline_frames=len(frames), offline_wall_s=wall,
                           k3_frames=len(k3_frames), renderer_thread_syncs=len(on_renderer),
-                          stable_frame_syncs=len(stable))
+                          stable_frame_syncs=len(stable), captured_programs=stats)
 
 
 def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
@@ -1312,6 +1464,139 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
     print(f"pipeline live {n}x1080p->{out_w}x{out_h} at {FPS} fps for {seconds} s: "
           f"{json.dumps(out)}")
     check(len(video) > 0, "pipeline live: no frame delivered")
+    return out
+
+
+GREEN_Y = 173  # BT.709 limited-range luma of RGB (0, 255, 0)
+
+
+def marked_scene(out_w, out_h, n_inputs):
+    """A scene of its own structure, with no component id in common with
+    `renderer_scene` (no transition): the Tiles grid of the inputs under an
+    opaque green bar across the top 64 rows (of a 3840-wide output, scaled).
+    A frame shows this scene when the bar's luma is green's."""
+    from smelter_tpu_torch.core.types import RGBAColor
+    from smelter_tpu_torch.scene import components as comp
+
+    s = out_w / 3840.0
+    tiles = comp.Tiles(
+        children=[comp.Rescaler(child=comp.InputStream(input_id=f"input_{i}"))
+                  for i in range(n_inputs)],
+        background_color=RGBAColor(16, 16, 16), margin=8.0 * s)
+    bar = comp.View(position=comp.AbsolutePosition(width=float(out_w), height=64 * s, top=0.0,
+                                                   left=0.0),
+                    background_color=RGBAColor(0, 255, 0))
+    return comp.View(background_color=RGBAColor(0, 0, 0), children=[tiles, bar])
+
+
+def pipeline_async(dev, n, out_w, out_h, stamp, seconds=4.0, update_at=1.5):
+    """Phase 11: the live pipeline's background capture. The port's
+    Pipeline in real time (so `RendererOptions.async_compile`), n raw 1080p
+    inputs fed at 30 fps for `seconds`, `renderer_scene` stage 0 at
+    out_w x out_h; at `update_at` s the scene is replaced, at once, by
+    `marked_scene`. Checks: no OUTPUT_ERROR; every delivered frame has the
+    output's YUV420 planes; the renders after the update freeze (the
+    renderer hands back the last frame's own planes, with the new pts) until
+    the new structure's graph lands, and every later render shows the new
+    scene; at the sink each frozen frame equals the last frame rendered
+    before the update, bit for bit, and the first new one shows the green
+    bar. Returns the frozen frames, the time from the update to the first
+    new frame's delivery, and the capture's numbers."""
+    import numpy as np
+
+    from smelter_tpu_torch.core.types import Framerate, Resolution
+    from smelter_tpu_torch.pipeline import (
+        EndCondition, OutputVideoOptions, Pipeline, PipelineOptions, RawDataOutputSink,
+        RegisterInputOptions, VideoEncoderOptions)
+    from smelter_tpu_torch.pipeline.input import RawDataInput
+
+    t_run = time.perf_counter()
+    p = Pipeline(PipelineOptions(output_framerate=Framerate(FPS)), device=dev)
+    check(p.renderer.options.async_compile, "a live pipeline must capture in the background")
+    sources = {}
+    for i in range(n):
+        sources[f"input_{i}"] = RawDataInput(has_video=True, has_audio=False)
+        p.register_input(f"input_{i}", sources[f"input_{i}"], RegisterInputOptions())
+    sink = RawDataOutputSink(video_capacity=10 * FPS)
+    p.register_output("out", sink, video=OutputVideoOptions(
+        resolution=Resolution(out_w, out_h), encoder=VideoEncoderOptions(codec="raw"),
+        initial_root=renderer_scene(out_w, out_h, n, 0),
+        end_condition=EndCondition(all_inputs=True)))
+    renders = []  # (pts, frozen, perf_counter when the render began)
+    update = {}
+    render = p.renderer.render
+
+    def logged_render(frame_set):
+        t = time.perf_counter()
+        prev = p.renderer._last_outputs.get("out")
+        out = render(frame_set)
+        frame = out.frames.get("out")
+        if frame is not None:
+            renders.append((frame.pts, prev is not None and frame.data is prev.data, t))
+        return out
+
+    p.renderer.render = logged_render
+    y, u, v = host_frames(2 * n, IN_W, IN_H, seed=10)
+    delivered, video = Delivered(), []
+    p.start()
+    drains = _threads([(_drain, (sink.video, video, lambda f: delivered.add(f.pts)))])
+    t0 = time.perf_counter()
+    feeders = _threads([(_feed_video, (src, (y[2 * i:2 * i + 2], u[2 * i:2 * i + 2],
+                                             v[2 * i:2 * i + 2]), int(seconds * FPS), t0))
+                        for i, src in enumerate(sources.values())])
+    time.sleep(max(0.0, t0 + update_at - time.perf_counter()))
+    update["t"] = time.perf_counter()
+    p.update_output("out", root=marked_scene(out_w, out_h, n))
+    # the renderer's lock: a render that began before this renders the old scene
+    update["done"] = time.perf_counter()
+    for t in feeders:
+        t.join(timeout=60)
+    p.wait_for_outputs_done(timeout=60)
+    for t in drains:
+        t.join(timeout=60)
+    prog = p.renderer._programs.get("out")
+    programs = list(prog._build_cache.values()) if prog is not None else []
+    events = [(e.kind, e.entity_id) for e in p.events.history()]
+    p.close()
+    check(not [e for e in events if e[0] == "OUTPUT_ERROR"], f"pipeline async: {events}")
+    shapes = [(out_h, out_w), (out_h // 2, out_w // 2), (out_h // 2, out_w // 2)]
+    check(video and all([tuple(pl.shape) for pl in f.data] == shapes
+                        and all(pl.dtype == np.uint8 for pl in f.data) for f in video),
+          "pipeline async: a frame of another resolution or format")
+    after = [(pts, frozen) for pts, frozen, t in renders if t > update["done"]]
+    frozen_pts = [pts for pts, frozen in after if frozen]
+    new_pts = [pts for pts, frozen in after if not frozen]
+    print(f"pipeline async {n}x1080p->{out_w}x{out_h}: {len(renders)} renders, "
+          f"{len(after)} after the update: frozen pts {frozen_pts[:3]}..{frozen_pts[-3:]} "
+          f"({len(frozen_pts)}), then {len(new_pts)} new")
+    check(frozen_pts and new_pts, "pipeline async: the update neither froze nor landed")
+    check(max(frozen_pts) < min(new_pts),
+          "pipeline async: a frame froze after the new structure had landed")
+    by_pts = {f.pts: f for f in video}
+    before = [pts for pts, frozen, t in renders if t < update["t"] and not frozen]
+    bar = int(64 * out_w / 3840.0) - 1  # rows inside the bar, its soft edge left out
+
+    def shows_bar(f):
+        return int(np.abs(f.data[0][:bar].astype(np.int32) - GREEN_Y).max()) <= 1
+
+    last_old = by_pts.get(before[-1]) if before else None
+    frozen_seen = [by_pts[pts] for pts in frozen_pts if pts in by_pts]
+    check(last_old is not None and frozen_seen, "pipeline async: frozen frames not delivered")
+    check(all(all(np.array_equal(a, b) for a, b in zip(f.data, last_old.data))
+              for f in frozen_seen),
+          "pipeline async: a frozen frame is not the last frame before the update")
+    new_seen = [by_pts[pts] for pts in new_pts if pts in by_pts]
+    check(new_seen and all(shows_bar(f) for f in new_seen) and not shows_bar(last_old),
+          "pipeline async: the new scene does not show")
+    t_first = min(t for t, pts in delivered.times if pts == new_seen[0].pts)
+    out = dict(inputs=n, out=f"{out_w}x{out_h}", frozen_renders=len(frozen_pts),
+               frozen_delivered=len(frozen_seen), new_delivered=len(new_seen),
+               update_to_first_new_frame_ms=(t_first - update["t"]) * 1e3,
+               captures_of_the_new_scene=len(programs),
+               capture_ms=[pr.capture_ms for pr in programs],
+               graph_mb=[pr.graph_bytes / 2**20 for pr in programs],
+               run_s=time.perf_counter() - t_run, card=stamp)
+    print(f"pipeline async: {json.dumps(out)}")
     return out
 
 
@@ -1536,7 +1821,8 @@ def nodes_phase(dev, frames, stamp):
 
     scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
     torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as syncs, ProgramLaunches() as counted:
+    with warnings.catch_warnings(record=True) as syncs, ProgramLaunches() as counted, \
+            EagerCheck("nodes") as eager:
         warnings.simplefilter("always")
         outs = render_nodes(dev, N_INPUTS, OUT_W, OUT_H, frames, ks, on_frame=counted_syncs)
         sync_after.append(len(syncs))
@@ -1548,6 +1834,13 @@ def nodes_phase(dev, frames, stamp):
           f"synchronising calls flagged per frame: {per_frame_syncs}")
     check(len(per_frame_syncs) == len(outs) and max(per_frame_syncs[2:]) == 0,
           "nodes: a frame of 2-40 synchronised")
+    stats = eager.report()
+    kinds = [kind for _, _, kind in eager.renders]
+    n_out = len(NODE_OUTPUTS)
+    check(len(kinds) == n_out * len(outs), f"nodes: {len(kinds)} renders")
+    replayed = [k for k in range(len(outs)) if set(kinds[k * n_out:(k + 1) * n_out]) == {"replay"}]
+    print(f"nodes: frames whose three outputs all replayed: {replayed}")
+    check(not [k for k in replayed if per_frame_syncs[k]], "nodes: a replay frame synchronised")
     moving = list(range(2, FPS + 1))
     for fmt in NODE_OUTPUTS:
         runs = counted.runs[fmt]
@@ -1662,7 +1955,7 @@ def nodes_phase(dev, frames, stamp):
     print(f"nodes phase: {took:.1f} s (checked run {t_check:.1f} s, parity {t_parity:.1f} s)")
     return launches, dict(frame_ms=times, profile_frame15=dict(
         device_ms=dev_ms, wall_ms=wall, busy=dev_ms / wall, launches=n_launch),
-        shaders=shader_ms, phase_s=took, card=stamp)
+        shaders=shader_ms, phase_s=took, captured_programs=stats, card=stamp)
 
 
 def host_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
@@ -1693,6 +1986,7 @@ def main() -> int:
         make_flagship_compose,
         make_flagship_general_compose,
     )
+    from smelter_tpu_torch.render.capture import capture
     from smelter_tpu_torch.render.program import _pack_frame_buf
 
     dev = torch.device("cuda", 0)
@@ -1747,21 +2041,44 @@ def main() -> int:
     print(f"builders ready in {time.perf_counter() - t0:.1f} s")
     frames = host_frames(N_INPUTS, IN_W, IN_H)
 
+    dev_frames = interop.planes_to_device(frames, dev)
+    # each builder's function captured as the reference jits it, then
+    # replayed: bit-equal to the eager function on the same frame
+    builder_stats = {}
+    t_phase = time.perf_counter()
+    mem0 = torch.cuda.memory_reserved()
+    grid_prog, _ = capture(grid_fn, dev_frames, dev)
+    gen_prog, _ = capture(gen_fn, dev_frames, dev)
+    torch.cuda.synchronize()
     scene_assembly.LAUNCHES = 0
     yuv_out.LAUNCHES = 0
     sdf_layers.LAUNCHES = 0
-    dev_frames = interop.planes_to_device(frames, dev)
-    grid_out = interop.planes_to_host(grid_fn(*dev_frames))
+    grid_out = interop.planes_to_host(grid_prog(*dev_frames))
     check(scene_assembly.LAUNCHES == 0 and yuv_out.LAUNCHES == 0,
           "the grid scene runs no kernel")
-    gen_out = interop.planes_to_host(gen_fn(*dev_frames))
+    gen_out = interop.planes_to_host(gen_prog(*dev_frames))
     launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
                 "sdf_layers": sdf_layers.LAUNCHES}
-    print(f"flagship path launches during general_4k: {launches}")
-    check(launches["scene_assembly"] > 0, "general_4k did not launch K1")
-    check(launches["yuv_out"] > 0, "general_4k did not launch K2")
+    print(f"flagship path launches during one general_4k replay: {launches}")
+    check(launches["scene_assembly"] == 1, "a general_4k replay did not launch K1 once")
+    check(launches["yuv_out"] == 1, "a general_4k replay did not launch K2 once")
     for label, planes in (("grid", grid_out), ("general_4k", gen_out)):
         check_planes(label, planes, OUT_W, OUT_H)
+    for label, fn, prog, replayed in (("grid", grid_fn, grid_prog, grid_out),
+                                      ("general_4k", gen_fn, gen_prog, gen_out)):
+        eager = interop.planes_to_host(fn(*dev_frames))
+        mx = lsb_stats(eager, replayed)[0]
+        t_eager, t_replay = cuda_ms(lambda: fn(*dev_frames)), cuda_ms(lambda: prog(*dev_frames))
+        builder_stats[label] = dict(eager_ms=t_eager, replay_ms=t_replay,
+                                    capture_ms=prog.capture_ms,
+                                    graph_mb=prog.graph_bytes / 2**20)
+        print(f"time {label} 16x1080p->4K, compute only: eager {t_eager:.4f} ms, replayed "
+              f"{t_replay:.4f} ms (capture {prog.capture_ms:.1f} ms, graph "
+              f"{prog.graph_bytes / 2**20:.1f} MiB); replay vs eager max abs err {mx} {stamp}")
+        check(mx == 0, f"{label}: the replay differs from the eager function by {mx}")
+    builder_stats["reserved_mb_growth"] = (torch.cuda.memory_reserved() - mem0) / 2**20
+    del grid_prog, gen_prog
+    print(f"builders captured and timed in {time.perf_counter() - t_phase:.1f} s")
     parity_vs_cpu(make_flagship_compose, 4, 256, 144, 768, 432, dev, "grid")
     parity_vs_cpu(make_flagship_general_compose, 4, 256, 144, 768, 432, dev, "general_4k")
     parity_vs_cpu(make_flagship_compose, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, dev, "grid")
@@ -1775,8 +2092,9 @@ def main() -> int:
     scene_assembly.LAUNCHES = 0
     yuv_out.LAUNCHES = 0
     sdf_layers.LAUNCHES = 0
+    t_phase = time.perf_counter()
     torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as syncs:
+    with warnings.catch_warnings(record=True) as syncs, EagerCheck("renderer transition") as eager:
         warnings.simplefilter("always")
         outs = render_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H,
                                  render_frames, on_frame=count_k3)
@@ -1792,6 +2110,13 @@ def main() -> int:
         prev_n, prev_s = n, n_sync
     print(f"renderer path launches over {len(outs)} frames: {render_launches}; "
           f"host-device synchronisations flagged by frame: {sync_frames}")
+    capture_stats = {"renderer transition": eager.report()}
+    kinds = [kind for _, _, kind in eager.renders]
+    print(f"renderer transition: frames captured {[k for k, c in enumerate(kinds) if c == 'capture']}"
+          f", the rest replayed")
+    replay_syncs = {k: n for k, n in sync_frames.items() if kinds[k] == "replay"}
+    check(len(kinds) == len(outs) and not replay_syncs,
+          f"renderer transition: replay frames synchronised: {replay_syncs}")
     animating = [k for k, d in per_frame if d > 0]
     print(f"K3 launched on frames {animating}")
     check(render_launches["scene_assembly"] > 0, "the renderer did not launch K1")
@@ -1804,10 +2129,13 @@ def main() -> int:
         check_planes(f"renderer frame {k}", interop.planes_to_host(planes), OUT_W, OUT_H)
     del outs
     renderer_parity_vs_cpu(dev, 4, 256, 144, 768, 432)
+    print(f"renderer phase: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 7: animated textures, 16 x 1080p (one NV12, one RGBA) -> 4K
     anim_frames = animated_inputs(N_INPUTS, IN_W, IN_H, seed=5)
-    anim_launches = animated_phase(dev, anim_frames)
+    t_phase = time.perf_counter()
+    anim_launches, capture_stats["animated textures"] = animated_phase(dev, anim_frames)
+    print(f"animated textures phase: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 8: the pipeline, offline (checked) and in real time (measured)
     t_phase = time.perf_counter()
@@ -1816,9 +2144,16 @@ def main() -> int:
     pipe_live = [pipeline_live(dev, N_INPUTS, OUT_W, OUT_H, stamp),
                  pipeline_live(dev, 4, IN_W, IN_H, stamp)]
     print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
+    capture_stats["pipeline offline"] = pipe_offline["captured_programs"]
+
+    # phase 11: a scene update in the live pipeline, captured in the background
+    t_phase = time.perf_counter()
+    pipe_async = pipeline_async(dev, N_INPUTS, OUT_W, OUT_H, stamp)
+    print(f"pipeline async phase: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 10: Shader, Image and WebView nodes, three output formats, 4K
     node_launches, nodes = nodes_phase(dev, render_frames, stamp)
+    capture_stats["nodes"] = nodes["captured_programs"]
 
     # phase 9: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
@@ -1925,7 +2260,7 @@ def main() -> int:
           f"median {t_anim:.4f} ms, max {max(anim):.4f} ms {stamp}")
     print(f"time renderer frame 16x1080p->4K, stable (K1+K2, {len(stable)} frames): "
           f"median {t_stable:.4f} ms, max {max(stable):.4f} ms {stamp}")
-    print(f"time renderer frames with a new structure (first sight, build): "
+    print(f"time renderer frames that captured a new structure: "
           f"{[round(frame_ms[k], 4) for k in (1, 2, FPS + 1)]} ms {stamp}")
     prog = r._programs["out"]
     t_plan_stable = host_ms(lambda: prog.plan(3.0, render_frames))
@@ -1948,6 +2283,8 @@ def main() -> int:
     print(json.dumps({"pipeline": {"offline": {**pipe_offline, "kernel_launches": pipe_launches},
                                    "live": pipe_live, "card": card}}))
     print(json.dumps({"nodes": {"kernel_launches": node_launches, **nodes}}))
+    print(json.dumps({"captured_programs": {"builders": builder_stats, **capture_stats,
+                                            "pipeline async": pipe_async, "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
     # slice's main path; no single PyTorch call computes any of the three functions:

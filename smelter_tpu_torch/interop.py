@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from smelter_tpu_torch.ops.compose import LayoutParams, LayoutStatic
+from smelter_tpu_torch.render.capture import hold
 
 _STATIC_FIELDS = tuple(f.name for f in dataclasses.fields(LayoutStatic))
 _PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(LayoutParams))
@@ -106,13 +107,19 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
     """A host tensor on `device`. To a CUDA device it goes through pinned
     host memory and a non-blocking copy on the current stream, so the host
     does not wait (PyTorch keeps the pinned buffer alive until its copy is
-    done)."""
+    done). The device copy belongs to the program being built on this
+    thread, if any (`render.capture.hold`). Raises inside a CUDA graph
+    capture: a graph must not hold a copy from host memory."""
     device = torch.device(device)
     if device.type != "cuda":
         return t.to(device)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "an upload inside a CUDA graph capture: the device constant should "
+            "have been made by the warm-up run (render/capture.py)")
     if not t.is_pinned():
         t = t.pin_memory()
-    return t.to(device, non_blocking=True)
+    return hold(t.to(device, non_blocking=True))
 
 
 def planes_to_device(planes: Sequence[np.ndarray], device) -> Tuple[torch.Tensor, ...]:

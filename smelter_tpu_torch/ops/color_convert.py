@@ -15,13 +15,13 @@ textures are not premultiplied here (they are opaque or straight alpha).
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from smelter_tpu_torch.core.types import PixelFormat
+from smelter_tpu_torch.render.capture import device_constant
 from smelter_tpu_torch.ops.resample import (
     _dense_axis_weights,
     build_mips,
@@ -138,7 +138,7 @@ def _chroma_upsample_matrix(n_full: int, n_sub: int) -> np.ndarray:
     return U
 
 
-@functools.lru_cache(maxsize=256)
+@device_constant(maxsize=256)
 def tile_weights(
     luma_hw: Tuple[int, int],
     chroma_hw: Tuple[int, int],

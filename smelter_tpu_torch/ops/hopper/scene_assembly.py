@@ -30,6 +30,7 @@ import torch
 from smelter_tpu_torch.interop import upload
 from smelter_tpu_torch.ops.compose import rounded_rect_sdf, smoothstep
 from smelter_tpu_torch.ops.hopper import build
+from smelter_tpu_torch.render.capture import each_run
 
 PARAMS_BASE = 19  # 0:top 1:left 2:w 3:h 4:rot 5..8:radius 9..12:color
 #                  13:border_width 14..17:border_color 18:blur
@@ -37,8 +38,14 @@ MASK_W = 9  # radius[4], top, left, w, h, rotation_rad
 SPEC_W = 9  # columns of the int32 spec table (csrc/scene_assembly.cu)
 _KINDS = {"color": 0, "box_shadow": 1}
 
-# kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use); a
+# CUDA graph's replays count the launches captured in it
 LAUNCHES = 0
+
+
+def _count() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
 
 
 @dataclass(frozen=True)
@@ -168,7 +175,6 @@ def assemble_scene_planar_plain(
 
 
 def _launch(resolution, specs, params, spec_rows):
-    global LAUNCHES
     w, h = resolution
     n = len(specs)
     need = PARAMS_BASE + MASK_W * max((s.n_masks for s in specs), default=0)
@@ -193,7 +199,7 @@ def _launch(resolution, specs, params, spec_rows):
             n, SPEC_W, params.shape[1], h, w, stream,
         )
     build.check(err, "scene_assembly launch")
-    LAUNCHES += 1
+    each_run(_count)
     return out
 
 

@@ -30,6 +30,7 @@ import torch
 from smelter_tpu_torch.interop import upload
 from smelter_tpu_torch.ops.compose import _over, _pixel_centers
 from smelter_tpu_torch.ops.hopper import build
+from smelter_tpu_torch.render.capture import each_run
 from smelter_tpu_torch.ops.hopper.scene_assembly import MemberSpec, _member_layer
 
 PARAMS_WIDTH = 19  # 0:top 1:left 2:w 3:h 4:rot 5..8:radius 9..12:color
@@ -39,8 +40,14 @@ _CONTENT = {"color": 0, "box_shadow": 1}
 
 Kind = Tuple[str, bool, bool]
 
-# kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use); a
+# CUDA graph's replays count the launches captured in it
 LAUNCHES = 0
+
+
+def _count() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
 
 
 def pack_layer_params(params_list) -> torch.Tensor:
@@ -85,7 +92,6 @@ def compose_sdf_layers_planar_plain(
 
 
 def _launch(canvas, params, kinds, table):
-    global LAUNCHES
     n = len(kinds)
     if canvas.dtype != torch.float32 or canvas.dim() != 3 or canvas.shape[0] != 4:
         raise ValueError(f"K3 takes a (4, H, W) f32 canvas, got "
@@ -109,7 +115,7 @@ def _launch(canvas, params, kinds, table):
             canvas.data_ptr(), params.data_ptr(), table.data_ptr(), n, h, w, stream,
         )
     build.check(err, "sdf_layers launch")
-    LAUNCHES += 1
+    each_run(_count)
     return canvas
 
 

@@ -18,14 +18,21 @@ from typing import Tuple
 import torch
 
 from smelter_tpu_torch.ops.hopper import build
+from smelter_tpu_torch.render.capture import each_run
 from smelter_tpu_torch.ops.color_convert import (
     downsample_chroma_2x2,
     f32_to_u8,
     rgb_planes_to_yuv,
 )
 
-# kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use); a
+# CUDA graph's replays count the launches captured in it
 LAUNCHES = 0
+
+
+def _count() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
 
 
 def rgba_cm_to_yuv420_plain(
@@ -42,7 +49,6 @@ def rgba_cm_to_yuv420_plain(
 
 
 def _launch(rgba_cm: torch.Tensor, full_range: bool):
-    global LAUNCHES
     if rgba_cm.dtype != torch.float32 or rgba_cm.dim() != 3 or rgba_cm.shape[0] != 4:
         raise ValueError(
             f"K2 takes a (4, H, W) f32 canvas, got {tuple(rgba_cm.shape)} "
@@ -64,7 +70,7 @@ def _launch(rgba_cm: torch.Tensor, full_range: bool):
             h, w, int(bool(full_range)), stream,
         )
     build.check(err, "yuv420_out launch")
-    LAUNCHES += 1
+    each_run(_count)
     return y, u, v
 
 

@@ -27,6 +27,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from smelter_tpu_torch.render.capture import device_constant
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
@@ -78,10 +80,13 @@ def lanczos_axis_weights(in_size: int, out_size: int) -> Tuple[np.ndarray, np.nd
     return idx, w.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
 def _dense_axis_weights(in_size: int, out_size: int, kind: str) -> np.ndarray:
     """Dense (out, in) resampling matrix for one axis (a separable resize is
     two small dense GEMMs; the band structure wastes zeros but the matrices
-    are tiny next to the pixel data)."""
+    are tiny next to the pixel data). Cached on the host, read-only: every
+    program captured for a new structure makes its device copy anew
+    (`device_constant`), and the Python row loop takes milliseconds at 4K."""
     W = np.zeros((out_size, in_size), np.float32)
     if kind == "lanczos3":
         idx, wts = lanczos_axis_weights(in_size, out_size)
@@ -113,7 +118,7 @@ def device_weights(w: np.ndarray, device) -> torch.Tensor:
     return upload(to_bf16_values(torch.from_numpy(np.ascontiguousarray(w))), device)
 
 
-@functools.lru_cache(maxsize=256)
+@device_constant(maxsize=256)
 def axis_weights(in_size: int, out_size: int, kind: str,
                  device: torch.device) -> torch.Tensor:
     """`_dense_axis_weights` as a bf16-rounded f32 tensor on `device`, built
@@ -195,7 +200,7 @@ def resize_matmul_traced(
     return torch.matmul(x, ww.t())
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _bilinear_taps(out_size: int, in_size: int, device: torch.device):
     """(lo, hi, frac) of `resize_bilinear` along one axis, on `device`: the
     texel-centre positions in f32, clamped to the edges (CLAMP_TO_EDGE),
@@ -302,7 +307,7 @@ def sample_bilinear(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> to
     return _sample_flat(_channel_major_flat([img]), 0, img.shape[0], img.shape[1], ys, xs)
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _mip_table(shapes: Tuple[Tuple[int, ...], ...], device: torch.device) -> torch.Tensor:
     """(levels, 4) int64 rows [texel offset, height, width, 2**level] of a
     mip pyramid stored as one `_channel_major_flat` tensor, on `device`;

@@ -19,13 +19,14 @@ pads, slices and `torch.where`.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from smelter_tpu_torch.render.capture import device_constant
 
 # The barrel shifter's op count scales with log2 of the shift range, so the
 # band count bounds nothing but absurd degenerate geometry.
@@ -56,7 +57,7 @@ def _normalize(theta_deg: float) -> Tuple[int, float]:
     return q, psi
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _shear_plan(k: float, H: int, W: int, device: torch.device) -> Optional[tuple]:
     """Constants of one width shear of an (H, W) image: pads, the per-bit
     row masks (bits, H, 1) and the per-row fractions (H, 1). None when the

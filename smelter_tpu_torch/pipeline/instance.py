@@ -115,8 +115,7 @@ class Pipeline:
         self.renderer = Renderer(
             RendererOptions(
                 stream_fallback_timeout=options.stream_fallback_timeout,
-                # accepted as the reference passes it; the port's builds are
-                # host-only and synchronous either way
+                # live: new structures are captured in the background
                 async_compile=not options.ahead_of_time_processing,
             ),
             device=self.device,

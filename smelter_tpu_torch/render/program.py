@@ -6,17 +6,22 @@ evaluates the scene's layouts at `pts`, decides per layout whether its
 geometry is stable since the previous frame (the planner), splits each
 layout into its static part (`LayoutStatic`, part of the structure key) and
 its numbers, and packs every number into one f32 vector and every host
-input plane into one u8 buffer. `render` uploads the two buffers (pinned
-memory, non-blocking, one copy each) and runs the program built for the
-structure key: the layouts' parameters are views into the uploaded vector,
-the inputs views into the uploaded buffer, and the compose runs eagerly
-(`ops/compose.py`, kernels K1, K2 and K3 on a CUDA device).
+input plane into one u8 buffer. `render` runs the program of the structure
+key on the two buffers: the layouts' parameters are views into the vector,
+the inputs views into the buffer (`ops/compose.py`, kernels K1, K2 and K3 on
+a CUDA device).
 
-A "build" compiles nothing: it is a closure over the structure's statics
-plus a per-structure device cache of what the statics fix (K1's member spec
-table, K3's kinds table; never parameters). Scene transitions change only
-numbers, and the structure only where the planner moves a layout between
-the stable (region-local) and animating (traced or full-canvas) routes.
+A build is a closure over the structure's statics plus a per-structure
+device cache of what the statics fix (K1's member spec table, K3's kinds
+table; never parameters). It is captured once per structure, as the
+reference jits it (`render/capture.py`): on a CUDA device into a CUDA graph
+that later frames of the structure replay, after their two buffers are
+copied in without waiting. With ``allow_async_compile`` a structure not seen
+before is captured on a background thread, and the frame returns None (the
+renderer shows the output's last frame meanwhile). Scene transitions change
+only numbers, and the structure only where the planner moves a layout
+between the stable (region-local) and animating (traced or full-canvas)
+routes.
 
 Every node of the reference: InputStream nodes in every input format
 (planar YUV as deferred YUV sources, the others converted to a
@@ -32,8 +37,12 @@ and NV12 outputs.
 
 from __future__ import annotations
 
+import atexit
 import logging
 import math
+import threading
+import time
+import weakref
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -52,6 +61,7 @@ from smelter_tpu_torch.ops.compose import (
 from smelter_tpu_torch.ops.resample import build_mips, resize_bilinear, resize_matmul
 from smelter_tpu_torch.ops.rotate import MAX_SHEAR_BANDS, rotation_band_count
 from smelter_tpu_torch.render import shader_validation as sv
+from smelter_tpu_torch.render.capture import CapturedProgram, capture
 from smelter_tpu_torch.render.shader_ns import ShaderArray, ShaderNamespace
 from smelter_tpu_torch.scene.layout_types import (
     Mask,
@@ -73,6 +83,21 @@ from smelter_tpu_torch.utils import tracing
 
 SUPPORTED_OUTPUTS = (PixelFormat.RGBA, PixelFormat.PLANAR_YUV420,
                      PixelFormat.PLANAR_YUV444, PixelFormat.NV12)
+
+
+# live background captures: a short-lived script drains them before the
+# interpreter finalises (`_drain_background_compiles`)
+_CAPTURE_THREADS: "weakref.WeakSet[threading.Thread]" = weakref.WeakSet()
+
+
+def _drain_background_compiles(timeout_s: float = 300.0) -> None:
+    """Wait for the programs being captured in the background."""
+    deadline = time.monotonic() + timeout_s
+    for t in list(_CAPTURE_THREADS):
+        t.join(timeout=max(deadline - time.monotonic(), 0.0))
+
+
+atexit.register(_drain_background_compiles)
 
 
 def _mip_levels(res: Resolution) -> int:
@@ -612,7 +637,17 @@ class OutputProgram:
         self._nodes: Dict[int, Node] = {}
         self._next_id = 0
         self._assign_ids(root)
-        self._build_cache: Dict[tuple, Callable] = {}
+        # structure key -> its captured program, oldest first
+        self._build_cache: Dict[tuple, CapturedProgram] = {}
+        self._compile_lock = threading.Lock()
+        self._compiling: set = set()  # keys being captured in the background
+        # on a CUDA device: one capture stream and one graph memory pool for
+        # all the structures of this output (their graphs never replay at
+        # once, and each call copies its outputs out of the pool)
+        self._capture_stream = self._graph_pool = None
+        if self.device.type == "cuda":
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
         # (node_id, layout_index) -> last rect signature; used to detect
         # animating layouts (transitions) and route them to the general path
         self._rect_history: Dict[tuple, tuple] = {}
@@ -906,33 +941,81 @@ class OutputProgram:
         self._aux_dev[nid] = (arr, dev)
         return dev
 
-    # -- build + run ------------------------------------------------------------
+    # -- build, capture + run -----------------------------------------------------
 
-    def render(self, pts: float, input_frames: Dict[str, Frame]):
-        """Render one frame: plan, upload the two buffers, run the program of
-        the frame's structure (built on first sight, on the host). Returns
-        the output planes on the device, without waiting for it."""
+    def render(self, pts: float, input_frames: Dict[str, Frame],
+               allow_async_compile: bool = False):
+        """Render one frame: plan, then run the program of the frame's
+        structure on the two buffers; returns the output planes on the
+        device, without waiting for it. A structure seen for the first time
+        is built and captured first, within this call, unless
+        ``allow_async_compile``: then its capture starts on a background
+        thread and this call returns None (the caller shows its previous
+        frame until the program is ready)."""
         with tracing.span("render.plan"):
             key, plan = self.plan(pts, input_frames)
-        fn = self._build_cache.get(key)
-        if fn is None:
-            fn = self._build(key, input_frames)
-            self._store_program(key, fn)
+        program = self._build_cache.get(key)
+        if program is not None:
+            return program(*self._args(plan))
+        if allow_async_compile:
+            self._compile_async(key, plan, input_frames)
+            return None
+        program, out = self._compile(key, plan, input_frames)
+        self._store_program(key, program)
+        return out
+
+    def _args(self, plan: FramePlan) -> tuple:
+        """The program's arguments of one frame: the planes and the packed
+        numbers as host buffers (pinned on a CUDA device, so that copying
+        them in does not wait), the inputs that arrived as tensors on the
+        device."""
         dev = self.device
         packed = torch.from_numpy(plan.packed_params)
-        return fn(
-            upload(plan.frame_buf, dev),
-            {iid: _to_device(p, dev) for iid, p in plan.raw_planes.items()},
-            upload(packed, dev),
-            plan.aux_textures,
-            plan.shader_params,
-        )
+        if dev.type == "cuda":
+            packed = packed.pin_memory()
+        return (plan.frame_buf,
+                {iid: _to_device(p, dev) for iid, p in plan.raw_planes.items()},
+                packed, plan.aux_textures, plan.shader_params)
 
-    def _store_program(self, key: tuple, fn) -> None:
-        if len(self._build_cache) >= self.MAX_CACHED_PROGRAMS:
-            oldest = next(iter(self._build_cache))
-            del self._build_cache[oldest]
-        self._build_cache[key] = fn
+    def _compile(self, key: tuple, plan: FramePlan, input_frames):
+        """Build and capture the program of `key` on this frame's arguments:
+        (the program, this frame's output)."""
+        fn = self._build(key, input_frames)
+        with tracing.span("render.capture"):
+            return capture(fn, self._args(plan), self.device, pool=self._graph_pool,
+                           stream=self._capture_stream)
+
+    def _store_program(self, key: tuple, program: CapturedProgram) -> None:
+        with self._compile_lock:
+            if len(self._build_cache) >= self.MAX_CACHED_PROGRAMS:
+                oldest = next(iter(self._build_cache))
+                del self._build_cache[oldest]
+            self._build_cache[key] = program
+
+    def _compile_async(self, key: tuple, plan: FramePlan, input_frames) -> None:
+        """Capture the program of `key` on a daemon thread, from the plan of
+        the frame that asked for it; three attempts, each failure logged.
+        The thread takes no lock of the renderer."""
+        with self._compile_lock:
+            if key in self._compiling:
+                return
+            self._compiling.add(key)
+
+        def work() -> None:
+            for attempt in range(3):
+                try:
+                    program, _ = self._compile(key, plan, input_frames)
+                    self._store_program(key, program)
+                    break
+                except Exception:
+                    logging.getLogger("smelter.render").exception(
+                        "background capture failed (attempt %d/3)", attempt + 1)
+            with self._compile_lock:
+                self._compiling.discard(key)
+
+        t = threading.Thread(target=work, name="program-capture", daemon=True)
+        _CAPTURE_THREADS.add(t)
+        t.start()
 
     def _build(self, key: tuple, input_frames) -> Callable:
         """Build the render function of the current structure."""

@@ -1,7 +1,10 @@
 """Renderer facade, ported from `smelter_tpu/render/renderer.py`.
 
 Owns the scene state, one frame program per output, and the shader, image,
-text and web-renderer registries, on one device. The hot call is
+text and web-renderer registries, on one device. With
+`RendererOptions.async_compile`, an output whose new scene structure is
+being captured in the background shows its last frame again, with the new
+pts (the reference's freeze-frame). The hot call is
 ``render(FrameSet) -> FrameSet``; `update_scene` swaps scenes with
 transition support; registering inputs, shaders and images mirrors the
 reference API. Every component kind renders (View, Tiles, Rescaler,
@@ -24,6 +27,7 @@ from smelter_tpu_torch.render.program import (
     SUPPORTED_OUTPUTS,
     OutputProgram,
     ShaderRegistry,
+    _drain_background_compiles,
 )
 from smelter_tpu_torch.render.text import TextRenderer
 from smelter_tpu_torch.render.web import WebRendererRegistry
@@ -36,10 +40,10 @@ from smelter_tpu_torch.utils import tracing
 class RendererOptions:
     framerate: Framerate = Framerate(30)
     stream_fallback_timeout: float = 0.5  # seconds
-    # Accepted for the reference's API. A build here is host-only (no
-    # compile), so a new scene structure builds synchronously within its
-    # first frame, and the reference's freeze-frame (showing the last frame
-    # while a compile runs in the background) never has a frame to hold.
+    # live mode: capture the program of a new scene structure on a
+    # background thread and freeze the output's last frame meanwhile, so that
+    # a scene update never stalls the render loop (offline and deterministic
+    # runs keep synchronous captures)
     async_compile: bool = False
 
 
@@ -50,6 +54,7 @@ class Renderer:
 
     def __init__(self, options: RendererOptions = RendererOptions(),
                  device=None) -> None:
+        self._last_outputs: Dict[str, Frame] = {}
         self._lock = threading.Lock()
         self.options = options
         self.device = resolve_device(device)
@@ -112,6 +117,14 @@ class Renderer:
                 image_store=lambda i: self.images.natural_size(i),
                 web_size=self._web_size,
             )
+            prev = self._programs.get(output_id)
+            if prev is not None and (
+                prev.resolution != resolution
+                or self._output_formats.get(output_id) != output_format
+            ):
+                # the freeze-frame must never send a frame of the old
+                # resolution or format to the encoder
+                self._last_outputs.pop(output_id, None)
             self._programs[output_id] = OutputProgram(
                 node.node, resolution, output_format, self.device,
                 self.shaders, web=self.web, image_store=self.images,
@@ -124,6 +137,9 @@ class Renderer:
             self.scene.unregister_output(output_id)
             self._programs.pop(output_id, None)
             self._output_formats.pop(output_id, None)
+            # an output registered again under this id must not freeze the
+            # old output's frame while its first program is captured
+            self._last_outputs.pop(output_id, None)
 
     def _validate_components(self, root: comp.Component,
                              output_format: PixelFormat) -> None:
@@ -150,7 +166,9 @@ class Renderer:
         visit(root)
 
     def close(self) -> None:
-        """Release the web renderer sidecars."""
+        """Wait for the programs being captured in the background, then
+        release the web renderer sidecars."""
+        _drain_background_compiles()
         self.web.close_all()
 
     def _web_size(self, instance_id: str) -> tuple:
@@ -192,12 +210,25 @@ class Renderer:
 
             out = FrameSet(pts=pts)
             for output_id, program in self._programs.items():
+                has_last = output_id in self._last_outputs
+                planes = program.render(
+                    pts, frames,
+                    allow_async_compile=self.options.async_compile and has_last)
+                if planes is None:
+                    # the structure is being captured in the background:
+                    # freeze the output's last frame instead of stalling
+                    last = self._last_outputs[output_id]
+                    out.frames[output_id] = Frame(
+                        data=last.data, format=last.format,
+                        resolution=last.resolution, pts=pts)
+                    continue
                 frame = Frame(
-                    data=program.render(pts, frames),
+                    data=planes,
                     format=self._output_formats[output_id],
                     resolution=program.resolution,
                     pts=pts,
                 )
+                self._last_outputs[output_id] = frame
                 out.frames[output_id] = frame
             return out
 

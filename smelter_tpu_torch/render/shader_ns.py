@@ -42,6 +42,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from smelter_tpu_torch.render.capture import device_constant
+
 
 class DType:
     """A JAX-named dtype (``jnp.float32``): callable like JAX's, which makes
@@ -374,8 +376,7 @@ class ShaderNamespace:
     # -- placement -------------------------------------------------------------
     def _from_host(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         """A host numpy value as a tensor with JAX's default types: 0-d on
-        the host, otherwise on the device through pinned memory without
-        waiting (`interop.upload`)."""
+        the host, otherwise a device constant (`_device_copy`)."""
         if a.dtype == np.float64:
             a = a.astype(np.float32)
         elif a.dtype == np.int64:
@@ -387,9 +388,8 @@ class ShaderNamespace:
             return t
         if self.device.type == "meta":
             return torch.empty(t.shape, dtype=t.dtype, device="meta")
-        from smelter_tpu_torch.interop import upload
-
-        return upload(t, self.device)
+        data = t.contiguous().view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        return _device_copy(data, t.dtype, tuple(t.shape), self.device)
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, ShaderArray):
@@ -612,6 +612,18 @@ def _clamp_start(s: int, n: int, u: int) -> int:
     return min(max(s + n if s < 0 else s, 0), n - u)
 
 
+@device_constant(maxsize=256)
+def _device_copy(data: bytes, dtype: torch.dtype, shape: tuple, device) -> torch.Tensor:
+    """A shader's constant array on the device, through pinned memory without
+    waiting (`interop.upload`); made once per value, so that a captured
+    shader reads it and never uploads it (`render/capture.py`)."""
+    from smelter_tpu_torch.interop import upload
+
+    t = (torch.frombuffer(bytearray(data), dtype=dtype).reshape(shape) if data
+         else torch.empty(shape, dtype=dtype))
+    return upload(t, device)
+
+
 def _has_tensor(x) -> bool:
     if isinstance(x, (ShaderArray, torch.Tensor)):
         return True
@@ -629,8 +641,9 @@ def _same_device(ts, device):
     out = []
     for t in ts:
         if t.device != target:
-            if t.dim() != 0:
-                raise ValueError("a host array of one or more dimensions in a shader")
+            if t.dim() != 0 or t.device.type != "cpu":
+                raise ValueError(f"a shader mixes a {t.dim()}-d {t.device} array with "
+                                 f"arrays on {target}")
             t = torch.full((), t.item(), dtype=t.dtype, device=target)
         out.append(t)
     return out

@@ -303,3 +303,145 @@ def test_shader_on_the_card_matches_the_cpu(cuda, name):
         outs.append(out.cpu())
     assert outs[1].shape == (48, 80, 4) and outs[1].dtype == torch.float32
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------- captured programs
+
+
+def _capture_scene(kind, left):
+    """Port scenes at 384x216 over four 96x54 inputs: a Tiles grid under a
+    bordered, shadowed banner at `left` ("overlay": K1, the texture groups
+    and, while the banner moves, K3), or a shader of input 0 beside the
+    grid ("shader")."""
+    from smelter_tpu_torch.core.types import RGBAColor
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.scene.layout_types import BorderRadius, BoxShadow
+
+    tiles = comp.Tiles(children=[comp.Rescaler(child=comp.InputStream(input_id=f"input_{i}"))
+                                 for i in range(4)],
+                       background_color=RGBAColor(16, 16, 16), margin=4.0)
+    if kind == "shader":
+        over = comp.View(position=comp.AbsolutePosition(width=160.0, height=90.0, top=20.0,
+                                                        left=left),
+                         children=[comp.Shader(shader_id="wave", width=160.0, height=90.0,
+                                               children=[comp.InputStream(input_id="input_0")])])
+    else:
+        over = comp.View(id="banner", position=comp.AbsolutePosition(
+                             width=240.0, height=40.0, top=150.0, left=left),
+                         background_color=RGBAColor(200, 30, 30, 230),
+                         border_radius=BorderRadius(12, 12, 12, 12), border_width=3.0,
+                         border_color=RGBAColor(255, 255, 255, 255),
+                         box_shadow=[BoxShadow(offset_x=4, offset_y=4, blur_radius=10,
+                                               color=RGBAColor(0, 0, 0, 160))],
+                         transition=comp.Transition(duration=1.0))
+    return comp.View(background_color=RGBAColor(20, 20, 20), children=[tiles, over])
+
+
+def _capture_frames(pts, seed):
+    import numpy as np
+
+    from smelter_tpu_torch.core.types import Frame, FrameSet, PixelFormat, Resolution
+
+    rng = np.random.RandomState(seed)
+    return FrameSet(pts=pts, frames={f"input_{i}": Frame(
+        data=(rng.randint(16, 235, (54, 96), dtype=np.uint8),
+              rng.randint(16, 240, (27, 48), dtype=np.uint8),
+              rng.randint(16, 240, (27, 48), dtype=np.uint8)),
+        format=PixelFormat.PLANAR_YUV420, resolution=Resolution(96, 54), pts=0.0)
+        for i in range(4)})
+
+
+def _capture_renderer(dev, kind):
+    from smelter_tpu_torch.core.types import PixelFormat, Resolution
+    from smelter_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(device=dev)
+    for i in range(4):
+        r.register_input(f"input_{i}")
+    r.register_shader("wave", SHADERS["wave"][0])
+    r.update_scene("out", _capture_scene(kind, 20.0), Resolution(384, 216),
+                   PixelFormat.PLANAR_YUV420)
+    return r
+
+
+def _render_at(r, pts, seed):
+    return r.render(_capture_frames(pts, seed)).frames["out"].data
+
+
+@pytest.mark.parametrize("kind", ["overlay", "shader"])
+def test_replay_equals_the_eager_closure(cuda, kind, monkeypatch):
+    """Each frame of a transition through the renderer (captured on a
+    structure's first frame, replayed after) against the structure's
+    closure run eagerly on the same frame's arguments: bit for bit."""
+    from smelter_tpu_torch.core.types import PixelFormat, Resolution
+    from smelter_tpu_torch.render import program
+    from smelter_tpu_torch.render.capture import _map_tensors
+
+    plans = []
+    orig = program.OutputProgram.plan
+
+    def spy(self, pts, input_frames):
+        out = orig(self, pts, input_frames)
+        plans.append((self, input_frames, out))
+        return out
+
+    monkeypatch.setattr(program.OutputProgram, "plan", spy)
+    r = _capture_renderer(cuda, kind)
+    _render_at(r, 0.0, 0)
+    r.update_scene("out", _capture_scene(kind, 120.0), Resolution(384, 216),
+                   PixelFormat.PLANAR_YUV420)
+    replays = 0
+    for k, pts in enumerate((0.25, 0.5, 0.6, 0.75, 1.0, 1.3, 1.4)):
+        prog = r._programs["out"]
+        cached = len(prog._build_cache)
+        got = _render_at(r, pts, k)
+        _, frames, (key, plan) = plans[-1]
+        replays += len(prog._build_cache) == cached
+        args = _map_tensors(prog._args(plan), lambda t: t.to(cuda))
+        want = prog._build(key, frames)(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (kind, pts)
+    assert replays >= 4
+
+
+def test_a_capture_refuses_an_upload(cuda):
+    from smelter_tpu_torch.render.capture import CaptureError, capture
+
+    def fn(x):
+        return x + interop.upload(torch.ones(3), x.device)
+
+    with pytest.raises(CaptureError, match="interop.py"):
+        capture(fn, (torch.zeros(3, device=cuda),), cuda)
+
+
+def test_replays_neither_synchronise_nor_copy_from_the_host(cuda):
+    """A replay frame makes no synchronising call, and its only copies from
+    the host are the two buffers of the frame (planes and numbers): the
+    graph holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    r = _capture_renderer(cuda, "overlay")
+    _render_at(r, 0.0, 0)
+    _render_at(r, 0.1, 1)  # a replay: warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _render_at(r, 0.2, 2)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(r._programs["out"]._build_cache) == 1
+    h2d = sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
+    assert h2d == 2, [(e.key, e.count) for e in prof.key_averages()]
+
+
+def test_kernel_counts_follow_replays(cuda):
+    r = _capture_renderer(cuda, "overlay")
+    counts = []
+    for k in range(4):
+        before = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES)
+        _render_at(r, k * 0.1, k)
+        counts.append((scene_assembly.LAUNCHES - before[0], yuv_out.LAUNCHES - before[1]))
+    assert len(r._programs["out"]._build_cache) == 1  # frames 1-3 replay
+    assert counts == [(1, 1)] * 4

@@ -212,7 +212,7 @@ def test_d_tiles_grid_program():
     _assert_frames_match(ref, got, "tiles grid")
     programs = list(r._programs["out"]._build_cache.values())
     assert len(programs) == 1
-    assert "_try_yuv_grid_program" in programs[0].__qualname__
+    assert "_try_yuv_grid_program" in programs[0].fn.__qualname__
 
 
 def _card_scene(border_color=WHITE, shadow_color=RGBAColor(0, 0, 0, 160)):

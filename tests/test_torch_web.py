@@ -29,6 +29,7 @@ from smelter_tpu.scene import components as comp
 from smelter_tpu_torch.interop import from_reference
 from smelter_tpu_torch.ops.resample import resize_bilinear
 from smelter_tpu_torch.render.renderer import Renderer as TorchRenderer
+from smelter_tpu_torch.render.renderer import RendererOptions as TorchRendererOptions
 
 torch.set_num_threads(2)
 
@@ -63,21 +64,36 @@ def _to_reference(frame_set):
 
 class PortRenderer:
     """The reference's `Renderer` calls on the port's renderer on the CPU:
-    arguments carried across with `from_reference`, rendered frames returned
-    as the reference's, with numpy planes (as the reference's tests read
-    them)."""
+    the reference's `RendererOptions` and arguments carried across with
+    `from_reference`, rendered frames returned as the reference's, with numpy
+    planes (as the reference's tests read them).
 
-    def __init__(self, *args, **kwargs):
-        self._r = TorchRenderer(device="cpu")
+    A render returns once every page's DevTools endpoint has taken what the
+    port pushed into the page during it (`_flush_web`), so that a test may
+    count the endpoint's messages right after `render()`."""
+
+    def __init__(self, options=None, **kwargs):
+        opts = TorchRendererOptions() if options is None else from_reference(options)
+        self._r = TorchRenderer(opts, device="cpu")
         self.shaders = self._r.shaders
         self.web = _PortWeb(self._r.web)
+
+    def _flush_web(self):
+        """One round trip on each page's DevTools connection: the endpoint
+        answers it after every message sent before it (waits at most 10 s)."""
+        for inst in list(self._r.web._instances.values()):
+            if inst.active and inst._cdp is not None:
+                inst._cdp.call("Runtime.enable", session_id=inst._session_id, timeout=10)
 
     def __getattr__(self, name):
         fn = getattr(self._r, name)
 
         def call(*args, **kwargs):
             out = fn(*from_reference(args), **from_reference(kwargs))
-            return _to_reference(out) if name == "render" else out
+            if name != "render":
+                return out
+            self._flush_web()
+            return _to_reference(out)
 
         return call
 
