@@ -98,13 +98,30 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      sink) until the new graph lands and that every render after it shows
      the new scene; prints the frozen frames and the time from the update to
      the first new frame's delivery.
+  12. drives the port's HTTP server (`smelter_tpu_torch.server.app`, on the
+     card, in real time, in this process) through the protocol edges: a
+     child process sends 16 1080p H.264 inputs at 30 fps for 6 s (13 RTP
+     over UDP with RTCP sender reports, one RTP over TCP, one RTMP through
+     the port's RtmpClientOutput, one WHIP through its WhipClientOutput),
+     all registered over HTTP, into `renderer_scene` as wire JSON, updated
+     at 3 s (the overlays move); the 4K H.264 output comes back over RTP to
+     the child, which depayloads and decodes it. Checks the answers, the
+     events, >= 90 frames of 3840x2160, each input's colour in its tile,
+     K1/K2 per rendered frame and K3 on the update only, no synchronising
+     call on a replay, and an empty /status after the unregisters; records
+     the received frame rate, the send -> arrival latency of input 0's
+     frames, each decoder's delay and end-of-stream losses, the spans and
+     the card's busy share (`edges_phase`). Where the codec service cannot
+     load (no FFmpeg), one probe says so and the phase prints
+     `{"edges": {"skipped": ...}}` and runs nothing else.
 The renderer phases (6, 7, 8's offline run and 10) run through captured
 programs: every render is also held bit for bit to the closure of its
 structure run eagerly on the same frame (`EagerCheck`, outside every count),
 no frame that replays a graph may synchronise, the kernel and route counts
 are those of the graphs' records, and each phase prints its captures,
 structure keys, capture times and graph memory.
-(phase 10 runs between 8 and 9, phase 11 after 8) and prints a JSON line of the
+(phase 10 runs between 8 and 9, phase 11 after 8, phase 12 after 10) and
+prints a JSON line of the edges phase (`{"edges": ...}`), a JSON line of the
 animated-texture numbers, a JSON line of the pipeline's numbers
 (`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON line of the nodes
 phase (`{"nodes": ...}`), a JSON line of the captured programs of every
@@ -118,6 +135,7 @@ non-zero exit and no "ok" line.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import os
 import statistics
@@ -137,6 +155,9 @@ OUT_W, OUT_H = 3840, 2160
 FPS = 30
 N_RENDER_FRAMES = 40  # pts k / FPS for k = 1..40 after the scene update
 B2B_LAUNCHES = 50  # kernel calls queued back to back per timing
+# seconds before a hung run dumps its threads' stacks and exits: inside the
+# 900 s of `chiprun --timeout 900` (and the 1200 s the script is given)
+WATCHDOG_S = 840
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W power limit): HBM3 rate
 # and f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -660,7 +681,8 @@ class EagerCheck:
     is held bit for bit to the closure of its frame's structure run eagerly
     on the same frame's arguments, on the card (`prog._build(key,
     frames)` on `prog._args(plan)`). The eager run is out of every count: the kernels' launch
-    counters are restored after it, `RouteCounter` pauses, and the sync
+    counters are restored after it and their per-thread tally skips it
+    (`tally_launches_by_thread`), `RouteCounter` pauses, and the sync
     debug mode is off during it. Records per render whether it replayed a
     captured graph, and every program captured (its structure key, capture
     ms and graph memory)."""
@@ -719,6 +741,7 @@ class EagerCheck:
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("default")
         EagerCheck.running = True
+        _untallied.on = True
         try:
             args = _map_tensors(prog._args(frame_plan), lambda t: t.to(prog.device))
             want = prog._build(key, input_frames)(*args)
@@ -726,8 +749,11 @@ class EagerCheck:
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 self.mismatches.append((prog.out_format.name, pts))
         finally:
-            EagerCheck.running = False
+            # the mode is restored before `running` drops: a context that
+            # turns the mode off waits for `running` (RenderLog.capture_syncs)
             torch.cuda.set_sync_debug_mode(mode)
+            EagerCheck.running = False
+            _untallied.on = False
             for m, c in zip(mods, counts):
                 m.LAUNCHES = c
 
@@ -1049,38 +1075,86 @@ class Delivered:
         return wait
 
 
+# (kernel module, thread ident) -> the launches counted on that thread
+_THREAD_LAUNCHES = {}
+_untallied = threading.local()  # .on: this thread's launches are not tallied
+
+
+def tally_launches_by_thread():
+    """Wraps the count function of the K1, K2 and K3 wrappers (once), so that
+    every launch a wrapper counts in its `LAUNCHES` is also tallied for the
+    thread that counts it: a replay on the thread that replays the graph, a
+    capture's warm-up on the thread that captures. A render's own launches
+    are then told apart from those of a structure captured on a background
+    thread while it runs."""
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+
+    for mod in (scene_assembly, yuv_out, sdf_layers):
+        if getattr(mod._count, "tallied", False):
+            continue
+
+        def count(_orig=mod._count, _name=mod.__name__):
+            _orig()
+            if not getattr(_untallied, "on", False):
+                key = (_name, threading.get_ident())
+                _THREAD_LAUNCHES[key] = _THREAD_LAUNCHES.get(key, 0) + 1
+
+        count.tallied = True
+        mod._count = count
+
+
+def thread_launches():
+    """(K1, K2, K3) launches tallied on the calling thread so far."""
+    me = threading.get_ident()
+    return tuple(_THREAD_LAUNCHES.get((f"smelter_tpu_torch.ops.hopper.{m}", me), 0)
+                 for m in ("scene_assembly", "yuv_out", "sdf_layers"))
+
+
 class RenderLog:
     """Wraps the renderer of a pipeline before anything is registered: logs
     every call the pipeline makes on it (to replay them on a fresh renderer
-    afterwards) and, per render, the kernel launches, whether the frame built
-    a new structure, and the synchronising calls that
+    afterwards) and, per render, the kernel launches made on the renderer's
+    thread (`thread_launches`: not the warm-ups of structures captured on
+    background threads meanwhile), whether the frame built a new structure,
+    how many outputs it rendered, and the synchronising calls that
     `torch.cuda.set_sync_debug_mode("warn")` flags on the renderer thread
-    while `capture_syncs()` is on."""
+    while `capture_syncs()` is on. With `keep_calls` off (a long live run)
+    it keeps no call for `replay`."""
 
-    def __init__(self, renderer):
-        from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
-
+    def __init__(self, renderer, keep_calls=True):
         self.calls, self.frames, self.syncs = [], [], []
+        self.keep_calls = keep_calls
         self._frame = None
+        self.threads = set()  # the idents of the threads that rendered
+        tally_launches_by_thread()
         for name in ("register_input", "unregister_input", "update_scene"):
             def logged(*args, _orig=getattr(renderer, name), _name=name):
-                self.calls.append((_name, args))
+                if self.keep_calls:
+                    self.calls.append((_name, args))
                 return _orig(*args)
 
             setattr(renderer, name, logged)
         render = renderer.render
 
         def logged_render(frame_set):
-            self.calls.append(("render", (frame_set,)))
+            if self.keep_calls:
+                self.calls.append(("render", (frame_set,)))
             self._frame = len(self.frames)
+            t = time.perf_counter()
             progs = list(renderer._programs.values())
             before = [len(p._build_cache) for p in progs]
-            counts = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES, sdf_layers.LAUNCHES)
+            last = dict(renderer._last_outputs)
+            self.threads.add(threading.get_ident())
+            counts = thread_launches()
             out = render(frame_set)
-            after = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES, sdf_layers.LAUNCHES)
+            after = thread_launches()
             self.frames.append(dict(
                 pts=frame_set.pts, built=any(len(p._build_cache) > b for p, b in zip(progs, before)),
-                k1=after[0] - counts[0], k2=after[1] - counts[1], k3=after[2] - counts[2]))
+                k1=after[0] - counts[0], k2=after[1] - counts[1], k3=after[2] - counts[2],
+                outputs=len(out.frames), t=t,
+                # an output whose structure is captured in the background
+                # re-emits its last frame (async_compile)
+                frozen=any(o in last and f.data is last[o].data for o, f in out.frames.items())))
             return out
 
         renderer.render = logged_render
@@ -1102,6 +1176,13 @@ class RenderLog:
             try:
                 yield
             finally:
+                torch.cuda.set_sync_debug_mode("default")
+                # an eager check still running on the renderer thread
+                # restores the mode it found ("warn") when it ends: wait for
+                # it, so that the mode stays off after the context (left on,
+                # a later phase's threads warn from inside CUDA calls)
+                while EagerCheck.running:
+                    time.sleep(0.001)
                 torch.cuda.set_sync_debug_mode("default")
 
     def replay(self, dev):
@@ -1422,13 +1503,6 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
         torch.cuda.synchronize()
     t_end = time.perf_counter()
     window, prof_span = t_end - t0, t_end - t_prof
-    prof.stop()
-    busy = None
-    if on_card:
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-        busy = sum(e.device_time_total for e in rows) / 1e3 / (prof_span * 1e3)
-    t_trace = time.perf_counter() - t_end
     p.wait_for_outputs_done(timeout=60)
     for t in drains:
         t.join(timeout=60)
@@ -1437,7 +1511,12 @@ def pipeline_live(dev, n, out_w, out_h, stamp, seconds=5.0):
     spans = tracing.report()
     events = [(e.kind, e.entity_id) for e in p.events.history()]
     p.close()
-    t_teardown = time.perf_counter() - t_end - t_trace
+    t_teardown = time.perf_counter() - t_end
+    # the profiler stops once no thread of the pipeline launches anything
+    # (`profile_busy`)
+    prof.stop()
+    busy = profile_busy(prof, prof_span) if on_card else None
+    t_trace = time.perf_counter() - t_end - t_teardown
     check(not [e for e in events if e[0] == "OUTPUT_ERROR"], f"pipeline live: {events}")
     lat = sorted((t - sent[used[pts]][0]) * 1e3 for t, pts in delivered.times
                  if pts in used and used[pts] in sent)
@@ -1958,6 +2037,760 @@ def nodes_phase(dev, frames, stamp):
         shaders=shader_ms, phase_s=took, captured_programs=stats, card=stamp)
 
 
+# the live network edges phase (12): the server composes RTP, RTMP and WHIP
+# inputs sent by a child process and sends its output back over RTP
+
+EDGE_SECONDS = 6.0
+EDGE_UPDATE_AT = 3.0
+EDGE_BITRATE = 4_000_000  # bit/s of each input clip
+EDGE_TAIL_S = 1.5  # the receiver's wait for the output's last packets
+EDGE_STRIPES = 10  # input 0's frame code: a white and a black reference, 8 bits
+
+
+def edge_protocols(n):
+    """Input i's protocol: inputs 1, 2 and 3 (the first row of the grid, out
+    of the highlight's path at 16 inputs) are the RTP-over-TCP, RTMP and
+    WHIP inputs, the others (input 0 among them) RTP over UDP; n >= 4."""
+    return ["rtp_udp", "rtp_tcp", "rtmp", "whip"] + ["rtp_udp"] * (n - 4)
+
+
+def edge_colour(i):
+    """Input i's flat colour, BT.709 limited-range (Y, U, V) of an RGB
+    colour inside the gamut (its round trip through RGB is exact to 1 LSB),
+    none of them grey."""
+    levels = (60, 140, 220)
+    rgb = [(r, g, b) for r in levels for g in levels for b in levels
+           if not r == g == b][(i * 7) % 24]
+    r, g, b = rgb
+    y = 16 + (0.2126 * r + 0.7152 * g + 0.0722 * b) * 219 / 255
+    u = 128 + (-0.1146 * r - 0.3854 * g + 0.5 * b) * 224 / 255
+    v = 128 + (0.5 * r - 0.4542 * g - 0.0458 * b) * 224 / 255
+    return int(round(y)), int(round(u)), int(round(v))
+
+
+def edge_frame(i, k, w, h):
+    """Frame k of input i (u8 Y, U, V planes): its flat colour, a white bar
+    that moves along the top twelfth, and on input 0 the frame index as
+    stripes along the bottom eighth (white, black, then 8 bits, MSB first)."""
+    import numpy as np
+
+    yc, uc, vc = edge_colour(i)
+    y = np.full((h, w), yc, np.uint8)
+    u = np.full((h // 2, w // 2), uc, np.uint8)
+    v = np.full((h // 2, w // 2), vc, np.uint8)
+    bw, bx = w // 8 & ~1, (k * w // 45) % w & ~1
+    y[:h // 12 & ~1, bx:bx + bw] = 235
+    u[:h // 24, bx // 2:(bx + bw) // 2] = 128
+    v[:h // 24, bx // 2:(bx + bw) // 2] = 128
+    if i == 0:
+        top = (h - h // 8) & ~1
+        bits = [1, 0] + [(k >> (7 - b)) & 1 for b in range(8)]
+        for j, bit in enumerate(bits):
+            x0, x1 = (j * w // EDGE_STRIPES) & ~1, ((j + 1) * w // EDGE_STRIPES) & ~1
+            y[top:, x0:x1] = 235 if bit else 16
+            u[top // 2:, x0 // 2:x1 // 2] = 128
+            v[top // 2:, x0 // 2:x1 // 2] = 128
+    return y, u, v
+
+
+def edge_probes(n, out_w, out_h):
+    """Per tile of the scene's grid (4 x 4 at 16 inputs), its probe patch:
+    (top, left, size), centred horizontally and at 15% of the cell's height
+    (below the inputs' moving bar, above the banner), with whether an
+    overlay (the highlight's path from the first to the last cell, the
+    banner's slide, both with their shadows and a margin) can cover it."""
+    s = out_w / 3840.0
+    cols = int(round(n ** 0.5))
+    rows = -(-n // cols)
+    tw, th = out_w / cols, out_h / rows
+    size = max(4, int(round(16 * s))) & ~1
+    pad, margin = 24 * s, 64 * s
+    hw, hh = tw - 2 * pad, th - 2 * pad
+    bw, bh = 2400 * s, 240 * s
+    banner = (out_h - bh - 120 * s - margin, 160 * s - margin,
+              out_h - 120 * s + 38 * s + margin, 1200 * s + bw + 38 * s + margin)
+    probes = []
+    for i in range(n):
+        r, c = divmod(i, cols)
+        top = int(r * th + 0.15 * th) & ~1
+        left = int((c + 0.5) * tw - size / 2) & ~1
+        rect = (top, left, top + size, left + size)
+
+        def hits(box):
+            return not (rect[2] <= box[0] or box[2] <= rect[0]
+                        or rect[3] <= box[1] or box[3] <= rect[1])
+
+        path = [(p * (rows - 1) * th + pad - margin, p * (cols - 1) * tw + pad - margin,
+                 p * (rows - 1) * th + pad + hh + margin, p * (cols - 1) * tw + pad + hw + margin)
+                for p in [q / 200 for q in range(201)]]
+        probes.append((top, left, size, hits(banner) or any(hits(b) for b in path)))
+    return probes
+
+
+def edge_scene_wire(out_w, out_h, n, stage):
+    """`renderer_scene(out_w, out_h, n, stage)` as the wire's JSON."""
+    s = out_w / 3840.0
+    cols = int(round(n ** 0.5))
+    rows = -(-n // cols)
+    tw, th = out_w / cols, out_h / rows
+    r, c = (0, 0) if stage == 0 else (rows - 1, cols - 1)
+    pad, bw, bh = 24 * s, 2400 * s, 240 * s
+    highlight = {
+        "type": "view", "id": "highlight", "width": tw - 2 * pad, "height": th - 2 * pad,
+        "top": r * th + pad, "left": c * tw + pad, "background_color": "#FFFFFF28",
+        "border_radius": 16 * s, "border_width": 8 * s, "border_color": "#FFC800FF",
+        "box_shadow": [{"blur_radius": 24 * s, "color": "#000000B4"}],
+        "transition": {"duration_ms": 1000}}
+    banner = {
+        "type": "view", "id": "banner", "width": bw, "height": bh,
+        "top": out_h - bh - 120 * s, "left": (160 if stage == 0 else 1200) * s,
+        "background_color": "#C81E1EE6", "border_radius": 24 * s, "border_width": 4 * s,
+        "border_color": "#FFFFFFFF",
+        "box_shadow": [{"offset_x": 8 * s, "offset_y": 8 * s, "blur_radius": 30 * s,
+                        "color": "#000000A0"}],
+        "transition": {"duration_ms": 1000}}
+    tiles = {"type": "tiles", "background_color": "#101010FF", "margin": 8.0 * s,
+             "children": [{"type": "rescaler", "child": {"type": "input_stream",
+                                                        "input_id": f"input_{i}"}}
+                          for i in range(n)]}
+    return {"type": "view", "background_color": "#000000FF",
+            "children": [tiles, highlight, banner]}
+
+
+class _ApiServer:
+    """The port's HTTP server (`smelter_tpu_torch.server.app`) on an
+    ephemeral port of 127.0.0.1, its aiohttp loop on a thread of this
+    process."""
+
+    def __init__(self, state):
+        self.state, self.port, self._loop = state, None, None
+        started = threading.Event()
+
+        def run():
+            import asyncio
+
+            from aiohttp import web
+
+            from smelter_tpu_torch.server.app import build_app
+
+            self._loop = asyncio.new_event_loop()
+            asyncio.set_event_loop(self._loop)
+            runner = web.AppRunner(build_app(state))
+            self._loop.run_until_complete(runner.setup())
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            self._loop.run_until_complete(site.start())
+            self.port = runner.addresses[0][1]
+            started.set()
+            self._loop.run_forever()
+            self._loop.run_until_complete(runner.cleanup())
+
+        self._thread = threading.Thread(target=run, name="api", daemon=True)
+        self._thread.start()
+        check(started.wait(timeout=30), "edges: the server did not start")
+        self.base = f"http://127.0.0.1:{self.port}"
+
+    def call(self, method, path, body=None):
+        """(status, JSON body) of an API request."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + path, method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, json.loads(resp.read() or b"{}")
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read() or b"{}")
+
+    def stop(self):
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(timeout=30)
+
+
+def _edge_clips(n, w, h, seconds):
+    """Each input's clip, encoded once with the port's codec service (H.264,
+    parameter sets inline, EDGE_BITRATE): its packets, in decode order."""
+    import concurrent.futures
+
+    from smelter_tpu_torch.io.codec import Codec, VideoEncoder
+
+    n_frames = int(seconds * FPS)
+
+    def encode(i):
+        enc = VideoEncoder(Codec.H264, w, h, FPS, bitrate=EDGE_BITRATE, opts="global_header=0")
+        pkts = []
+
+        def drain():
+            while True:
+                p = enc.receive()
+                if p is None or p == "eof":
+                    return
+                pkts.append(p)
+
+        for k in range(n_frames):
+            enc.send(*edge_frame(i, k, w, h), k / FPS)
+            drain()
+        enc.send_eof()
+        drain()
+        enc.close()
+        return pkts
+
+    with concurrent.futures.ThreadPoolExecutor(min(n, os.cpu_count() or 4)) as pool:
+        return list(pool.map(encode, range(n)))
+
+
+def _edge_sender(kind, target, pkts, t0, sent, idx):
+    """Sends one input's packets at 30 fps from t0 (frame k at t0 + k / FPS)
+    over its protocol, through the port's payloaders and sinks; records the
+    send times of its frames in `sent[idx]`."""
+    import socket
+
+    from smelter_tpu_torch.io import rtcp
+    from smelter_tpu_torch.io.rtp import H264Payloader
+
+    times, n_rtp = [], 0
+    if kind in ("rtp_udp", "rtp_tcp"):
+        pay = H264Payloader(ssrc=0x1000 + idx, mtu=1200)
+        if kind == "rtp_udp":
+            sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            dest = ("127.0.0.1", target["port"])
+            send = lambda data: sock.sendto(data, dest)  # noqa: E731
+        else:
+            sock = socket.create_connection(("127.0.0.1", target["port"]), timeout=10)
+            send = lambda data: sock.sendall(len(data).to_bytes(2, "big") + data)  # noqa: E731
+        last_sr = None
+        for k, p in enumerate(pkts):
+            time.sleep(max(0.0, t0 + k / FPS - time.perf_counter()))
+            times.append(time.perf_counter())
+            if kind == "rtp_udp" and (last_sr is None or times[-1] - last_sr >= 1.0):
+                sec, frac = rtcp.ntp_now()
+                send(rtcp.build_sender_report(rtcp.SenderReport(
+                    pay.ssrc, sec, frac, int(round(k / FPS * 90000)), n_rtp, 0)))
+                last_sr = times[-1]
+            for rp in pay.payload(p.data, p.pts_s or 0.0):
+                send(rp.serialize())
+                n_rtp += 1
+        if kind == "rtp_udp":
+            send(rtcp.build_bye([pay.ssrc]))  # the input's end of stream
+        sock.close()
+    else:
+        if kind == "rtmp":
+            from smelter_tpu_torch.io.rtmp import RtmpClientOutput
+
+            sink = RtmpClientOutput(target["url"])
+        else:
+            from smelter_tpu_torch.io.webrtc import WhipClientOutput
+
+            sink = WhipClientOutput(target["url"], bearer_token=target["token"])
+        sink.setup_video(None, b"", FPS, 1)
+        for k, p in enumerate(pkts):
+            time.sleep(max(0.0, t0 + k / FPS - time.perf_counter()))
+            times.append(time.perf_counter())
+            sink.write_video_packet(p)
+        sink.on_done()
+    sent[idx] = times
+
+
+def _edge_analyse(packets, n, out_w, out_h):
+    """Depayloads the output's RTP packets (arrival time, bytes) with the
+    port's H264Depayloader, decodes them with the codec service and returns
+    per frame: its arrival (its last packet), shape, each tile probe's mean
+    (Y, U, V) and input 0's frame index read from its stripes (or None)."""
+    import numpy as np
+
+    from smelter_tpu_torch.io.codec import Codec, VideoDecoder
+    from smelter_tpu_torch.io.rtp import H264Depayloader, RtpPacket
+
+    probes = edge_probes(n, out_w, out_h)
+    cols = int(round(n ** 0.5))
+    tw, th = out_w / cols, out_h / (-(-n // cols))
+    dep, dec = H264Depayloader(), VideoDecoder(Codec.H264)
+    arrivals, frames = {}, []
+
+    def take(f):
+        y, u, v, pts, _ = f
+        tiles = []
+        for top, left, size, _covered in probes:
+            rows, cols = slice(top // 2, (top + size) // 2), slice(left // 2, (left + size) // 2)
+            tiles.append([float(y[top:top + size, left:left + size].mean()),
+                          float(u[rows, cols].mean()), float(v[rows, cols].mean())])
+        # input 0's stripes: the bottom eighth of tile 0, inside its margins
+        row = int(th * 0.93)
+        means = [float(y[row - 2:row + 2, int(tw * (j + 0.5) / EDGE_STRIPES) - 2:
+                       int(tw * (j + 0.5) / EDGE_STRIPES) + 2].mean())
+                 for j in range(EDGE_STRIPES)]
+        white, black = means[0], means[1]
+        index = None
+        if white - black > 20:
+            mid = (white + black) / 2
+            index = sum(int(m > mid) << (7 - b) for b, m in enumerate(means[2:]))
+        frames.append(dict(pts=pts, arrival=arrivals.get(round(pts or 0.0, 4)),
+                           shape=[list(y.shape), list(u.shape)], tiles=tiles, index=index))
+
+    for t, data in packets:
+        pkt = RtpPacket.parse(data)
+        if pkt is None or pkt.payload_type != 96:
+            continue
+        for au in dep.push(pkt):
+            arrivals[round(au.pts_s, 4)] = t  # the packet that completed the access unit
+            dec.send(au.data, au.pts_s)
+            while True:
+                f = dec.receive()
+                if f is None or f == "eof":
+                    break
+                take(f)
+    dec.send_eof()
+    while True:
+        f = dec.receive()
+        if f is None or f == "eof":
+            break
+        take(f)
+    dec.close()
+    return frames
+
+
+def _edge_peer(conn, n, in_w, in_h, out_w, out_h, seconds):
+    """The senders and the receiver, in a child process: encodes the clips,
+    binds the receiver, reports its port, sends every input at 30 fps from
+    the parent's "go", receives the output until "stop", and returns the
+    analysis of what it received."""
+    import socket
+    import traceback
+
+    try:
+        clips = _edge_clips(n, in_w, in_h, seconds)
+        rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 16 << 20)
+        rx.bind(("127.0.0.1", 0))
+        rx.settimeout(0.2)
+        conn.send(("ready", rx.getsockname()[1]))
+        _, targets = conn.recv()
+        packets, stop = [], threading.Event()
+
+        def receive():
+            while not stop.is_set():
+                try:
+                    data = rx.recv(65536)
+                except socket.timeout:
+                    continue
+                packets.append((time.perf_counter(), data))
+
+        receiver = threading.Thread(target=receive, daemon=True)
+        receiver.start()
+        sent = {}
+        t0 = time.perf_counter() + 0.2
+        senders = _threads([(_edge_sender, (targets[i]["kind"], targets[i], clips[i], t0, sent, i))
+                            for i in range(n)])
+        for t in senders:
+            t.join(timeout=seconds + 60)
+        conn.send(("sent", dict(t0=t0, t_end=time.perf_counter(),
+                                senders_alive=sum(t.is_alive() for t in senders),
+                                frames_sent={i: len(sent[i]) for i in sent})))
+        conn.recv()  # "stop": the parent has unregistered the output
+        stop.set()
+        receiver.join(timeout=10)
+        rx.close()
+        frames = _edge_analyse(packets, n, out_w, out_h)
+        conn.send(("result", dict(frames=frames, send0=sent.get(0, []),
+                                  t_end=time.perf_counter(), n_packets=len(packets))))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def _peer_message(conn, peer, timeout, what):
+    """The next message of the edge peer, failing the phase if the peer
+    dies or stays silent for `timeout` s, or reports an error."""
+    deadline = time.perf_counter() + timeout
+    while not conn.poll(0.5):
+        check(peer.is_alive(), f"edges: the peer exited ({peer.exitcode}) before {what}")
+        check(time.perf_counter() < deadline, f"edges: no {what} in {timeout} s")
+    msg = conn.recv()
+    check(msg[0] != "error", f"edges: the peer failed before {what}: {msg[-1]}")
+    return msg
+
+
+class _ReceiveLog:
+    """While installed (a `with` block), counts what the server's receive
+    loops take in, by the protocol of the input whose thread takes it
+    (`kinds`, by input index): the RTP packets that the RTP inputs' and the
+    WHIP sessions' loops parse (`RtpPacket.parse`), and the video messages
+    that the RTMP input parses (`parse_video_tag`)."""
+
+    def __init__(self, kinds):
+        self.kinds, self.counts = kinds, {}
+
+    def _tally(self, unit):
+        name = threading.current_thread().name
+        if name.startswith(("rtp-recv:input_", "rtmp-in:input_")):
+            kind = self.kinds[int(name.rsplit("_", 1)[1])]
+        elif name.startswith("webrtc-"):
+            kind = "whip"
+        else:
+            return
+        self.counts[(kind, unit)] = self.counts.get((kind, unit), 0) + 1
+
+    def __enter__(self):
+        from smelter_tpu_torch.io.rtmp import session
+        from smelter_tpu_torch.io.rtp import RtpPacket
+
+        self._orig = (RtpPacket.__dict__["parse"], session.parse_video_tag)
+        parse, parse_tag = RtpPacket.parse, session.parse_video_tag
+        log = self
+
+        def logged_parse(data):
+            pkt = parse(data)
+            if pkt is not None:
+                log._tally("rtp_packets")
+            return pkt
+
+        def logged_parse_tag(payload):
+            tag = parse_tag(payload)
+            if tag is not None:
+                log._tally("video_messages")
+            return tag
+
+        RtpPacket.parse, session.parse_video_tag = staticmethod(logged_parse), logged_parse_tag
+        return self
+
+    def __exit__(self, *exc):
+        from smelter_tpu_torch.io.rtmp import session
+        from smelter_tpu_torch.io.rtp import RtpPacket
+
+        RtpPacket.parse, session.parse_video_tag = self._orig
+        return False
+
+    def per_second(self, seconds):
+        """{protocol: {unit: count / seconds}}."""
+        out = {}
+        for (kind, unit), n in sorted(self.counts.items()):
+            out.setdefault(kind, {})[f"{unit}_per_s"] = n / seconds
+        return out
+
+
+class _DecoderLog:
+    """While installed (a `with` block), every `VideoDecoder` of the port's
+    codec service records the pts it is sent and the sends made before each
+    frame it returns: a decoder's delay in frames, and the frames it held
+    back at the end of its stream (sent, never returned)."""
+
+    def __enter__(self):
+        from smelter_tpu_torch.io import codec
+
+        self.decoders, cls = [], codec.VideoDecoder
+        self._orig = (cls.__init__, cls.send, cls.receive)
+        init, send, receive = self._orig
+        log = self
+
+        def logged_init(dec, *args, **kw):
+            init(dec, *args, **kw)
+            dec._edge_log = dict(thread=threading.current_thread().name, sent=0, out=0,
+                                 delays=[])
+            log.decoders.append(dec._edge_log)
+
+        def logged_send(dec, data, pts_s, *args, **kw):
+            out = send(dec, data, pts_s, *args, **kw)
+            dec._edge_log["sent"] += 1
+            return out
+
+        def logged_receive(dec, *args, **kw):
+            f = receive(dec, *args, **kw)
+            if f is not None and f != "eof":
+                entry = dec._edge_log
+                entry["out"] += 1
+                entry["delays"].append(entry["sent"] - entry["out"])
+            return f
+
+        cls.__init__, cls.send, cls.receive = logged_init, logged_send, logged_receive
+        return self
+
+    def __exit__(self, *exc):
+        from smelter_tpu_torch.io import codec
+
+        codec.VideoDecoder.__init__, codec.VideoDecoder.send, codec.VideoDecoder.receive = (
+            self._orig)
+        return False
+
+
+def edges_unavailable():
+    """Why the edges phase cannot run here, or None: the codec service must
+    load (FFmpeg's shared libraries) and encode and decode H.264. One
+    explicit probe; nothing inside the phase is caught."""
+    from smelter_tpu_torch.io import codec
+
+    try:
+        caps = codec.caps()
+    except RuntimeError as exc:
+        return str(exc)
+    if not (caps["h264_decode"] and caps["h264_encode"]):
+        return f"the codec service has no H.264 encoder and decoder: {caps}"
+    return None
+
+
+def edges_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h=OUT_H,
+                seconds=EDGE_SECONDS, update_at=EDGE_UPDATE_AT):
+    """Phase 12: the port's server (`smelter_tpu_torch.server.app`) in this
+    process, in real time (the renderer captures new structures in the
+    background), composing n 1080p H.264 inputs that a child process sends
+    over the network: n - 3 RTP over UDP (with RTCP sender reports), one RTP
+    over TCP, one RTMP (the port's RtmpClientOutput) and one WHIP (the
+    port's WhipClientOutput), each registered over HTTP, 30 fps for
+    `seconds`; `renderer_scene` as wire JSON, 4K H.264 out over RTP/UDP to
+    the child, which depayloads and decodes it; at `update_at` s the
+    overlays move (stage 1, a one-second transition). The device is the
+    server's default (the card; SMELTER_DEVICE=cpu for a rehearsal).
+
+    Gated: every registration, the update and the unregisters answer 200
+    with the reference's body; no input ends and no OUTPUT_ERROR fires
+    before the senders finish; the output decodes to out_w x out_h frames,
+    at least 15 a second; from the first frame in which every tile probe
+    no overlay can reach shows its input's colour (mean Y, U, V within 6),
+    every frame received before the senders finished shows them, and every
+    tile shows its input's colour in some frame; on the card, K1 and K2
+    once in every render that was not frozen (its own launches, on the
+    renderer thread: a background capture's warm-up counts on its thread),
+    K3 in a render after the update and in none before, and no
+    synchronising call on the renderer thread in a render that replayed a
+    graph; /status lists nothing after the unregisters. Recorded: what the
+    server's receive loops take in per second, by protocol (RTP packets of
+    the RTP and WHIP inputs, video messages of the RTMP input), the
+    launches that background captures made, frames/s received, the latency
+    from an input 0 frame's send to the arrival of the first output frame
+    that shows its index, each server decoder's delay in frames and the
+    frames it held back at the end of its stream, the render, fetch-host
+    and encode spans, the card's busy share over the window's last second
+    and the frames frozen by the update. Returns (the kernel launches of
+    the run or None when skipped, the recorded numbers)."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+
+    why = edges_unavailable()
+    if why is not None:
+        out = {"skipped": why}
+        print(json.dumps({"edges": out}))
+        return None, out
+    kinds = edge_protocols(n)
+
+    from smelter_tpu_torch.config import Config, LoggerConfig
+    from smelter_tpu_torch.core.types import Framerate
+    from smelter_tpu_torch.server.app import ApiState
+    from smelter_tpu_torch.utils import tracing
+
+    t_run = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    peer = ctx.Process(target=_edge_peer, name="edge-peer", daemon=True,
+                       args=(child_conn, n, in_w, in_h, out_w, out_h, seconds))
+    peer.start()
+    if on_card:
+        # the process's first profiler start initialises CUPTI for seconds
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+    state = ApiState(Config(output_framerate=Framerate(FPS), ahead_of_time_processing=False,
+                            never_drop_output_frames=False,
+                            logger=LoggerConfig(level="warning")))
+    check(state.pipeline.renderer.options.async_compile,
+          "edges: a live server must capture in the background")
+    log = RenderLog(state.pipeline.renderer, keep_calls=False)
+    server = _ApiServer(state)
+    targets = []
+    decoder_log = _DecoderLog().__enter__()
+    receive_log = _ReceiveLog(kinds).__enter__()
+    try:
+        for i, kind in enumerate(kinds):
+            body = {"rtp_udp": {"type": "rtp_stream", "port": 0, "transport_protocol": "udp",
+                                "video": {"decoder": "ffmpeg_h264"}},
+                    "rtp_tcp": {"type": "rtp_stream", "port": 0,
+                                "transport_protocol": "tcp_server",
+                                "video": {"decoder": "ffmpeg_h264"}},
+                    "rtmp": {"type": "rtmp_server", "app": "live", "stream_key": "key"},
+                    "whip": {"type": "whip_server"}}[kind]
+            status, reply = server.call("POST", f"/api/input/input_{i}/register", body)
+            check(status == 200, f"edges: input_{i} ({kind}): {status} {reply}")
+            if kind.startswith("rtp"):
+                check(sorted(reply) == ["port"], f"edges: input_{i}: {reply}")
+                targets.append({"kind": kind, "port": reply["port"]})
+            elif kind == "rtmp":
+                check(sorted(reply) == ["port"], f"edges: input_{i}: {reply}")
+                targets.append({"kind": kind,
+                                "url": f"rtmp://127.0.0.1:{reply['port']}/live/key"})
+            else:
+                check(sorted(reply) == ["bearer_token", "endpoint_route"]
+                      and reply["endpoint_route"] == f"/whip/input_{i}", f"edges: {reply}")
+                targets.append({"kind": kind, "url": server.base + reply["endpoint_route"],
+                                "token": reply["bearer_token"]})
+        rx_port = _peer_message(conn, peer, 300, "the senders' start")[1]
+        status, reply = server.call("POST", "/api/output/out/register", {
+            "type": "rtp_stream", "ip": "127.0.0.1", "port": rx_port,
+            "transport_protocol": "udp",
+            "video": {"resolution": {"width": out_w, "height": out_h},
+                      "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
+                      "initial": {"root": edge_scene_wire(out_w, out_h, n, 0)}}})
+        check((status, reply) == (200, {}), f"edges: output: {status} {reply}")
+        scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+        tally0 = dict(_THREAD_LAUNCHES)
+        tracing.reset()
+        status, reply = server.call("POST", "/api/start", {})
+        check((status, reply) == (200, {}), f"edges: start: {status} {reply}")
+        with log.capture_syncs() if on_card else contextlib.nullcontext():
+            conn.send(("go", targets))
+            t_go = time.perf_counter()
+            time.sleep(max(0.0, t_go + update_at - time.perf_counter()))
+            t_update = time.perf_counter()
+            status, reply = server.call("POST", "/api/output/out/update",
+                                        {"video": {"root": edge_scene_wire(out_w, out_h, n, 1)}})
+            check((status, reply) == (200, {}), f"edges: update: {status} {reply}")
+            t_updated = time.perf_counter()
+            time.sleep(max(0.0, t_go + seconds - 1.0 - time.perf_counter()))
+            # no sender has finished yet: each sends its last frame at
+            # t_go + 0.2 + (seconds * FPS - 1) / FPS, in the child
+            events_live = [(e.kind, e.entity_id) for e in state.pipeline.events.history()]
+            prof = profile(activities=[ProfilerActivity.CUDA if on_card
+                                       else ProfilerActivity.CPU])
+            prof.start()
+            t_prof = time.perf_counter()
+            time.sleep(max(0.0, t_go + seconds - time.perf_counter()))
+            if on_card:
+                torch.cuda.synchronize()
+            prof_span = time.perf_counter() - t_prof
+            sent = _peer_message(conn, peer, 120, "the senders' end")[1]
+            time.sleep(EDGE_TAIL_S)
+        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                    "sdf_layers": sdf_layers.LAUNCHES}
+        # the warm-ups of the structures captured on background threads
+        capture_launches = sum(v - tally0.get(k, 0) for k, v in _THREAD_LAUNCHES.items()
+                               if k[1] not in log.threads)
+        spans = tracing.report()
+        status, reply = server.call("POST", "/api/output/out/unregister", {})
+        check((status, reply) == (200, {}), f"edges: output unregister: {status} {reply}")
+        for i in range(n):
+            status, reply = server.call("POST", f"/api/input/input_{i}/unregister", {})
+            check((status, reply) == (200, {}), f"edges: input_{i} unregister: {status} {reply}")
+        status, st = server.call("GET", "/status")
+        check(status == 200 and st["inputs"] == [] and st["outputs"] == [],
+              f"edges: /status after the unregisters: {st}")
+        conn.send(("stop",))
+        result = _peer_message(conn, peer, 300, "the receiver's report")[1]
+    finally:
+        receive_log.__exit__(None, None, None)
+        decoder_log.__exit__(None, None, None)
+        state.pipeline.close()
+        server.stop()
+        peer.join(timeout=30)
+        if peer.is_alive():
+            peer.kill()
+            peer.join(timeout=10)
+    # the profiler stops once the server's threads are gone (`profile_busy`)
+    prof.stop()
+    check(peer.exitcode == 0, f"edges: the peer exited with {peer.exitcode}")
+    check(sent["senders_alive"] == 0, "edges: a sender hung")
+
+    bad = [e for e in events_live if e[0] == "OUTPUT_ERROR" or e[0].endswith("_EOS")]
+    check(not bad, f"edges: events before the senders finished: {bad}")
+    frames = result["frames"]
+    t0, t_end = sent["t0"], sent["t_end"]
+    check(all(f["shape"] == [[out_h, out_w], [out_h // 2, out_w // 2]] for f in frames),
+          "edges: a received frame of another size")
+    check(len(frames) >= 15 * seconds,
+          f"edges: {len(frames)} frames received in {seconds} s, fewer than 15 a second")
+    probes = edge_probes(n, out_w, out_h)
+    colours = [edge_colour(i) for i in range(n)]
+
+    def shows(f, i):
+        return all(abs(a - b) <= 6 for a, b in zip(f["tiles"][i], colours[i]))
+
+    free = [i for i, p in enumerate(probes) if not p[3]]
+    check(free, "edges: every tile probe lies under an overlay's path")
+    live = [f for f in frames if f["arrival"] is not None and f["arrival"] < t_end]
+    first = next((k for k, f in enumerate(live) if all(shows(f, i) for i in free)), None)
+    check(first is not None, "edges: no frame shows every uncovered tile's input")
+    off = [(k, i, [round(x, 1) for x in live[k]["tiles"][i]]) for k in range(first, len(live))
+           for i in free if not shows(live[k], i)]
+    check(not off, f"edges: tiles off their input's colour (frame, tile, YUV): {off[:8]}")
+    never = [i for i in range(n) if not any(shows(f, i) for f in frames)]
+    check(not never, f"edges: tiles that never show their input's colour: {never}")
+
+    per = log.frames
+    # the renders of the output's frames that were not frozen; their own
+    # launches, on the renderer thread (background captures' warm-ups count
+    # on their own threads)
+    rendered = [f for f in per if f["outputs"] and not f["frozen"]]
+    frozen_after = [f for f in per if f["frozen"] and f["t"] > t_updated]
+    k3_before = [f["pts"] for f in per if f["k3"] and f["t"] < t_update]
+    if on_card:
+        check(rendered and all(f["k1"] == 1 and f["k2"] == 1 for f in rendered),
+              f"edges: K1/K2 not once per render: {[(f['k1'], f['k2']) for f in rendered]}")
+        check(any(f["k3"] for f in rendered if f["t"] > t_updated),
+              "edges: K3 never ran on the update's animating frames")
+        check(not k3_before, f"edges: K3 ran before the update, pts {k3_before}")
+        replays = {k for k, f in enumerate(per) if not f["built"] and not f["frozen"]}
+        synced = sorted({k for name, k in log.syncs if name == "renderer" and k in replays})
+        check(not synced, f"edges: the renderer thread synchronised on replays {synced}")
+
+    arrivals = sorted(f["arrival"] for f in frames if f["arrival"] is not None)
+    in_window = [t for t in arrivals if t0 <= t <= t_end]
+    fps = ((len(in_window) - 1) / (in_window[-1] - in_window[0])
+           if len(in_window) > 1 else 0.0)
+    first_show = {}
+    for f in frames:
+        if f["index"] is not None and f["arrival"] is not None:
+            first_show.setdefault(f["index"], f["arrival"])
+    send0 = result["send0"]
+    lat = sorted((t - send0[k]) * 1e3 for k, t in first_show.items() if k < len(send0))
+
+    def span(name):
+        s = spans.get(name, {})
+        return {k: s.get(k) for k in ("count", "p50_ms", "p95_ms", "avg_ms")}
+
+    busy = profile_busy(prof, prof_span) if on_card else None
+    decoders = [dict(thread=d["thread"], sent=d["sent"], decoded=d["out"],
+                     held_at_end=d["sent"] - d["out"],
+                     delay_frames_max=max(d["delays"], default=None),
+                     delay_frames_p50=(statistics.median(d["delays"]) if d["delays"] else None))
+                for d in decoder_log.decoders]
+    out = dict(inputs=n, protocols={k: kinds.count(k) for k in sorted(set(kinds))},
+               out=f"{out_w}x{out_h}", seconds=seconds,
+               received_per_s=receive_log.per_second(max(t_end - t0, 1e-9)),
+               capture_launches=capture_launches,
+               frames_received=len(frames), fps_received=fps,
+               latency_p50_ms=statistics.median(lat) if lat else None,
+               latency_p95_ms=lat[int(0.95 * (len(lat) - 1))] if lat else None,
+               latency_frames=len(lat), first_all_tiles_frame=first,
+               frozen_by_update=len(frozen_after), renders=len(per), rendered=len(rendered),
+               render=span("render.frame"), fetch_host=span("render.fetch_host"),
+               encode=span("codec.video_encode"), device_busy=busy, busy_window_s=prof_span,
+               decoders=decoders, frames_sent=sent["frames_sent"],
+               run_s=time.perf_counter() - t_run, card=stamp)
+    print(f"edges {n}x{in_w}x{in_h}->{out_w}x{out_h}: launches {launches}")
+    print(json.dumps({"edges": out}))
+    return launches, out
+
+
+def profile_busy(prof, span_s):
+    """The card's busy share over the first `span_s` seconds of a stopped
+    torch.profiler trace: the device time of its kernels and copies, each
+    clipped to that span, over the span. The trace may run past the span:
+    stopping a profiler while another thread launches work on the card
+    (a CUDA graph replayed by a renderer thread) can deadlock the two (seen
+    on an H100: the stopping thread in `profiler.stop`, the renderer in
+    `CUDAGraph.replay`), so a live run stops it once its threads are gone."""
+    import torch
+
+    end_us = span_s * 1e6
+    busy_us = sum(max(0.0, min(e.time_range.end, end_us) - max(e.time_range.start, 0.0))
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0)
+    return busy_us / end_us
+
+
 def host_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Median host wall time of one call, in ms."""
     for _ in range(warmup):
@@ -1989,6 +2822,9 @@ def main() -> int:
     from smelter_tpu_torch.render.capture import capture
     from smelter_tpu_torch.render.program import _pack_frame_buf
 
+    # a hang ends the run with every thread's stack on stderr, inside the
+    # time limit it runs under
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     print(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2155,6 +2991,13 @@ def main() -> int:
     node_launches, nodes = nodes_phase(dev, render_frames, stamp)
     capture_stats["nodes"] = nodes["captured_programs"]
 
+    # phase 12: live network edges (RTP, RTMP, WHIP in; RTP out) through the server
+    t_phase = time.perf_counter()
+    edge_launches, edges = edges_phase(dev, stamp)
+    if edge_launches is not None:
+        check(all(edge_launches.values()), f"edges: a kernel never launched: {edge_launches}")
+    print(f"edges phase: {time.perf_counter() - t_phase:.1f} s")
+
     # phase 9: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
     # synchronised call (cuda_ms), "plain" = the plain version, one call;
@@ -2297,7 +3140,9 @@ def main() -> int:
          "launches_by_path": {"renderer": render_launches["scene_assembly"],
                               "animated": anim_launches["scene_assembly"],
                               "pipeline": pipe_launches["scene_assembly"],
-                              "nodes": node_launches["scene_assembly"]}, "max_abs_err": k1_err,
+                              "nodes": node_launches["scene_assembly"],
+                              "edges": edge_launches and edge_launches["scene_assembly"]},
+         "max_abs_err": k1_err,
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": None, "call_ms": k1_main["call_ms"],
@@ -2309,7 +3154,9 @@ def main() -> int:
          "launches_by_path": {"renderer": render_launches["yuv_out"],
                               "animated": anim_launches["yuv_out"],
                               "pipeline": pipe_launches["yuv_out"],
-                              "nodes": node_launches["yuv_out"]}, "max_abs_err": k2_err,
+                              "nodes": node_launches["yuv_out"],
+                              "edges": edge_launches and edge_launches["yuv_out"]},
+         "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
          "bytes": k2_bytes},
@@ -2320,7 +3167,9 @@ def main() -> int:
          "launches_by_path": {"renderer": render_launches["sdf_layers"],
                               "animated": anim_launches["sdf_layers"],
                               "pipeline": pipe_launches["sdf_layers"],
-                              "nodes": node_launches["sdf_layers"]}, "max_abs_err": k3_err,
+                              "nodes": node_launches["sdf_layers"],
+                              "edges": edge_launches and edge_launches["sdf_layers"]},
+         "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": None, "call_ms": k3_main["call_ms"],

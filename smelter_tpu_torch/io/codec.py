@@ -8,34 +8,29 @@ host; decoded YUV420 frames go to numpy, and from there to the card in the
 renderer's pinned upload.
 
 The port never writes under `native/`: it loads the committed
-``native/libsmelter_io.so``. Where that library is missing, or older than
-its source, the source in ``native/smelter_io/`` is compiled into the
-git-ignored ``smelter_tpu_torch/_build/`` (named by a hash of the source
-and the flags) and that library is loaded. A library that cannot load (the
-FFmpeg shared libraries absent, say) raises with the loader's message.
+``native/libsmelter_io.so``. Where that library is missing, older than its
+source, or refused by the loader (linked against another FFmpeg's sonames,
+say), the source in ``native/smelter_io/`` is compiled into the git-ignored
+``smelter_tpu_torch/_build/`` and that library is loaded
+(`smelter_tpu_torch.io.native_lib`). When both fail (the FFmpeg shared
+libraries absent, say) it raises with both messages.
 """
 
 from __future__ import annotations
 
 import ctypes
 import enum
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libsmelter_io.so")
-_SRC_DIR = os.path.join(_NATIVE_DIR, "smelter_io")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-# the flags and libraries of native/Makefile's libsmelter_io.so rule
-_CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+from smelter_tpu_torch.io import native_lib
+
+# the sources and libraries of native/Makefile's libsmelter_io.so rule
+_SOURCES = ("smelter_io/smelter_io.cpp", "smelter_io/smelter_io.h")
 _LD_LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale", "-lswresample")
 
 _lib = None
@@ -112,51 +107,12 @@ class Packet:
     is_corrupt: bool = False
 
 
-def _build_lib() -> str:
-    """Compile native/smelter_io/ into _build/ (never under native/) and
-    return the library's path; an unchanged source reuses its library."""
-    src = os.path.join(_SRC_DIR, "smelter_io.cpp")
-    h = hashlib.sha256(" ".join(_CXX_FLAGS + _LD_LIBS).encode())
-    for name in ("smelter_io.cpp", "smelter_io.h"):
-        with open(os.path.join(_SRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    lib = os.path.join(_BUILD_DIR, f"libsmelter_io-{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
-        tmp = os.path.join(tmpdir, os.path.basename(lib))
-        cmd = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, "-o", tmp, src, *_LD_LIBS]
-        out = subprocess.run(cmd, capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(
-                f"building the codec service failed ({out.returncode}): "
-                f"{' '.join(cmd)}\n{out.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
-    return lib
-
-
-def _library_path() -> str:
-    """The committed library unless it is missing or older than its source
-    (the reference's rule), else one built into _build/."""
-    src = os.path.join(_SRC_DIR, "smelter_io.cpp")
-    if os.path.exists(_LIB_PATH) and not (
-        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)
-    ):
-        return _LIB_PATH
-    return _build_lib()
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        path = _library_path()
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError as exc:
-            raise RuntimeError(f"the codec service {path} cannot load: {exc}") from exc
+        lib = native_lib.load("smelter_io", _SOURCES, _LD_LIBS)
         lib.sm_last_error.restype = ctypes.c_char_p
         lib.sm_caps.restype = ctypes.c_uint32
         lib.sm_demux_open.argtypes = [ctypes.c_char_p]

@@ -14,11 +14,13 @@ enum shapes (`src/state.rs:20-33`): `{}` for ok, `{"video_duration_ms": ...}`
 for registered MP4s, error bodies `{"error_code", "message", ...}`.
 
 The port's server composes on the CUDA card; ``SMELTER_DEVICE=cpu`` runs
-it on the CPU, and without a card it refuses to start. It carries MP4 and
-HLS inputs and outputs, and the shader, image, web-renderer and font
-resources. The other protocols (RTP, RTMP, WHIP/WHEP, MoQ, V4L2, DeckLink;
-ROADMAP Queue 1 item 10) answer NOT_IMPLEMENTED (501) with the reference's
-error body, after validating the request, and register nothing.
+it on the CPU, and without a card it refuses to start. It carries the
+reference's MP4, HLS, RTP, RTMP(S), WHIP/WHEP, V4L2 and DeckLink inputs and
+outputs, the /whip, /whep and /preview endpoints, and the shader, image,
+web-renderer and font resources. MoQ (the `moq_server` and `moq_client`
+inputs, the `moq_client` output; ROADMAP Queue 1 item 10) is not ported: it
+answers NOT_IMPLEMENTED (501) with the reference's error body, after
+validating the request, and registers nothing.
 """
 
 from __future__ import annotations
@@ -92,6 +94,13 @@ class ApiState:
     def __init__(self, config: Config) -> None:
         self.config = config
         self.lock = threading.Lock()
+        from smelter_tpu_torch.io.webrtc.session import configure_udp
+
+        configure_udp(
+            mux_port=config.webrtc_udp_mux_port,
+            port_range=config.webrtc_udp_port_range,
+            nat_1to1_ips=config.webrtc_nat_1to1_ips,
+        )
         cpu = os.environ.get("SMELTER_DEVICE", "").strip().lower() == "cpu"
         self.device = "cpu" if cpu else None
         self.pipeline = self._new_pipeline()
@@ -216,6 +225,215 @@ def build_app(state: ApiState) -> web.Application:
                     )
                     state.input_kinds[input_id] = "hls"
                     return {}
+                if isinstance(spec, api.RtpInput):
+                    from smelter_tpu_torch.io.rtp import register_rtp_input
+
+                    port = register_rtp_input(state.pipeline, input_id, spec)
+                    state.input_kinds[input_id] = "rtp"
+                    return {"port": port}
+                if isinstance(spec, api.RtmpInput):
+                    from smelter_tpu_torch.io.rtmp import RtmpInputOptions, RtmpServerInput
+                    from smelter_tpu_torch.pipeline.instance import RegisterInputOptions
+
+                    # SMELTER_RTMP_TLS_CERT_FILE/KEY_FILE turn the server
+                    # RTMPS (reference config.rs:335-351 rtmp_tls_config)
+                    tls_cert = state.config.rtmp_tls_cert_file
+                    tls_key = state.config.rtmp_tls_key_file
+                    source = RtmpServerInput(
+                        RtmpInputOptions(
+                            port=spec.port or 0,
+                            app=spec.app or "",
+                            stream_key=spec.stream_key or "",
+                            tls=bool(tls_cert and tls_key),
+                            tls_cert_path=tls_cert,
+                            tls_key_path=tls_key,
+                        )
+                    )
+                    sc = spec.side_channel or {}
+                    state.pipeline.register_input(
+                        input_id,
+                        source,
+                        RegisterInputOptions(
+                            required=bool(spec.required),
+                            offset=(spec.offset_ms / 1000.0)
+                            if spec.offset_ms is not None
+                            else None,
+                            # reference applies a 2s buffer rule for RTMP
+                            # inputs (queue.rs:110-115)
+                            buffer_duration=2.0,
+                            side_channel_video=bool(sc.get("video")),
+                            side_channel_audio=bool(sc.get("audio")),
+                            side_channel_dir=state.config.side_channel_socket_dir or None,
+                            side_channel_delay=float(sc.get("delay_ms") or 0.0) / 1000.0,
+                        ),
+                    )
+                    state.input_kinds[input_id] = "rtmp"
+                    return {"port": source.port}
+                if isinstance(spec, api.DeckLinkInput):
+                    from smelter_tpu_torch.io.decklink import (
+                        DeckLinkInput,
+                        list_decklink_devices,
+                    )
+                    from smelter_tpu_torch.pipeline.instance import RegisterInputOptions
+
+                    # device selection by display_name / persistent_id
+                    # (reference decklink/find_device.rs), else index
+                    subdevice = spec.subdevice_index or 0
+                    if spec.display_name or spec.persistent_id:
+                        matches = [
+                            d for d in list_decklink_devices()
+                            if (spec.display_name is None
+                                or d.name == spec.display_name)
+                            and (spec.persistent_id is None
+                                 or d.persistent_id == spec.persistent_id)
+                        ]
+                        if not matches:
+                            raise ApiError(
+                                "DECKLINK_DEVICE_NOT_FOUND",
+                                "no DeckLink device matches "
+                                f"display_name={spec.display_name!r} "
+                                f"persistent_id={spec.persistent_id!r}",
+                                404,
+                            )
+                        subdevice = matches[0].subdevice_index
+                    source = DeckLinkInput(
+                        subdevice_index=subdevice,
+                        enable_audio=bool(spec.enable_audio),
+                    )
+                    state.pipeline.register_input(
+                        input_id, source,
+                        RegisterInputOptions(required=bool(spec.required)),
+                    )
+                    state.input_kinds[input_id] = "decklink"
+                    return {}
+                if isinstance(spec, api.V4l2Input):
+                    from smelter_tpu_torch.io.v4l2 import V4l2Input, V4l2InputOptions
+                    from smelter_tpu_torch.pipeline.instance import RegisterInputOptions
+
+                    if spec.format and spec.format.lower() not in (
+                        "yuyv", "nv12",
+                    ):
+                        raise ApiError(
+                            "V4L2_FORMAT_UNSUPPORTED",
+                            f"v4l2 format {spec.format!r} not supported "
+                            "(yuyv | nv12)", 400,
+                        )
+                    res = spec.resolution
+                    source = V4l2Input(
+                        V4l2InputOptions(
+                            device_path=spec.path or spec.device_path
+                            or "/dev/video0",
+                            width=res.width if res else 1280,
+                            height=res.height if res else 720,
+                            framerate=spec.framerate,
+                            format=(spec.format or "yuyv").lower(),
+                        )
+                    )
+                    sc = spec.side_channel or {}
+                    state.pipeline.register_input(
+                        input_id,
+                        source,
+                        RegisterInputOptions(
+                            required=bool(spec.required),
+                            offset=(spec.offset_ms / 1000.0)
+                            if spec.offset_ms is not None
+                            else None,
+                            side_channel_video=bool(sc.get("video")),
+                            side_channel_audio=bool(sc.get("audio")),
+                            side_channel_dir=state.config.side_channel_socket_dir or None,
+                            side_channel_delay=float(sc.get("delay_ms") or 0.0) / 1000.0,
+                        ),
+                    )
+                    state.input_kinds[input_id] = "v4l2"
+                    return {}
+                if isinstance(spec, api.WhipInput):
+                    import secrets
+
+                    from smelter_tpu_torch.io.webrtc import WhipServerInput
+                    from smelter_tpu_torch.pipeline.instance import RegisterInputOptions
+
+                    token = spec.bearer_token or secrets.token_urlsafe(24)
+                    # decoder_preferences restricts AND orders negotiation
+                    # (reference offer_codec_filter.rs)
+                    prefs = ((spec.video or {}).get("decoder_preferences")
+                             or []) if spec.video else []
+                    codec_map = {"ffmpeg_h264": "h264", "vulkan_h264": "h264",
+                                 "ffmpeg_vp8": "vp8", "ffmpeg_vp9": "vp9",
+                                 "ffmpeg_av1": "av1",
+                                 "any": None}
+                    codecs = []
+                    for pref in prefs:
+                        mapped = codec_map.get(str(pref), "")
+                        if mapped is None:   # "any": no restriction
+                            codecs = None
+                            break
+                        if mapped and mapped not in codecs:
+                            codecs.append(mapped)
+                    source = WhipServerInput(
+                        bearer_token=token,
+                        jitter_window_s=(spec.buffer_size_ms / 1000.0)
+                        if spec.buffer_size_ms is not None else None,
+                        video_codecs=codecs or None,
+                    )
+                    sc = spec.side_channel or {}
+                    state.pipeline.register_input(
+                        input_id,
+                        source,
+                        RegisterInputOptions(
+                            required=bool(spec.required),
+                            offset=(spec.offset_ms / 1000.0)
+                            if spec.offset_ms is not None
+                            else None,
+                            side_channel_video=bool(sc.get("video")),
+                            side_channel_audio=bool(sc.get("audio")),
+                            side_channel_dir=state.config.side_channel_socket_dir or None,
+                            side_channel_delay=float(sc.get("delay_ms") or 0.0) / 1000.0,
+                        ),
+                    )
+                    state.input_kinds[input_id] = "whip"
+                    return {
+                        "bearer_token": token,
+                        "endpoint_route": f"/whip/{input_id}",
+                    }
+                if isinstance(spec, api.WhepInput):
+                    from smelter_tpu_torch.io.webrtc import WhepClientInput
+                    from smelter_tpu_torch.pipeline.instance import RegisterInputOptions
+
+                    # decoder_preferences (reference whep.rs): first
+                    # supported preference becomes the offered codec
+                    prefs = ((spec.video or {}).get("decoder_preferences")
+                             or []) if spec.video else []
+                    codec = "h264"
+                    for pref in prefs:
+                        mapped = {"ffmpeg_h264": "h264", "vulkan_h264": "h264",
+                                  "ffmpeg_vp8": "vp8", "ffmpeg_vp9": "vp9",
+                                  "ffmpeg_av1": "av1"}.get(str(pref))
+                        if mapped:
+                            codec = mapped
+                            break
+                    source = WhepClientInput(
+                        spec.endpoint_url, bearer_token=spec.bearer_token,
+                        video_codec=codec,
+                        jitter_window_s=(spec.buffer_size_ms / 1000.0)
+                        if spec.buffer_size_ms is not None else None,
+                    )
+                    sc = spec.side_channel or {}
+                    state.pipeline.register_input(
+                        input_id,
+                        source,
+                        RegisterInputOptions(
+                            required=bool(spec.required),
+                            offset=(spec.offset_ms / 1000.0)
+                            if spec.offset_ms is not None
+                            else None,
+                            side_channel_video=bool(sc.get("video")),
+                            side_channel_audio=bool(sc.get("audio")),
+                            side_channel_dir=state.config.side_channel_socket_dir or None,
+                            side_channel_delay=float(sc.get("delay_ms") or 0.0) / 1000.0,
+                        ),
+                    )
+                    state.input_kinds[input_id] = "whep"
+                    return {}
                 raise _not_ported(f"input protocol {spec.type!r}", PROTOCOL_EDGES)
 
             result = await _run_blocking(do)
@@ -317,6 +535,87 @@ def build_app(state: ApiState) -> web.Application:
                                          ffmpeg_options=spec.ffmpeg_options)
                     state.pipeline.register_output(output_id, sink, video, audio)
                     state.output_kinds[output_id] = "hls"
+                    return {}
+                if isinstance(spec, api.RtpOutput):
+                    from smelter_tpu_torch.io.rtp import register_rtp_output
+
+                    register_rtp_output(state.pipeline, output_id, spec)
+                    state.output_kinds[output_id] = "rtp"
+                    return {}
+                if isinstance(spec, api.RtmpOutput):
+                    from smelter_tpu_torch.io.rtmp import RtmpClientOutput
+
+                    video = (
+                        convert.output_video_options(spec.video, "rtmp")
+                        if spec.video
+                        else None
+                    )
+                    audio = (
+                        convert.output_audio_options(spec.audio)
+                        if spec.audio
+                        else None
+                    )
+                    # rtmps:// cert verification is on by default; private
+                    # deployments with self-signed endpoints can opt out
+                    # (same spirit as FFmpeg's tls_verify)
+                    insecure = os.environ.get(
+                        "SMELTER_RTMPS_INSECURE", ""
+                    ).lower() in ("1", "true", "yes")
+                    sink = RtmpClientOutput(spec.url, tls_verify=not insecure)
+                    state.pipeline.register_output(output_id, sink, video, audio)
+                    state.output_kinds[output_id] = "rtmp"
+                    return {}
+                if isinstance(spec, (api.WhepOutput, api.WhipOutput)):
+                    video = (
+                        convert.whip_output_video_options(spec.video, "webrtc")
+                        if spec.video
+                        else None
+                    )
+                    audio = (
+                        convert.whip_output_audio_options(spec.audio)
+                        if spec.audio
+                        else None
+                    )
+                    if video is not None:
+                        extra = video.encoder.ffmpeg_options
+                        import dataclasses
+
+                        video.encoder = dataclasses.replace(
+                            video.encoder,
+                            ffmpeg_options=(extra + "," if extra else "")
+                            + "global_header=0",
+                        )
+                    if audio is not None and audio.encoder.codec != "opus":
+                        from smelter_tpu_torch.pipeline.output import AudioEncoderOptions
+
+                        audio.encoder = AudioEncoderOptions(
+                            codec="opus", sample_rate=48000
+                        )
+                    if isinstance(spec, api.WhepOutput):
+                        import secrets
+
+                        from smelter_tpu_torch.io.webrtc import WhepServerOutput
+
+                        token = spec.bearer_token or secrets.token_urlsafe(24)
+                        sink = WhepServerOutput(
+                            bearer_token=token,
+                            video_codec=(video.encoder.codec if video
+                                         else "h264"),
+                        )
+                        state.pipeline.register_output(output_id, sink, video, audio)
+                        state.output_kinds[output_id] = "whep"
+                        return {
+                            "bearer_token": token,
+                            "endpoint_route": f"/whep/{output_id}",
+                        }
+                    from smelter_tpu_torch.io.webrtc import WhipClientOutput
+
+                    sink = WhipClientOutput(
+                        spec.endpoint_url, bearer_token=spec.bearer_token,
+                        video_codec=(video.encoder.codec if video else "h264"),
+                    )
+                    state.pipeline.register_output(output_id, sink, video, audio)
+                    state.output_kinds[output_id] = "whip"
                     return {}
                 raise _not_ported(f"output protocol {spec.type!r}", PROTOCOL_EDGES)
 
@@ -637,15 +936,117 @@ def build_app(state: ApiState) -> web.Application:
             state.pipeline.events.unsubscribe(sub)
         return ws
 
-    async def webrtc_unported(request: web.Request) -> web.Response:
-        return _error_response(
-            _not_ported("WebRTC (WHIP/WHEP signalling, the WHEP preview page)",
-                        PROTOCOL_EDGES))
+    async def whip_endpoint(request: web.Request) -> web.Response:
+        input_id = request.match_info["id"]
+        try:
+            from smelter_tpu_torch.io.webrtc import WhipServerInput
 
-    for path in ("/whip/{id}", "/whep/{id}"):
-        app.router.add_post(path, webrtc_unported)
-        app.router.add_route("PATCH", path + "/session", webrtc_unported)
-        app.router.add_route("DELETE", path + "/session", webrtc_unported)
+            source = state.pipeline._inputs.get(input_id)
+            if not isinstance(source, WhipServerInput):
+                return _error_response(
+                    ApiError("INPUT_STREAM_NOT_FOUND",
+                             f"No WHIP input \"{input_id}\".", 404)
+                )
+            if source.bearer_token:
+                auth = request.headers.get("Authorization", "")
+                if auth != f"Bearer {source.bearer_token}":
+                    return _error_response(
+                        ApiError("UNAUTHORIZED", "invalid bearer token", 401)
+                    )
+            offer = (await request.read()).decode()
+            answer = await _run_blocking(source.handle_offer, offer)
+            return web.Response(
+                status=201,
+                content_type="application/sdp",
+                text=answer,
+                headers={"Location": f"/whip/{input_id}/session"},
+            )
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
+
+    async def whip_session(request: web.Request) -> web.Response:
+        input_id = request.match_info["id"]
+        from smelter_tpu_torch.io.webrtc import WhipServerInput
+
+        source = state.pipeline._inputs.get(input_id)
+        if not isinstance(source, WhipServerInput):
+            return web.Response(status=404)
+        if request.method == "DELETE":
+            await _run_blocking(source.disconnect)
+            return web.Response(status=200)
+        # trickle-ICE PATCH (RFC 8840 sdpfrag): feed late remote candidates
+        # to the live session (reference webrtc/trickle_ice_utils.rs)
+        from smelter_tpu_torch.io.webrtc import sdp as _sdp
+
+        body = (await request.read()).decode(errors="replace")
+        cands = _sdp.parse_candidate_fragment(body)
+        if cands and source.session is not None:
+            source.session.add_remote_candidates(cands)
+        return web.Response(status=204)
+
+    async def whep_endpoint(request: web.Request) -> web.Response:
+        output_id = request.match_info["id"]
+        try:
+            from smelter_tpu_torch.io.webrtc import WhepServerOutput
+
+            out = state.pipeline._outputs.get(output_id)
+            sink = out.sink if out else None
+            if not isinstance(sink, WhepServerOutput):
+                return _error_response(
+                    ApiError("OUTPUT_STREAM_NOT_FOUND",
+                             f"No WHEP output \"{output_id}\".", 404)
+                )
+            if sink.bearer_token:
+                auth = request.headers.get("Authorization", "")
+                if auth != f"Bearer {sink.bearer_token}":
+                    return _error_response(
+                        ApiError("UNAUTHORIZED", "invalid bearer token", 401)
+                    )
+            offer = (await request.read()).decode()
+            answer = await _run_blocking(sink.handle_offer, offer)
+            return web.Response(
+                status=201,
+                content_type="application/sdp",
+                text=answer,
+                headers={"Location": f"/whep/{output_id}/session"},
+            )
+        except Exception as exc:  # noqa: BLE001
+            return _error_response(exc)
+
+    async def whep_session(request: web.Request) -> web.Response:
+        output_id = request.match_info["id"]
+        from smelter_tpu_torch.io.webrtc import WhepServerOutput
+
+        out = state.pipeline._outputs.get(output_id)
+        sink = out.sink if out else None
+        if not isinstance(sink, WhepServerOutput):
+            return web.Response(status=404)
+        if request.method == "DELETE":
+            await _run_blocking(sink.detach)
+            return web.Response(status=200)
+        from smelter_tpu_torch.io.webrtc import sdp as _sdp
+
+        body = (await request.read()).decode(errors="replace")
+        cands = _sdp.parse_candidate_fragment(body)
+        if cands and sink.session is not None:
+            sink.session.add_remote_candidates(cands)
+        return web.Response(status=204)
+
+    # WHIP/WHEP signaling rides the main API port AND, like the reference's
+    # dedicated WhipWhepServer (SMELTER_WHIP_WHEP_SERVER_PORT), a second
+    # listener when enabled (run() binds `app["whip_app"]` there)
+    whip_routers = [app.router]
+    if state.config.start_whip_whep_server:
+        whip_app = web.Application(client_max_size=50 * 1024 * 1024)
+        app["whip_app"] = whip_app
+        whip_routers.append(whip_app.router)
+    for router in whip_routers:
+        router.add_post("/whip/{id}", whip_endpoint)
+        router.add_route("PATCH", "/whip/{id}/session", whip_session)
+        router.add_route("DELETE", "/whip/{id}/session", whip_session)
+        router.add_post("/whep/{id}", whep_endpoint)
+        router.add_route("PATCH", "/whep/{id}/session", whep_session)
+        router.add_route("DELETE", "/whep/{id}/session", whep_session)
     app.router.add_post("/api/input/{id}/register", register_input)
     app.router.add_post("/api/input/{id}/unregister", unregister_input)
     app.router.add_post("/api/input/{id}/update", update_input)
@@ -662,22 +1063,48 @@ def build_app(state: ApiState) -> web.Application:
     app.router.add_post("/api/font/register", register_font)
     app.router.add_post("/api/start", start)
     app.router.add_post("/api/reset", reset)
+    async def preview(request: web.Request) -> web.Response:
+        """Self-contained WHEP preview page for an output (the thin browser
+        client replacing the reference's in-browser WASM rendering layer
+        for server deployments — docs/BROWSER_RENDERING.md)."""
+        output_id = request.match_info["id"]
+        import html as _html
+        import importlib.resources as _res
+
+        page = (_res.files("smelter_tpu_torch.server") / "preview.html").read_text()
+        safe = _html.escape(output_id, quote=True).replace("</", "<\\/")
+        return web.Response(
+            content_type="text/html", text=page.replace("__OUTPUT_ID__", safe)
+        )
+
     app.router.add_get("/status", status)
     app.router.add_get("/stats", stats)
     app.router.add_get("/ws", ws_handler)
-    app.router.add_get("/preview/{id}", webrtc_unported)
+    app.router.add_get("/preview/{id}", preview)
     return app
 
 
 def run(config: Optional[Config] = None) -> None:
-    """Serve the API on the configured port. `Config.xla_debug` and the
-    WebRTC, MoQ, RTMP and WHIP/WHEP server settings are read and reported
-    but have no effect: nothing they configure is ported yet."""
+    """Serve the API on the configured port (and the WHIP/WHEP endpoints on
+    their own port too when `start_whip_whep_server`). `Config.xla_debug`
+    and the MoQ server settings are read and reported but have no effect:
+    the port has no XLA, and MoQ is not ported yet."""
     cfg = config or read_config()
     from smelter_tpu_torch.config import init_logger
 
     init_logger(cfg.logger)
     state = ApiState(cfg)
     app = build_app(state)
+    whip_app = app.get("whip_app")
+    if whip_app is not None:
+        async def _start_whip_server(_app):
+            runner = web.AppRunner(whip_app)
+            await runner.setup()
+            site = web.TCPSite(runner, port=cfg.whip_whep_server_port)
+            await site.start()
+            logger.info("WHIP/WHEP server listening on :%d",
+                        cfg.whip_whep_server_port)
+
+        app.on_startup.append(_start_whip_server)
     logger.info("smelter_tpu_torch listening on :%d", cfg.api_port)
     web.run_app(app, port=cfg.api_port, print=None)

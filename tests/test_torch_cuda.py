@@ -13,6 +13,8 @@ tile classes, `ops/hopper/tile_class.py`).
 
 from __future__ import annotations
 
+import time
+
 import pytest
 import torch
 
@@ -445,3 +447,106 @@ def test_kernel_counts_follow_replays(cuda):
         counts.append((scene_assembly.LAUNCHES - before[0], yuv_out.LAUNCHES - before[1]))
     assert len(r._programs["out"]._build_cache) == 1  # frames 1-3 replay
     assert counts == [(1, 1)] * 4
+
+
+def _rtp_input_into_the_server(tmp_path):
+    """One RTP input (UDP, H.264 at 320x240, 1 s) registered over HTTP into
+    the port's server, under a rounded overlay (K1), recorded as YUV420 (K2)
+    into an MP4. Returns the decoded frames and the K1/K2 launches."""
+    import socket
+
+    from chip_smoke import _ApiServer, edge_frame
+    from smelter_tpu_torch.config import Config, LoggerConfig
+    from smelter_tpu_torch.core.types import Framerate
+    from smelter_tpu_torch.io import rtcp
+    from smelter_tpu_torch.io.codec import Codec, Demuxer, VideoDecoder, VideoEncoder
+    from smelter_tpu_torch.io.rtp import H264Payloader
+    from smelter_tpu_torch.server.app import ApiState
+
+    state = ApiState(Config(output_framerate=Framerate(30), ahead_of_time_processing=True,
+                            never_drop_output_frames=True, logger=LoggerConfig(level="warning")))
+    server = _ApiServer(state)
+    out_path = str(tmp_path / "out.mp4")
+    try:
+        status, reply = server.call("POST", "/api/input/cam/register", {
+            "type": "rtp_stream", "port": 0, "video": {"decoder": "ffmpeg_h264"},
+            "required": True, "offset_ms": 0})
+        assert status == 200, reply
+        status, reply = server.call("POST", "/api/output/out/register", {
+            "type": "mp4", "path": out_path,
+            "video": {"resolution": {"width": 320, "height": 240},
+                      "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
+                      "initial": {"root": {"type": "view", "background_color": "#000000FF",
+                                           "children": [
+                          {"type": "rescaler", "child": {"type": "input_stream",
+                                                         "input_id": "cam"}},
+                          {"type": "view", "top": 20, "left": 20, "width": 120, "height": 60,
+                           "border_radius": 12, "background_color": "#FF000080"}]}},
+                      "send_eos_when": {"all_inputs": True}}})
+        assert (status, reply) == (200, {})
+        before = (scene_assembly.LAUNCHES, yuv_out.LAUNCHES)
+        assert server.call("POST", "/api/start", {})[0] == 200
+        enc = VideoEncoder(Codec.H264, 320, 240, 30, opts="global_header=0")
+        pay = H264Payloader(ssrc=7)
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        port = state.pipeline._inputs["cam"].port
+        for k in range(30):
+            enc.send(*edge_frame(1, k, 320, 240), k / 30)
+            while True:
+                p = enc.receive()
+                if p is None or p == "eof":
+                    break
+                for rp in pay.payload(p.data, p.pts_s or 0.0):
+                    sock.sendto(rp.serialize(), ("127.0.0.1", port))
+            time.sleep(1 / 30)
+        enc.send_eof()
+        while True:
+            p = enc.receive()
+            if p is None or p == "eof":
+                break
+            for rp in pay.payload(p.data, p.pts_s or 0.0):
+                sock.sendto(rp.serialize(), ("127.0.0.1", port))
+        sock.sendto(rtcp.build_bye([7]), ("127.0.0.1", port))
+        sock.close()
+        deadline = time.time() + 60
+        while ("OUTPUT_DONE", "out") not in {(e.kind, e.entity_id)
+                                             for e in state.pipeline.events.history()}:
+            assert time.time() < deadline, "no OUTPUT_DONE"
+            time.sleep(0.1)
+        launches = (scene_assembly.LAUNCHES - before[0], yuv_out.LAUNCHES - before[1])
+    finally:
+        state.pipeline.close()
+        server.stop()
+    d = Demuxer(out_path)
+    info = next(s for s in d.streams() if s.media_type == "video")
+    dec, frames = VideoDecoder(info.codec, info.extradata), []
+    while True:
+        pkt = d.read()
+        if pkt is None:
+            dec.send_eof()
+        else:
+            dec.send(pkt.data, pkt.pts_s or 0.0)
+        while True:
+            f = dec.receive()
+            if f is None or f == "eof":
+                break
+            frames.append(f)
+        if pkt is None:
+            break
+    return frames, launches
+
+
+def test_rtp_input_into_the_server_on_the_card(cuda, tmp_path, monkeypatch):
+    """The server composes one RTP input on the card (its default device):
+    K1 and K2 launch, and the MP4 holds the input's frames. Skips where the
+    codec service cannot load (FFmpeg's shared libraries absent)."""
+    from smelter_tpu_torch.io import codec
+
+    try:
+        codec.caps()
+    except RuntimeError as exc:
+        pytest.skip(f"the codec service cannot load here: {exc}")
+    monkeypatch.delenv("SMELTER_DEVICE", raising=False)
+    frames, (k1, k2) = _rtp_input_into_the_server(tmp_path)
+    assert k1 > 0 and k2 > 0, (k1, k2)
+    assert len(frames) >= 20 and frames[0][0].shape == (240, 320)

@@ -2,7 +2,8 @@
 module of the reference package (and renders a scene of its own components
 with a shader, an image asset and a WebView without them: PIL is loaded
 only to raster a Text or decode an image, websockets only to reach a
-browser), and its pipeline without aiohttp or pydantic; its
+browser), and its pipeline without aiohttp or pydantic; the protocol edges
+load their native helpers (DTLS, DeckLink) only when an endpoint is made; its
 entry points refuse to run without a card unless given `device="cpu"`; and
 `chip_smoke.py` refuses to run (non-zero exit, no "ok" line) where torch
 sees no CUDA card."""
@@ -56,7 +57,9 @@ r.update_scene("out", comp.View(background_color=RGBAColor(0, 0, 0), children=[
 y, u, v = r.render(FrameSet(pts=0.0, frames=inputs)).frames["out"].data
 assert tuple(y.shape) == (72, 128) and tuple(u.shape) == (36, 64)
 reference = [m for m in sys.modules if m == "smelter_tpu" or m.startswith("smelter_tpu.")]
-print(len(names), "jax" in sys.modules, "triton" in sys.modules, "PIL" in sys.modules,
+edges = [n for n in names if n.startswith("smelter_tpu_torch.io.")
+         and n.split(".")[-1] not in ("codec", "native_lib")]
+print(len(edges), len(names), "jax" in sys.modules, "triton" in sys.modules, "PIL" in sys.modules,
       "websockets" in sys.modules, len(reference))
 """
 
@@ -74,13 +77,48 @@ def test_port_imports_without_jax_or_triton():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n_modules, has_jax, has_triton, has_pil, has_ws, n_reference = out.stdout.split()
+    n_edges, n_modules, has_jax, has_triton, has_pil, has_ws, n_reference = out.stdout.split()
     assert int(n_modules) >= 10  # every module of the port was imported
+    assert int(n_edges) == 19  # the protocol edges: rtp, rtcp, rtmp/*, webrtc/*, v4l2, decklink
     assert has_jax == "False"
     assert has_triton == "False"
     assert has_pil == "False"  # no Text rendered, no image decoded
     assert has_ws == "False"  # no web renderer sidecar connected
     assert n_reference == "0"  # no module of the reference package loaded
+
+
+_EDGE_LIBRARIES = """
+import sys
+def loaded():
+    with open("/proc/self/maps") as f:
+        maps = f.read()
+    return [n for n in ("libsmelter_dtls", "libsmelter_decklink") if n in maps]
+
+import smelter_tpu_torch.server.app, smelter_tpu_torch.io.webrtc, smelter_tpu_torch.io.decklink
+from smelter_tpu_torch.io.rtmp import RtmpServerInput
+before = loaded()
+from smelter_tpu_torch.io.webrtc.dtls import DtlsEndpoint
+DtlsEndpoint(is_server=True).close()
+after_dtls = loaded()
+from smelter_tpu_torch.io.decklink import DeckLinkInput
+try:
+    DeckLinkInput()
+except OSError:
+    pass
+print(before, after_dtls, loaded(), sorted({m.split(".")[0] for m in sys.modules}
+                                           & {"jax", "smelter_tpu"}))
+"""
+
+
+def test_edge_libraries_load_only_when_an_endpoint_is_made():
+    """Importing the server and the edges loads neither native helper: the
+    DTLS helper loads with the first `DtlsEndpoint`, the DeckLink shim with
+    the first DeckLink input, as in the reference."""
+    out = subprocess.run([sys.executable, "-c", _EDGE_LIBRARIES], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == (
+        "[] ['libsmelter_dtls'] ['libsmelter_dtls', 'libsmelter_decklink'] []")
 
 
 def test_pipeline_imports_without_the_server_stack():

@@ -3,8 +3,11 @@
 alike: the MP4 end-to-end flow, validation errors, the `/status`
 configuration block, the HLS output and the `/ws` events, the shader, image,
 web-renderer and font routes (and a shader registered over HTTP rendering
-into an MP4); requests for the protocol edges, which are not ported, answer
-NOT_IMPLEMENTED with the ROADMAP item and register nothing."""
+into an MP4); the RTP, RTMP, WHIP, WHEP and preview routes (an RTP input
+registered over HTTP recorded into an MP4, and an MP4 composed into RTP, RTMP
+and WHIP outputs registered over HTTP: decoded frames within a mean abs error
+of 1.0 u8 per plane of the reference's); requests for MoQ, which is not
+ported, answer NOT_IMPLEMENTED with the ROADMAP item and register nothing."""
 
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import json
 import time
 
 import httpx
+import numpy as np
 import pytest
 import torch
 
@@ -263,14 +267,18 @@ def test_server_status_reports_the_reference_configuration(server, reference_ser
     assert sorted(blocks[1]) == sorted(blocks[0])
 
 
+_VIEW_64 = {"resolution": {"width": 64, "height": 64}, "encoder": {"type": "ffmpeg_h264"},
+            "initial": {"root": {"type": "view", "background_color": "#000000FF"}}}
+
+
 @pytest.mark.parametrize("path,body,item", [
     ("/api/input/x/register", {"type": "rtp_stream", "port": 9000, "video": {
-        "decoder": "ffmpeg_h264"}}, "item 10"),
+        "decoder": "ffmpeg_h264"}, "audio": {"decoder": "aac"}}, "item 10"),
     ("/api/input/x/register", {"type": "rtmp_server", "app": "live",
-                               "stream_key": "k"}, "item 10"),
+                               "stream_key": "k", "port": 70000}, "item 10"),
     ("/api/output/x/register", {"type": "rtp_stream", "port": 9002, "video": {
         "resolution": {"width": 64, "height": 64}, "encoder": {"type": "ffmpeg_h264"},
-        "initial": {"root": {"type": "view", "background_color": "#000000FF"}}}}, "item 10"),
+        "initial": {"root": {"type": "view", "background_color": "#zzz"}}}}, "item 10"),
     ("/api/shader/s/register", {"source": "def shader(ctx): return ctx.texture(0)"}, "item 7"),
     ("/api/image/i/register", {"asset_type": "png", "path": "/a.png"}, "item 7"),
     ("/api/web-renderer/w/register", {"url": "http://localhost/",
@@ -279,26 +287,31 @@ def test_server_status_reports_the_reference_configuration(server, reference_ser
     ("/api/shader/s/unregister", {}, "item 7"),
     ("/whip/x", None, "item 10"),
     ("/whep/x", None, "item 10"),
+    ("/api/input/x/register", {"type": "moq_server", "auth_token": "t"}, "item 10"),
+    ("/api/input/x/register", {"type": "moq_client", "endpoint_url": "https://localhost:1/",
+                               "broadcast_path": "a"}, "item 10"),
+    ("/api/output/x/register", {"type": "moq_client", "endpoint_url": "https://localhost:1/",
+                                "broadcast_path": "a", "video": _VIEW_64}, "item 10"),
 ])
 def test_unported_requests_register_nothing(server, path, body, item, request):
-    """The protocol edges (item 10) answer NOT_IMPLEMENTED with the ROADMAP
-    item. The shader, image, web-renderer and font routes (item 7, ported)
-    answer as the reference's server does to the same request: the same
-    status, the same `error_code` (the shader source given fails
-    validation, /a.png and /a.ttf do not exist). Neither registers an input
-    or an output."""
+    """MoQ (the rest of item 10) answers NOT_IMPLEMENTED with the ROADMAP
+    item. The ported routes (the shader, image, web-renderer and font routes
+    of item 7; the RTP, RTMP, WHIP and WHEP edges of item 10) answer as the
+    reference's server does to the same request: the same status, the same
+    `error_code` (the shader source given fails validation, /a.png and
+    /a.ttf do not exist, an AAC RTP input lacks its config, port 70000
+    cannot be bound, `#zzz` is no colour, no WHIP input or WHEP output `x`
+    exists). Neither registers an input or an output."""
+    moq = body is not None and str(body.get("type", "")).startswith("moq")
     answers = []
-    servers = [server]
-    if item == "item 7":
-        servers = [request.getfixturevalue("reference_server"), server]
+    servers = [server] if moq else [request.getfixturevalue("reference_server"), server]
     for s in servers:
         with httpx.Client(base_url=s.base, timeout=30) as c:
             r = c.post(path, json=body) if body is not None else c.post(path, content=b"v=0")
             answers.append((r.status_code, r.json()))
             st = c.get("/status").json()
         assert st["inputs"] == [] and st["outputs"] == []
-    status, err = answers[-1]
-    if item == "item 7":
+    if not moq:
         (ref_status, ref_body), (status, err) = answers
         assert status == ref_status, (path, answers)
         assert sorted(err) == sorted(ref_body) and err.get("error_code") == ref_body.get(
@@ -306,10 +319,237 @@ def test_unported_requests_register_nothing(server, path, body, item, request):
         if status == 200:
             assert err == ref_body
         return
+    status, err = answers[-1]
     assert status == 501, err
     assert sorted(err) == ["error_code", "message", "stack"]
     assert err["error_code"] == "NOT_IMPLEMENTED"
     assert f"ROADMAP Queue 1 {item}" in err["message"]
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+def test_chip_smoke_edges_scene_is_the_renderer_scene(stage):
+    """`chip_smoke.py` phase 12 registers `renderer_scene` as wire JSON:
+    the server's conversion of it is that scene."""
+    import chip_smoke
+    from smelter_tpu_torch.api import convert, schema as api
+
+    for w, h, n in ((3840, 2160, 16), (640, 360, 4)):
+        wire = chip_smoke.edge_scene_wire(w, h, n, stage)
+        got = convert.video_scene(api.VideoScene.model_validate({"root": wire}))
+        assert got == chip_smoke.renderer_scene(w, h, n, stage)
+
+
+def test_preview_page_matches_the_reference(server, reference_server):
+    """/preview/{id}: the WHEP preview page with the output id escaped."""
+    pages = []
+    for s in (reference_server, server):
+        with httpx.Client(base_url=s.base, timeout=30) as c:
+            r = c.get('/preview/cam"<x>')
+            pages.append((r.status_code, r.headers["content-type"], r.text))
+    assert pages[1] == pages[0]
+    assert pages[1][0] == 200 and "cam&quot;&lt;x&gt;" in pages[1][2]
+
+
+def _rtp_over_http(s, tmp_path, wire: list, name: str) -> list:
+    """An RTP input registered over HTTP (TCP server; H.264 + Opus) recorded
+    into a 128x96 MP4 by server `s`."""
+    from tests.test_torch_rtp import _tcp_send
+
+    out_path = str(tmp_path / f"rtp_{name}.mp4")
+    with httpx.Client(base_url=s.base, timeout=120) as c:
+        r = c.post("/api/input/cam/register", json={
+            "type": "rtp_stream", "port": 0, "transport_protocol": "tcp_server",
+            "video": {"decoder": "ffmpeg_h264"}, "audio": {"decoder": "opus"},
+            "required": True, "offset_ms": 0})
+        assert r.status_code == 200, r.text
+        port = r.json()["port"]
+        assert port > 0
+        r = c.post("/api/output/out/register", json={
+            "type": "mp4", "path": out_path,
+            "video": {"resolution": {"width": 128, "height": 96},
+                      "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
+                      "initial": {"root": {"type": "rescaler", "child": {
+                          "type": "input_stream", "input_id": "cam"}}},
+                      "send_eos_when": {"all_inputs": True}},
+            "audio": {"encoder": {"type": "aac"}, "initial": {"inputs": [{"input_id": "cam"}]},
+                      "send_eos_when": {"all_inputs": True}}})
+        assert r.status_code == 200, r.text
+        st = c.get("/status").json()
+        assert st["inputs"] == [{"input_id": "cam", "input_type": "rtp"}]
+        assert c.post("/api/start", json={}).status_code == 200
+        _tcp_send(port, wire)
+        _wait_done(s, "out")
+    return _decode_output(out_path)[:2]
+
+
+def test_rtp_input_over_http_matches_the_reference(server, reference_server, tmp_path):
+    """RTP in (registered over HTTP) -> MP4 through both servers: every
+    decoded frame both have (by the input frame it shows) within a mean abs
+    error of 1.0 u8 per plane, each run >= 25 frames."""
+    from tests.test_torch_rtp import (
+        _assert_frames_close,
+        _encode_video,
+        _pkg,
+        _ramp_index,
+        _rtp_stream,
+        _wire,
+    )
+
+    wire = _wire(_rtp_stream(_pkg("smelter_tpu_torch"),
+                             _encode_video("h264", 30, opts="global_header=0,g=10")))
+    runs = [_rtp_over_http(s, tmp_path, wire, n)
+            for n, s in (("ref", reference_server), ("port", server))]
+    for frames, pcm in runs:
+        assert len(frames) >= 25, len(frames)
+        assert pcm.shape[0] > 30000
+    _assert_frames_close(runs[0][0], runs[1][0], _ramp_index, 12)
+
+
+def _av_options(input_id: str, audio_encoder: str) -> tuple:
+    """(video, audio) wire options of a 320x240 output of one input, both
+    ending with it."""
+    video = {"resolution": {"width": 320, "height": 240},
+             "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
+             "initial": {"root": {"type": "rescaler", "child": {
+                 "type": "input_stream", "input_id": input_id}}},
+             "send_eos_when": {"all_inputs": True}}
+    audio = {"encoder": {"type": audio_encoder}, "initial": {"inputs": [{"input_id": input_id}]},
+             "send_eos_when": {"all_inputs": True}}
+    return video, audio
+
+
+def _udp_receive(sock) -> list:
+    """The RTP packets that reach `sock` until it has been idle for 2 s."""
+    from smelter_tpu_torch.io.rtp import RtpPacket
+
+    sock.settimeout(2.0)
+    received = []
+    while True:
+        try:
+            data = sock.recv(65536)
+        except TimeoutError:
+            return received
+        pkt = RtpPacket.parse(data)
+        if pkt:
+            received.append(pkt)
+
+
+class _NetworkOutput:
+    """What receives one network output of a server: `body` is the output's
+    registration (its protocol's fields); `frames()` waits for the stream's
+    end and returns its decoded frames and audio samples (None where the
+    receiver keeps no audio)."""
+
+    def __init__(self, kind: str, name: str, tmp_path) -> None:
+        self.kind, self.name = kind, name
+        self._rx = self._sock = self._server = None
+        if kind == "rtp_stream":
+            import socket
+
+            self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+            self._sock.bind(("127.0.0.1", 0))
+            self.body = {"type": "rtp_stream", "ip": "127.0.0.1",
+                         "port": self._sock.getsockname()[1], "transport_protocol": "udp"}
+            audio = "opus"
+        elif kind == "rtmp_client":
+            from tests.test_torch_rtmp import _pkg, _receiver
+
+            self._out = str(tmp_path / f"rtmp_{name}.mp4")
+            self._rx, server = _receiver(_pkg(name), self._out)
+            self.body = {"type": "rtmp_client",
+                         "url": f"rtmp://127.0.0.1:{server.port}/live/key"}
+            audio = "aac"
+        else:
+            from tests.test_torch_webrtc import _server
+
+            self._out = str(tmp_path / f"whip_{name}.mp4")
+            self._server = _server(name, ahead_of_time_processing=True,
+                                   never_drop_output_frames=True)
+            video, audio_opts = _av_options("cam", "aac")
+            video["send_eos_when"] = audio_opts["send_eos_when"] = {"any_input": True}
+            with httpx.Client(base_url=self._server.base, timeout=120) as c:
+                r = c.post("/api/input/cam/register",
+                           json={"type": "whip_server", "required": True, "offset_ms": 0})
+                assert r.status_code == 200, r.text
+                token = r.json()["bearer_token"]
+                r = c.post("/api/output/out/register", json={
+                    "type": "mp4", "path": self._out, "video": video, "audio": audio_opts})
+                assert r.status_code == 200, r.text
+                assert c.post("/api/start", json={}).status_code == 200
+            self.body = {"type": "whip_client",
+                         "endpoint_url": f"{self._server.base}/whip/cam", "bearer_token": token}
+            audio = "opus"
+        self.body["video"], self.body["audio"] = _av_options("a", audio)
+
+    def frames(self) -> tuple:
+        if self._sock is not None:
+            from tests.test_torch_rtp import _decode_rtp_output
+
+            return _decode_rtp_output(_udp_receive(self._sock))[0], None
+        if self._rx is not None:
+            from tests.test_torch_rtmp import _wait_done as wait_pipeline
+
+            assert wait_pipeline(self._rx, "out", 180), f"{self.name}: the RTMP receiver"
+        else:
+            _wait_done(self._server, "out")
+        return _decode_output(self._out)[:2]
+
+    def close(self) -> None:
+        if self._sock is not None:
+            self._sock.close()
+        if self._rx is not None:
+            self._rx.close()
+        if self._server is not None:
+            _stop(self._server)
+
+
+@pytest.mark.parametrize("kind", ["rtp_stream", "rtmp_client", "whip_client"])
+def test_network_output_over_http_matches_the_reference(server, reference_server, tmp_path,
+                                                        kind):
+    """An MP4 composed into an RTP (UDP), RTMP or WHIP output, both
+    registered over HTTP, through both servers; each package's own receiver
+    (an RTP client, an RTMP server input, a WHIP server input) decodes what
+    arrives. The registration answers as the reference's; every frame both
+    runs have, matched by the input frame it shows, is within a mean abs
+    error of 1.0 u8 per plane; the frames that show the input (after the
+    receiver's black ones) meet the bounds of the reference's tests of the
+    protocol (>= 55, 50 and 30 frames; red content: V high), and the RTMP
+    and WHIP receivers' audio theirs."""
+    from tests.test_torch_rtp import _assert_frames_close, _make_marked_mp4, _mark_index
+
+    src = str(tmp_path / "a.mp4")
+    _make_marked_mp4(src, "red", 440.0)
+    answers, runs = [], []
+    for name, s in (("smelter_tpu", reference_server), ("smelter_tpu_torch", server)):
+        out = _NetworkOutput(kind, name, tmp_path)
+        try:
+            with httpx.Client(base_url=s.base, timeout=120) as c:
+                r = c.post("/api/input/a/register",
+                           json={"type": "mp4", "path": src, "required": True, "offset_ms": 0})
+                assert r.status_code == 200, r.text
+                r = c.post("/api/output/out/register", json=out.body)
+                answers.append((r.status_code, r.json()))
+                assert r.status_code == 200, r.text
+                st = c.get("/status").json()
+                assert [o["output_id"] for o in st["outputs"]] == ["out"]
+                assert c.post("/api/start", json={}).status_code == 200
+                _wait_done(s, "out")
+            runs.append(out.frames())
+        finally:
+            out.close()
+    assert answers[1] == answers[0] == (200, {})
+    min_frames, v_bound, min_samples = {"rtp_stream": (55, 180, None),
+                                        "rtmp_client": (50, 180, 60000),
+                                        "whip_client": (30, 170, 30000)}[kind]
+    for frames, pcm in runs:
+        # a live receiver shows black until the stream arrives
+        shown = [f for k, f in enumerate(frames) if _mark_index(k, f) >= 0]
+        assert len(shown) >= min_frames, (len(shown), len(frames))
+        assert float(np.mean([float(f[2].mean()) for f in shown])) > v_bound
+        if min_samples is not None:
+            assert pcm.shape[0] > min_samples, pcm.shape
+    _assert_frames_close(runs[0][0], runs[1][0], _mark_index, 25)
 
 
 def test_server_hls_output_and_ws_events(server, tmp_path):
