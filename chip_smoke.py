@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (`smelter_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --moq-capacity 1 2 4 8   # phase 13a alone, ungated
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc
 (found on PATH or under /usr/local/cuda/bin). It:
@@ -114,18 +115,46 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      the card's busy share (`edges_phase`). Where the codec service cannot
      load (no FFmpeg), one probe says so and the phase prints
      `{"edges": {"skipped": ...}}` and runs nothing else.
+  13. MoQ (`moq_phase`). (a) The transport, no codec (`moq_transport_phase`):
+     the port's MoqServer in this process, its inputs plain subscribers; a
+     child process publishes over the port's QuicClient, MoqSession and
+     BroadcastPublisher, one broadcast and one video track a connection, 30
+     objects/s for 5 s (a 100 kB keyframe object opening each one-second
+     group, 20 kB deltas: 5 Mbit/s), payloads from a seed. A gated run at 1
+     publisher (a wrong token refused; every object byte-equal, keyframe
+     flag, group and order, by 30 s after the last write; every session,
+     endpoint and thread closed on both sides) and capacity runs at 2 and
+     16 (the delivered share recorded, not gated); each records objects/s,
+     MB/s, write -> read latency, handshake ms and both processes' CPU
+     seconds; the part is timed against a 60 s budget (recorded) and fails
+     past 120 s. (b) The media path (`moq_media_phase`), where the codec
+     service loads: the port's server on the card in real time, 4 x 1080p
+     H.264 `moq_server` inputs (2 CMAF, 2 legacy) registered over HTTP on
+     its one MoQ listener, `renderer_scene` as wire JSON updated at 4 s, 4K
+     H.264 out through a `moq_client` output to a MoqServer + MoqServerInput
+     in the child; gated as phase 12. Where the codec service cannot load,
+     (b) prints `{"skipped": ...}` after phase 12's probe. Prints
+     `{"moq": {"transport": ..., "media": ...}}`.
+  14. renders the reference's three 4K goldens (`tests/snapshots/res4k_*`:
+     the 16-tile grid and the two rotated, bordered, shadowed layouts) with
+     the port's renderer on the card and holds each to its PNG at a mean
+     abs error of 1.0 per channel (`goldens_4k_phase`); prints
+     `{"goldens_4k": ...}`.
 The renderer phases (6, 7, 8's offline run and 10) run through captured
 programs: every render is also held bit for bit to the closure of its
 structure run eagerly on the same frame (`EagerCheck`, outside every count),
 no frame that replays a graph may synchronise, the kernel and route counts
 are those of the graphs' records, and each phase prints its captures,
 structure keys, capture times and graph memory.
-(phase 10 runs between 8 and 9, phase 11 after 8, phase 12 after 10) and
-prints a JSON line of the edges phase (`{"edges": ...}`), a JSON line of the
+(phase 13a runs right after the build, while the process holds nothing
+else; phase 10 runs between 8 and 9, phase 11 after 8, phases 12, 13b and
+14 after 10) and prints a JSON line of the edges phase (`{"edges": ...}`), one
+of the MoQ phase (`{"moq": ...}`), a JSON line of the
 animated-texture numbers, a JSON line of the pipeline's numbers
 (`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON line of the nodes
 phase (`{"nodes": ...}`), a JSON line of the captured programs of every
-phase (`{"captured_programs": ...}`), a JSON line of the kernels (`launches` from the
+phase (`{"captured_programs": ...}`), the 4K goldens' errors
+(`{"goldens_4k": ...}`), a JSON line of the kernels (`launches` from the
 pipeline's offline 4K run, each path's counts under `launches_by_path`, the
 nodes phase's included), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
@@ -2293,6 +2322,30 @@ def _edge_sender(kind, target, pkts, t0, sent, idx):
     sent[idx] = times
 
 
+def edge_frame_stats(y, u, v, n, out_w, out_h, probes):
+    """A received output frame of the edges scene: its planes' shapes, each
+    tile probe's mean (Y, U, V) and input 0's frame index read from its
+    stripes (or None)."""
+    cols = int(round(n ** 0.5))
+    tw, th = out_w / cols, out_h / (-(-n // cols))
+    tiles = []
+    for top, left, size, _covered in probes:
+        rows, cs = slice(top // 2, (top + size) // 2), slice(left // 2, (left + size) // 2)
+        tiles.append([float(y[top:top + size, left:left + size].mean()),
+                      float(u[rows, cs].mean()), float(v[rows, cs].mean())])
+    # input 0's stripes: the bottom eighth of tile 0, inside its margins
+    row = int(th * 0.93)
+    means = [float(y[row - 2:row + 2, int(tw * (j + 0.5) / EDGE_STRIPES) - 2:
+                   int(tw * (j + 0.5) / EDGE_STRIPES) + 2].mean())
+             for j in range(EDGE_STRIPES)]
+    white, black = means[0], means[1]
+    index = None
+    if white - black > 20:
+        mid = (white + black) / 2
+        index = sum(int(m > mid) << (7 - b) for b, m in enumerate(means[2:]))
+    return dict(shape=[list(y.shape), list(u.shape)], tiles=tiles, index=index)
+
+
 def _edge_analyse(packets, n, out_w, out_h):
     """Depayloads the output's RTP packets (arrival time, bytes) with the
     port's H264Depayloader, decodes them with the codec service and returns
@@ -2304,30 +2357,13 @@ def _edge_analyse(packets, n, out_w, out_h):
     from smelter_tpu_torch.io.rtp import H264Depayloader, RtpPacket
 
     probes = edge_probes(n, out_w, out_h)
-    cols = int(round(n ** 0.5))
-    tw, th = out_w / cols, out_h / (-(-n // cols))
     dep, dec = H264Depayloader(), VideoDecoder(Codec.H264)
     arrivals, frames = {}, []
 
     def take(f):
         y, u, v, pts, _ = f
-        tiles = []
-        for top, left, size, _covered in probes:
-            rows, cols = slice(top // 2, (top + size) // 2), slice(left // 2, (left + size) // 2)
-            tiles.append([float(y[top:top + size, left:left + size].mean()),
-                          float(u[rows, cols].mean()), float(v[rows, cols].mean())])
-        # input 0's stripes: the bottom eighth of tile 0, inside its margins
-        row = int(th * 0.93)
-        means = [float(y[row - 2:row + 2, int(tw * (j + 0.5) / EDGE_STRIPES) - 2:
-                       int(tw * (j + 0.5) / EDGE_STRIPES) + 2].mean())
-                 for j in range(EDGE_STRIPES)]
-        white, black = means[0], means[1]
-        index = None
-        if white - black > 20:
-            mid = (white + black) / 2
-            index = sum(int(m > mid) << (7 - b) for b, m in enumerate(means[2:]))
         frames.append(dict(pts=pts, arrival=arrivals.get(round(pts or 0.0, 4)),
-                           shape=[list(y.shape), list(u.shape)], tiles=tiles, index=index))
+                           **edge_frame_stats(y, u, v, n, out_w, out_h, probes)))
 
     for t, data in packets:
         pkt = RtpPacket.parse(data)
@@ -2400,15 +2436,15 @@ def _edge_peer(conn, n, in_w, in_h, out_w, out_h, seconds):
         raise
 
 
-def _peer_message(conn, peer, timeout, what):
-    """The next message of the edge peer, failing the phase if the peer
-    dies or stays silent for `timeout` s, or reports an error."""
+def _peer_message(conn, peer, timeout, what, label="edges"):
+    """The next message of a phase's peer process, failing the phase if the
+    peer dies or stays silent for `timeout` s, or reports an error."""
     deadline = time.perf_counter() + timeout
     while not conn.poll(0.5):
-        check(peer.is_alive(), f"edges: the peer exited ({peer.exitcode}) before {what}")
-        check(time.perf_counter() < deadline, f"edges: no {what} in {timeout} s")
+        check(peer.is_alive(), f"{label}: the peer exited ({peer.exitcode}) before {what}")
+        check(time.perf_counter() < deadline, f"{label}: no {what} in {timeout} s")
     msg = conn.recv()
-    check(msg[0] != "error", f"edges: the peer failed before {what}: {msg[-1]}")
+    check(msg[0] != "error", f"{label}: the peer failed before {what}: {msg[-1]}")
     return msg
 
 
@@ -2697,10 +2733,636 @@ def edges_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
     check(not bad, f"edges: events before the senders finished: {bad}")
     frames = result["frames"]
     t0, t_end = sent["t0"], sent["t_end"]
+    received = live_frame_checks("edges", frames, n, out_w, out_h, seconds, t0, t_end,
+                                 result["send0"])
+    renders = live_render_checks("edges", log, t_update, t_updated, on_card)
+    busy = profile_busy(prof, prof_span) if on_card else None
+    out = dict(inputs=n, protocols={k: kinds.count(k) for k in sorted(set(kinds))},
+               out=f"{out_w}x{out_h}", seconds=seconds,
+               received_per_s=receive_log.per_second(max(t_end - t0, 1e-9)),
+               capture_launches=capture_launches, **received, **renders,
+               **live_spans(spans), device_busy=busy, busy_window_s=prof_span,
+               decoders=decoder_stats(decoder_log), frames_sent=sent["frames_sent"],
+               run_s=time.perf_counter() - t_run, card=stamp)
+    print(f"edges {n}x{in_w}x{in_h}->{out_w}x{out_h}: launches {launches}")
+    print(json.dumps({"edges": out}))
+    return launches, out
+
+
+# the MoQ phase (13): (a) the transport, 16 publishers over the port's QUIC
+# stack into the port's MoqServer; (b) the media path, MoQ inputs composed by
+# the port's server into a MoQ output
+
+# the publishers of the gated run: a load the port's QUIC stack carries on
+# the H100 machine's host in every run so far (PERF.md: 2 kept up in some
+# runs and fell 18 s behind in others, 8 and more collapse); the capacity
+# runs record 2 and 16 (phase 12's show), ungated; `--moq-capacity`
+# measures other counts
+MOQ_INPUTS = 1
+MOQ_CAPACITY_INPUTS = (2, 16)
+MOQ_CAPACITY_WAIT_S = 5.0  # the capacity runs' wait after the last write
+MOQ_TRANSPORT_CEILING_S = 120.0
+MOQ_SECONDS = 5.0
+MOQ_KEYFRAME_BYTES = 100_000  # the first object of each one-second group
+MOQ_DELTA_BYTES = 20_000  # the other 29: 5.0 Mbit/s an input at 30 objects/s
+MOQ_DEADLINE_S = 30.0  # after the last write, for the last object to arrive
+MOQ_MEDIA_INPUTS = 4
+MOQ_MEDIA_SECONDS = 8.0
+MOQ_MEDIA_UPDATE_AT = 4.0
+MOQ_THREADS = ("quic-endpoint", "moq-session", "moq-subscriber")
+
+
+def moq_object(seed, i, k):
+    """Object k of MoQ publisher i: (timestamp us, keyframe, payload). Object
+    k is frame k of a 30 fps track whose groups are one second long, the
+    first object of each a keyframe of MOQ_KEYFRAME_BYTES, the others
+    MOQ_DELTA_BYTES; the payload is drawn from (seed, i, k)."""
+    import numpy as np
+
+    key = k % FPS == 0
+    size = MOQ_KEYFRAME_BYTES if key else MOQ_DELTA_BYTES
+    return int(round(k * 1e6 / FPS)), key, np.random.default_rng([seed, i, k]).bytes(size)
+
+
+def _socket_buffers():
+    """The host's default and largest UDP receive buffer, bytes (the QUIC
+    endpoints keep the default), or None where /proc does not say."""
+    out = {}
+    for name in ("rmem_default", "rmem_max"):
+        try:
+            with open(f"/proc/sys/net/core/{name}") as f:
+                out[name] = int(f.read())
+        except (OSError, ValueError):
+            out[name] = None
+    return out
+
+
+def _moq_threads():
+    return {t for t in threading.enumerate() if t.name.startswith(MOQ_THREADS)}
+
+
+def _moq_threads_end(before, timeout=10.0):
+    """The names of the MoQ and QUIC threads started since `before` that are
+    still alive after `timeout` s."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and _moq_threads() - before:
+        time.sleep(0.05)
+    return sorted(t.name for t in _moq_threads() - before)
+
+
+class _MoqSubscriber:
+    """An input of the MoQ server's state that only subscribes: it takes the
+    announced broadcast's catalog and video track and keeps every object it
+    reads, with its arrival time (`time.monotonic`)."""
+
+    def __init__(self, token):
+        self.options = type("Options", (), {"auth_token": token})()
+        self.session, self.catalog, self.objects, self.error = None, None, [], None
+        self._thread = None
+
+    def attach_session(self, session):
+        if self.session is not None:
+            return False
+        self.session = session
+        self._thread = threading.Thread(target=self._run, name="moq-subscriber", daemon=True)
+        self._thread.start()
+        return True
+
+    def _run(self):
+        import traceback
+
+        from smelter_tpu_torch.io.moq import catalog
+        from smelter_tpu_torch.io.moq.input import session_dead
+
+        s = self.session
+        try:
+            check(s.next_announce(timeout=15.0) is not None, "moq: no announce")
+            first = s.subscribe_track(catalog.CATALOG_TRACK).read(timeout=10.0)
+            check(first is not None, "moq: the catalog track produced no object")
+            self.catalog = catalog.Catalog.from_bytes(first.payload)
+            video = s.subscribe_track(catalog.VIDEO_TRACK)
+            while not s.closed.is_set():
+                tf = video.read(timeout=0.5)
+                if tf is None:
+                    if session_dead(video):
+                        break
+                    continue
+                self.objects.append((time.monotonic(), tf))
+        except Exception:  # noqa: BLE001 - reported by the phase's gates
+            self.error = traceback.format_exc()
+
+    def join(self, timeout):
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+
+
+def _moq_publisher_peer(conn, port, n, seconds, seed, wrong_token):
+    """The publishers of phase 13a, in a child process: with `wrong_token`, a
+    connection with a wrong token first (it must be refused), then n QUIC
+    connections to the
+    MoQ server at `port` (handshakes timed), one broadcast each with a
+    catalog and one video track; on "go", each writes its objects at 30 fps
+    (`moq_object`); on "close", closes every session and client and reports
+    the threads left alive."""
+    import traceback
+
+    try:
+        from smelter_tpu_torch.io.moq import catalog, wire
+        from smelter_tpu_torch.io.moq.output import BroadcastPublisher
+        from smelter_tpu_torch.io.moq.session import MoqSession
+        from smelter_tpu_torch.io.quic import QuicClient
+
+        before = _moq_threads()
+        refused = None
+        if wrong_token:
+            bad = QuicClient("127.0.0.1", port, [wire.ALPN])
+            session = None
+            try:
+                session = MoqSession(bad.connect(timeout=15.0), is_quic_client=True)
+                session.start_client("moq_0", "a-wrong-token")
+                session.wait_setup(timeout=5.0)
+            except (ConnectionError, TimeoutError) as exc:
+                refused = f"{type(exc).__name__}: {exc}"
+            finally:
+                if session is not None:
+                    session.close()
+                bad.close()
+        n_objects = int(seconds * FPS)
+        objects = [[moq_object(seed, i, k) for k in range(n_objects)] for i in range(n)]
+        clients, sessions, producers, handshake_ms = [None] * n, [None] * n, [None] * n, [0.0] * n
+        failures = []
+
+        def open_broadcast(i):
+            try:
+                clients[i] = QuicClient("127.0.0.1", port, [wire.ALPN])
+                t0 = time.monotonic()
+                handle = clients[i].connect(timeout=30.0)
+                handshake_ms[i] = (time.monotonic() - t0) * 1e3
+                sessions[i] = MoqSession(handle, is_quic_client=True)
+                publisher = BroadcastPublisher(sessions[i], f"broadcast_{i}")
+                sessions[i].start_client(f"moq_{i}", f"token-{i}")
+                sessions[i].wait_setup(timeout=15.0)
+                cat = catalog.Catalog()
+                cat.video[catalog.VIDEO_TRACK] = catalog.TrackEntry(
+                    name=catalog.VIDEO_TRACK, codec="h264", container="loc", width=1920,
+                    height=1080)
+                publisher.set_catalog(cat)
+                deadline = time.monotonic() + 15.0
+                while publisher.producer(catalog.VIDEO_TRACK) is None:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"broadcast {i}: the video track was never subscribed")
+                    time.sleep(0.01)
+                producers[i] = publisher.producer(catalog.VIDEO_TRACK)
+            except Exception:  # noqa: BLE001 - reported to the parent
+                failures.append(traceback.format_exc())
+
+        for t in _threads([(open_broadcast, (i,)) for i in range(n)]):
+            t.join(timeout=60)
+        if failures or None in producers:
+            raise ConnectionError(f"publishers not ready: {failures[:1]}")
+        conn.send(("ready", dict(handshake_ms=handshake_ms, wrong_token=refused)))
+        conn.recv()  # "go"
+        writes = {}
+        cpu0 = time.process_time()
+        t0 = time.monotonic() + 0.2
+
+        def write(i):
+            times = []
+            for k, (ts, key, payload) in enumerate(objects[i]):
+                time.sleep(max(0.0, t0 + k / FPS - time.monotonic()))
+                times.append(time.monotonic())
+                producers[i].write(ts, key, payload, new_group=key)
+            producers[i].finish_group()
+            writes[i] = times
+
+        writers = _threads([(write, (i,)) for i in range(n)])
+        for t in writers:
+            t.join(timeout=seconds + 60)
+        conn.send(("written", dict(t0=t0, writes=writes, cpu_s=time.process_time() - cpu0,
+                                   writers_alive=sum(t.is_alive() for t in writers))))
+        conn.recv()  # "close"
+        for s in sessions:
+            s.close()
+        for c in clients:
+            c.close()
+        conn.send(("closed", dict(threads_alive=_moq_threads_end(before, 10.0 if wrong_token
+                                                                 else 2.0))))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def moq_transport_phase(stamp, n=MOQ_INPUTS, seconds=MOQ_SECONDS, seed=13,
+                        deadline_s=MOQ_DEADLINE_S, gated=True):
+    """Phase 13a: the port's MoQ transport, no codec. The port's `MoqServer`
+    runs in this process, its registered inputs plain subscribers
+    (`_MoqSubscriber`); a child process (`_moq_publisher_peer`) opens n QUIC
+    connections through the port's `QuicClient`, `MoqSession` and
+    `BroadcastPublisher`, one broadcast each (a catalog and a video track),
+    and writes 30 objects/s for `seconds`: a one-second group per keyframe
+    object of 100 kB, then 29 delta objects of 20 kB (5 Mbit/s, a 1080p30
+    H.264 stream's rate), payloads drawn from a seed.
+
+    Always gated: every object that arrives is byte-equal, with its keyframe
+    flag, in its group, in order within its group and never twice. With
+    `gated`, also: a wrong token is refused, every object arrives by
+    `deadline_s` after the last write, and every session and both endpoints
+    close with none of their threads left alive on either side (without it,
+    no wrong token is tried, and the objects that arrived and the threads
+    left are recorded). Recorded:
+    the share of the objects delivered, objects/s and MB/s delivered from
+    the first write to the last arrival, the write -> read latency of the
+    objects (p50, p95, on the machine's monotonic clock, which both
+    processes read), the handshakes' ms (p50, max), and the CPU seconds of
+    each process from the first write to the end of the wait. Returns the
+    recorded numbers."""
+    import multiprocessing
+
+    from smelter_tpu_torch.io.moq.server import MoqServer, MoqServerState
+    from smelter_tpu_torch.io.quic.tls import generate_self_signed
+
+    t_run = time.perf_counter()
+    before = _moq_threads()
+    threads_at_start = threading.active_count()
+    state = MoqServerState()
+    subs = [_MoqSubscriber(f"token-{i}") for i in range(n)]
+    for i, sub in enumerate(subs):
+        state.register(f"moq_{i}", sub)
+    cert, key = generate_self_signed()
+    server = MoqServer(0, state, cert_der=cert, key_pem=key)
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    peer = ctx.Process(target=_moq_publisher_peer, name="moq-peer", daemon=True,
+                       args=(child_conn, server.port, n, seconds, seed, gated))
+    n_objects = int(seconds * FPS)
+    try:
+        peer.start()
+        ready = _peer_message(conn, peer, 180, "the publishers' handshakes", "moq")[1]
+        cpu0 = time.process_time()
+        conn.send(("go",))
+        written = _peer_message(conn, peer, seconds + 120, "the publishers' last write", "moq")[1]
+        t_last = max(max(w) for w in written["writes"].values())
+        while (sum(len(s.objects) for s in subs) < n * n_objects
+               and time.monotonic() < t_last + deadline_s):
+            time.sleep(0.05)
+        cpu_s = time.process_time() - cpu0
+        conn.send(("close",))
+        closed = _peer_message(conn, peer, 60, "the publishers' close", "moq")[1]
+    finally:
+        for sub in subs:
+            if sub.session is not None:
+                sub.session.close()
+        server.close()
+        peer.join(timeout=30)
+        if peer.is_alive():
+            peer.kill()
+            peer.join(timeout=10)
+    for sub in subs:
+        sub.join(timeout=10)
+    check(peer.exitcode == 0, f"moq: the publishers' process exited with {peer.exitcode}")
+    check(not gated or ready["wrong_token"] is not None, "moq: a wrong token was accepted")
+    check(written["writers_alive"] == 0, "moq: a publisher hung")
+    errors = [s.error for s in subs if s.error]
+    check(not errors, f"moq: a subscriber failed: {errors[:1]}")
+    latency, bad, missing = [], [], {}
+    for i, sub in enumerate(subs):
+        seen, last_in_group = set(), {}
+        for t, tf in sub.objects:
+            k = round(tf.timestamp_us * FPS / 1e6)
+            ts, key, payload = moq_object(seed, i, k) if 0 <= k < n_objects else (None,) * 3
+            if (ts != tf.timestamp_us or key != tf.keyframe or payload != tf.payload
+                    or tf.group_seq != k // FPS or k in seen
+                    or last_in_group.get(tf.group_seq, -1) >= k):
+                bad.append((i, k, tf.group_seq, tf.keyframe, len(tf.payload)))
+            seen.add(k)
+            last_in_group[tf.group_seq] = k
+            if k in range(len(written["writes"][i])):
+                latency.append((t - written["writes"][i][k]) * 1e3)
+        if n_objects - len(seen):
+            missing[i] = n_objects - len(seen)
+        if sub.objects:
+            check(sub.catalog is not None and sub.catalog.first_video().codec == "h264",
+                  f"moq: input {i}: no catalog")
+    check(not bad, f"moq: objects wrong, repeated or out of order in their group "
+                   f"(input, object, group, keyframe, bytes): {bad[:8]}")
+    left = _moq_threads_end(before, 10.0 if gated else 2.0)
+    if gated:
+        check(not missing, f"moq: objects that never arrived within {deadline_s} s of the last "
+                           f"write, by input: {missing}")
+        check(not closed["threads_alive"],
+              f"moq: publisher threads left alive: {closed['threads_alive']}")
+        check(not left, f"moq: server threads left alive: {left}")
+    arrivals = [t for s in subs for t, _ in s.objects]
+    t0 = written["t0"]
+    span = max(arrivals, default=t0) - t0
+    n_bytes = sum(len(tf.payload) for s in subs for _, tf in s.objects)
+    latency.sort()
+    hs = sorted(ready["handshake_ms"])
+    out = dict(inputs=n, seconds=seconds, gated=gated, deadline_s=deadline_s,
+               socket_buffers=_socket_buffers(),
+               objects=n * n_objects, delivered=len(arrivals) / (n * n_objects),
+               bytes=n_bytes, offered_mb_per_s=n * sum(
+                   len(moq_object(seed, 0, k)[2]) for k in range(FPS)) / 1e6,
+               objects_per_s=len(arrivals) / span if span > 0 else 0.0,
+               mb_per_s=n_bytes / span / 1e6 if span > 0 else 0.0,
+               latency_p50_ms=statistics.median(latency) if latency else None,
+               latency_p95_ms=latency[int(0.95 * (len(latency) - 1))] if latency else None,
+               latency_max_ms=latency[-1] if latency else None,
+               last_arrival_after_last_write_s=(max(arrivals) - t_last) if arrivals else None,
+               handshake_p50_ms=statistics.median(hs), handshake_max_ms=hs[-1],
+               receiver_cpu_s=cpu_s, publisher_cpu_s=written["cpu_s"],
+               wrong_token=ready["wrong_token"], threads_left=closed["threads_alive"] + left,
+               threads_at_start=threads_at_start,
+               run_s=time.perf_counter() - t_run, card=stamp)
+    print(f"moq transport {n} x {seconds} s: delivered {out['delivered']:.1%}, "
+          f"{out['objects_per_s']:.1f} objects/s, {out['mb_per_s']:.2f} MB/s of "
+          f"{out['offered_mb_per_s']:.2f} offered, latency p50 {out['latency_p50_ms']} ms, "
+          f"CPU receiver {cpu_s:.1f} s, publishers {written['cpu_s']:.1f} s {stamp}")
+    return out
+
+
+def _moq_media_peer(conn, n, in_w, in_h, out_w, out_h, seconds):
+    """The publishers and the receiver of phase 13b, in a child process:
+    encodes the inputs' clips (`_edge_clips`), starts a `MoqServer` with a
+    `MoqServerInput` (token "out-token") that decodes what the server's
+    `moq_client` output publishes, reports its port, publishes every input
+    at 30 fps from the parent's "go" through the port's `MoqClientOutput`
+    (inputs 0 and 1 in the CMAF container, the others legacy), and on
+    "stop" returns each received frame's `edge_frame_stats` and arrival.
+    Each publisher connects and waits for the server to subscribe to its
+    track before the first write: it drops what it writes before."""
+    import traceback
+    from types import SimpleNamespace
+
+    try:
+        from smelter_tpu_torch.io.moq import catalog
+        from smelter_tpu_torch.io.moq.input import MoqServerInput, MoqServerInputOptions
+        from smelter_tpu_torch.io.moq.output import MoqClientOutput
+        from smelter_tpu_torch.io.moq.server import MoqServer, MoqServerState
+        from smelter_tpu_torch.io.quic.tls import generate_self_signed
+        from smelter_tpu_torch.io.rtmp.h264_utils import extract_parameter_sets
+        from smelter_tpu_torch.pipeline.input import InputCtx
+        from smelter_tpu_torch.utils.channels import Channel, Closed
+
+        clips = _edge_clips(n, in_w, in_h, seconds)
+        state = MoqServerState()
+        source = MoqServerInput(MoqServerInputOptions(auth_token="out-token"))
+        channel = Channel(64)
+        source.start(InputCtx(input_id="out", video_channel=channel, audio_channel=None))
+        state.register("out", source)
+        cert, key = generate_self_signed()
+        server = MoqServer(0, state, cert_der=cert, key_pem=key)
+        probes = edge_probes(n, out_w, out_h)
+        frames = []
+
+        def receive():
+            while True:
+                try:
+                    f = channel.recv(timeout=0.5)
+                except TimeoutError:
+                    continue
+                except Closed:
+                    return
+                t = time.monotonic()
+                y, u, v = f.data
+                frames.append(dict(pts=f.pts, arrival=t,
+                                   **edge_frame_stats(y, u, v, n, out_w, out_h, probes)))
+
+        receiver = threading.Thread(target=receive, name="moq-receiver", daemon=True)
+        receiver.start()
+        conn.send(("ready", server.port))
+        _, targets = conn.recv()
+        sent, sinks = {}, [None] * n
+
+        def open_sink(i):
+            sps, pps = extract_parameter_sets(clips[i][0].data)
+            sink = MoqClientOutput(targets[i]["url"], f"input_{i}",
+                                   container=targets[i]["container"], has_audio=False)
+            opts = SimpleNamespace(encoder=SimpleNamespace(codec="h264"),
+                                   resolution=SimpleNamespace(width=in_w, height=in_h))
+            sink.setup_video(opts, b"\x00\x00\x00\x01" + sps + b"\x00\x00\x00\x01" + pps, FPS, 1)
+            # a publisher drops what it writes before the track's subscription
+            deadline = time.monotonic() + 15.0
+            while sink.publisher.producer(catalog.VIDEO_TRACK) is None:
+                check(time.monotonic() < deadline, f"moq: input_{i} never subscribed")
+                time.sleep(0.01)
+            sinks[i] = sink
+
+        for t in _threads([(open_sink, (i,)) for i in range(n)]):
+            t.join(timeout=60)
+        check(None not in sinks, "moq: a publisher did not connect")
+
+        def publish(i):
+            times = []
+            for k, p in enumerate(clips[i]):
+                time.sleep(max(0.0, t0 + k / FPS - time.monotonic()))
+                times.append(time.monotonic())
+                sinks[i].write_video_packet(p)
+            sinks[i].on_done()
+            sent[i] = times
+
+        t0 = time.monotonic() + 0.5
+        publishers = _threads([(publish, (i,)) for i in range(n)])
+        for t in publishers:
+            t.join(timeout=seconds + 60)
+        conn.send(("sent", dict(t0=t0, t_end=time.monotonic(),
+                                senders_alive=sum(t.is_alive() for t in publishers),
+                                frames_sent={i: len(sent[i]) for i in sent})))
+        conn.recv()  # "stop": the parent has unregistered the output
+        source.stop()
+        source.join(timeout=10)
+        receiver.join(timeout=10)
+        server.close()
+        conn.send(("result", dict(frames=frames, send0=sent.get(0, []))))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def moq_media_phase(dev, stamp, n=MOQ_MEDIA_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W,
+                    out_h=OUT_H, seconds=MOQ_MEDIA_SECONDS, update_at=MOQ_MEDIA_UPDATE_AT):
+    """Phase 13b: the port's server (`smelter_tpu_torch.server.app`) in this
+    process, in real time, composing n 1080p H.264 `moq_server` inputs, all
+    registered over HTTP on the server's one shared MoQ listener, that a
+    child process (`_moq_media_peer`) publishes at 30 fps for `seconds`
+    through the port's `MoqClientOutput` (inputs 0 and 1 in the CMAF
+    container, the others legacy; the frames of `edge_frame`, input 0's
+    carrying its index); `renderer_scene` as wire JSON, updated at
+    `update_at` s; the 4K H.264 output published through a `moq_client`
+    output, registered over HTTP, to a `MoqServer` + `MoqServerInput` in the
+    child, which decodes it. The caller has checked that the codec service
+    loads (`edges_unavailable`).
+
+    Gated: every registration (`{"port": P}`, one P for every input), the
+    update and the unregisters answer as in phase 12; no OUTPUT_ERROR and no
+    input's video ends while the publishers send; `live_frame_checks` (>= 15 frames/s
+    of out_w x out_h, each tile its input's colour); `live_render_checks`
+    (K1 = K2 = 1 per render not frozen, K3 only after the update, no
+    synchronising call on a replay); /status empty at the end. Recorded:
+    frames/s received, the send -> arrival latency of input 0's frames,
+    each server decoder's delay in frames and the spans. Returns (the
+    kernel launches of the run, the recorded numbers)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    from smelter_tpu_torch.config import Config, LoggerConfig
+    from smelter_tpu_torch.core.types import Framerate
+    from smelter_tpu_torch.io.quic.tls import generate_self_signed
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.server.app import ApiState
+    from smelter_tpu_torch.utils import tracing
+
+    t_run = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    tls_dir = tempfile.mkdtemp(prefix="moq-tls-")
+    cert, key = generate_self_signed()
+    cert_file, key_file = os.path.join(tls_dir, "cert.der"), os.path.join(tls_dir, "key.pem")
+    for path, data in ((cert_file, cert), (key_file, key)):
+        with open(path, "wb") as f:
+            f.write(data)
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    peer = ctx.Process(target=_moq_media_peer, name="moq-media-peer", daemon=True,
+                       args=(child_conn, n, in_w, in_h, out_w, out_h, seconds))
+    peer.start()
+    state = ApiState(Config(output_framerate=Framerate(FPS), ahead_of_time_processing=False,
+                            never_drop_output_frames=False, moq_disable_tls_verification=True,
+                            moq_tls_cert_file=cert_file, moq_tls_key_file=key_file,
+                            logger=LoggerConfig(level="warning")))
+    check(state.pipeline.renderer.options.async_compile,
+          "moq: a live server must capture in the background")
+    log = RenderLog(state.pipeline.renderer, keep_calls=False)
+    server = _ApiServer(state)
+    decoder_log = _DecoderLog().__enter__()
+    try:
+        ports = []
+        for i in range(n):
+            status, reply = server.call("POST", f"/api/input/input_{i}/register",
+                                        {"type": "moq_server", "auth_token": f"token-{i}"})
+            check(status == 200 and sorted(reply) == ["port"], f"moq: input_{i}: {status} {reply}")
+            ports.append(reply["port"])
+        check(len(set(ports)) == 1 and ports[0] == state.moq_server.port,
+              f"moq: the inputs do not share the server's listener: {ports}")
+        targets = [{"url": f"moql://127.0.0.1:{ports[0]}/input_{i}?token=token-{i}",
+                    "container": "cmaf" if i < 2 else "legacy"} for i in range(n)]
+        rx_port = _peer_message(conn, peer, 300, "the receiver's start", "moq")[1]
+        status, reply = server.call("POST", "/api/output/out/register", {
+            "type": "moq_client", "endpoint_url": f"moql://127.0.0.1:{rx_port}/out?token=out-token",
+            "broadcast_path": "composed", "container": "cmaf",
+            "video": {"resolution": {"width": out_w, "height": out_h},
+                      "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
+                      "initial": {"root": edge_scene_wire(out_w, out_h, n, 0)}}})
+        check((status, reply) == (200, {}), f"moq: output: {status} {reply}")
+        scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+        tracing.reset()
+        status, reply = server.call("POST", "/api/start", {})
+        check((status, reply) == (200, {}), f"moq: start: {status} {reply}")
+        with log.capture_syncs() if on_card else contextlib.nullcontext():
+            conn.send(("go", targets))
+            t_go = time.perf_counter()
+            time.sleep(max(0.0, t_go + update_at - time.perf_counter()))
+            t_update = time.perf_counter()
+            status, reply = server.call("POST", "/api/output/out/update",
+                                        {"video": {"root": edge_scene_wire(out_w, out_h, n, 1)}})
+            check((status, reply) == (200, {}), f"moq: update: {status} {reply}")
+            t_updated = time.perf_counter()
+            time.sleep(max(0.0, t_go + seconds - 1.0 - time.perf_counter()))
+            events_live = [(e.kind, e.entity_id) for e in state.pipeline.events.history()]
+            sent = _peer_message(conn, peer, 120, "the publishers' end", "moq")[1]
+            time.sleep(EDGE_TAIL_S)
+        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                    "sdf_layers": sdf_layers.LAUNCHES}
+        spans = tracing.report()
+        status, reply = server.call("POST", "/api/output/out/unregister", {})
+        check((status, reply) == (200, {}), f"moq: output unregister: {status} {reply}")
+        for i in range(n):
+            status, reply = server.call("POST", f"/api/input/input_{i}/unregister", {})
+            check((status, reply) == (200, {}), f"moq: input_{i} unregister: {status} {reply}")
+        status, st = server.call("GET", "/status")
+        check(status == 200 and st["inputs"] == [] and st["outputs"] == [],
+              f"moq: /status after the unregisters: {st}")
+        check(state.moq_state.find("input_0") is None, "moq: an unregistered input kept its name")
+        conn.send(("stop",))
+        result = _peer_message(conn, peer, 300, "the receiver's report", "moq")[1]
+    finally:
+        decoder_log.__exit__(None, None, None)
+        state.pipeline.close()
+        if state.moq_server is not None:
+            state.moq_server.close()
+        server.stop()
+        shutil.rmtree(tls_dir, ignore_errors=True)
+        peer.join(timeout=30)
+        if peer.is_alive():
+            peer.kill()
+            peer.join(timeout=10)
+    check(peer.exitcode == 0, f"moq: the peer exited with {peer.exitcode}")
+    check(sent["senders_alive"] == 0, "moq: a publisher hung")
+    # the broadcasts carry no audio track: each input's audio ends at once
+    bad = [e for e in events_live if e[0] in ("OUTPUT_ERROR", "VIDEO_INPUT_EOS")]
+    check(not bad, f"moq: events before the publishers finished: {bad}")
+    received = live_frame_checks("moq", result["frames"], n, out_w, out_h, seconds,
+                                 sent["t0"], sent["t_end"], result["send0"])
+    renders = live_render_checks("moq", log, t_update, t_updated, on_card)
+    out = dict(inputs=n, containers={c: [t["container"] for t in targets].count(c)
+                                     for c in ("cmaf", "legacy")},
+               out=f"{out_w}x{out_h}", seconds=seconds, **received, **renders,
+               **live_spans(spans), decoders=decoder_stats(decoder_log),
+               frames_sent=sent["frames_sent"], run_s=time.perf_counter() - t_run, card=stamp)
+    print(f"moq media {n}x{in_w}x{in_h}->{out_w}x{out_h}: launches {launches}")
+    return launches, out
+
+
+def moq_transport(stamp):
+    """Phase 13a: the gated run and the capacity runs of
+    `moq_transport_phase`, timed against the part's 60 s budget (recorded;
+    the run fails past MOQ_TRANSPORT_CEILING_S, which keeps the script well
+    inside its watchdog whatever the host's speed)."""
+    t_phase = time.perf_counter()
+    transport = {"gated": moq_transport_phase(stamp)}
+    for n in MOQ_CAPACITY_INPUTS:
+        transport[f"capacity_{n}"] = moq_transport_phase(
+            stamp, n=n, deadline_s=MOQ_CAPACITY_WAIT_S, gated=False)
+    transport.update(phase_s=time.perf_counter() - t_phase, budget_s=60.0)
+    check(transport["phase_s"] < MOQ_TRANSPORT_CEILING_S,
+          f"moq: the transport took {transport['phase_s']:.1f} s")
+    return transport
+
+
+def moq_phase(dev, stamp, transport):
+    """Phase 13: with 13a's numbers (`moq_transport`), the media path (13b)
+    where the codec service loads (`edges_unavailable`, one probe); prints
+    `{"moq": {"transport": ..., "media": ...}}`. Returns (the media path's
+    kernel launches or None when it is skipped, the printed numbers)."""
+    why = edges_unavailable()
+    launches = None
+    if why is None:
+        t_media = time.perf_counter()
+        launches, media = moq_media_phase(dev, stamp)
+        check(time.perf_counter() - t_media < 120, "moq: the media path took more than 120 s")
+    else:
+        media = {"skipped": why}
+    out = {"transport": transport, "media": media}
+    print(json.dumps({"moq": out}))
+    return launches, out
+
+
+def live_frame_checks(label, frames, n, out_w, out_h, seconds, t0, t_end, send0):
+    """The gates of a live phase on the output frames its peer received
+    (`edge_frame_stats` with an `arrival` time each): every frame out_w x
+    out_h, at least 15 a second; from the first frame in which every tile
+    probe that no overlay can reach shows its input's colour (mean Y, U, V
+    within 6), every frame received before the senders finished shows them,
+    and every tile shows its input's colour in some frame. Returns the
+    numbers: frames/s received over [t0, t_end] and the latency from an
+    input 0 frame's send (`send0[k]`) to the arrival of the first output
+    frame that shows its index k."""
     check(all(f["shape"] == [[out_h, out_w], [out_h // 2, out_w // 2]] for f in frames),
-          "edges: a received frame of another size")
+          f"{label}: a received frame of another size")
     check(len(frames) >= 15 * seconds,
-          f"edges: {len(frames)} frames received in {seconds} s, fewer than 15 a second")
+          f"{label}: {len(frames)} frames received in {seconds} s, fewer than 15 a second")
     probes = edge_probes(n, out_w, out_h)
     colours = [edge_colour(i) for i in range(n)]
 
@@ -2708,33 +3370,15 @@ def edges_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
         return all(abs(a - b) <= 6 for a, b in zip(f["tiles"][i], colours[i]))
 
     free = [i for i, p in enumerate(probes) if not p[3]]
-    check(free, "edges: every tile probe lies under an overlay's path")
+    check(free, f"{label}: every tile probe lies under an overlay's path")
     live = [f for f in frames if f["arrival"] is not None and f["arrival"] < t_end]
     first = next((k for k, f in enumerate(live) if all(shows(f, i) for i in free)), None)
-    check(first is not None, "edges: no frame shows every uncovered tile's input")
+    check(first is not None, f"{label}: no frame shows every uncovered tile's input")
     off = [(k, i, [round(x, 1) for x in live[k]["tiles"][i]]) for k in range(first, len(live))
            for i in free if not shows(live[k], i)]
-    check(not off, f"edges: tiles off their input's colour (frame, tile, YUV): {off[:8]}")
+    check(not off, f"{label}: tiles off their input's colour (frame, tile, YUV): {off[:8]}")
     never = [i for i in range(n) if not any(shows(f, i) for f in frames)]
-    check(not never, f"edges: tiles that never show their input's colour: {never}")
-
-    per = log.frames
-    # the renders of the output's frames that were not frozen; their own
-    # launches, on the renderer thread (background captures' warm-ups count
-    # on their own threads)
-    rendered = [f for f in per if f["outputs"] and not f["frozen"]]
-    frozen_after = [f for f in per if f["frozen"] and f["t"] > t_updated]
-    k3_before = [f["pts"] for f in per if f["k3"] and f["t"] < t_update]
-    if on_card:
-        check(rendered and all(f["k1"] == 1 and f["k2"] == 1 for f in rendered),
-              f"edges: K1/K2 not once per render: {[(f['k1'], f['k2']) for f in rendered]}")
-        check(any(f["k3"] for f in rendered if f["t"] > t_updated),
-              "edges: K3 never ran on the update's animating frames")
-        check(not k3_before, f"edges: K3 ran before the update, pts {k3_before}")
-        replays = {k for k, f in enumerate(per) if not f["built"] and not f["frozen"]}
-        synced = sorted({k for name, k in log.syncs if name == "renderer" and k in replays})
-        check(not synced, f"edges: the renderer thread synchronised on replays {synced}")
-
+    check(not never, f"{label}: tiles that never show their input's colour: {never}")
     arrivals = sorted(f["arrival"] for f in frames if f["arrival"] is not None)
     in_window = [t for t in arrivals if t0 <= t <= t_end]
     fps = ((len(in_window) - 1) / (in_window[-1] - in_window[0])
@@ -2743,35 +3387,148 @@ def edges_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
     for f in frames:
         if f["index"] is not None and f["arrival"] is not None:
             first_show.setdefault(f["index"], f["arrival"])
-    send0 = result["send0"]
     lat = sorted((t - send0[k]) * 1e3 for k, t in first_show.items() if k < len(send0))
+    return dict(frames_received=len(frames), fps_received=fps,
+                latency_p50_ms=statistics.median(lat) if lat else None,
+                latency_p95_ms=lat[int(0.95 * (len(lat) - 1))] if lat else None,
+                latency_frames=len(lat), first_all_tiles_frame=first)
 
+
+def live_render_checks(label, log, t_update, t_updated, on_card):
+    """The gates of a live phase on its renders (`RenderLog`): on the card,
+    K1 and K2 once in every render that was not frozen (its own launches, on
+    the renderer thread: a background capture's warm-up counts on its
+    thread), K3 in a render after the update and in none before, and no
+    synchronising call on the renderer thread in a render that replayed a
+    graph. Returns the counts of renders."""
+    per = log.frames
+    rendered = [f for f in per if f["outputs"] and not f["frozen"]]
+    frozen_after = [f for f in per if f["frozen"] and f["t"] > t_updated]
+    k3_before = [f["pts"] for f in per if f["k3"] and f["t"] < t_update]
+    if on_card:
+        check(rendered and all(f["k1"] == 1 and f["k2"] == 1 for f in rendered),
+              f"{label}: K1/K2 not once per render: {[(f['k1'], f['k2']) for f in rendered]}")
+        check(any(f["k3"] for f in rendered if f["t"] > t_updated),
+              f"{label}: K3 never ran on the update's animating frames")
+        check(not k3_before, f"{label}: K3 ran before the update, pts {k3_before}")
+        replays = {k for k, f in enumerate(per) if not f["built"] and not f["frozen"]}
+        synced = sorted({k for name, k in log.syncs if name == "renderer" and k in replays})
+        check(not synced, f"{label}: the renderer thread synchronised on replays {synced}")
+    return dict(frozen_by_update=len(frozen_after), renders=len(per), rendered=len(rendered))
+
+
+def live_spans(spans):
+    """The render, fetch-host and encode spans of a live run's
+    `tracing.report()`."""
     def span(name):
         s = spans.get(name, {})
         return {k: s.get(k) for k in ("count", "p50_ms", "p95_ms", "avg_ms")}
 
-    busy = profile_busy(prof, prof_span) if on_card else None
-    decoders = [dict(thread=d["thread"], sent=d["sent"], decoded=d["out"],
-                     held_at_end=d["sent"] - d["out"],
-                     delay_frames_max=max(d["delays"], default=None),
-                     delay_frames_p50=(statistics.median(d["delays"]) if d["delays"] else None))
-                for d in decoder_log.decoders]
-    out = dict(inputs=n, protocols={k: kinds.count(k) for k in sorted(set(kinds))},
-               out=f"{out_w}x{out_h}", seconds=seconds,
-               received_per_s=receive_log.per_second(max(t_end - t0, 1e-9)),
-               capture_launches=capture_launches,
-               frames_received=len(frames), fps_received=fps,
-               latency_p50_ms=statistics.median(lat) if lat else None,
-               latency_p95_ms=lat[int(0.95 * (len(lat) - 1))] if lat else None,
-               latency_frames=len(lat), first_all_tiles_frame=first,
-               frozen_by_update=len(frozen_after), renders=len(per), rendered=len(rendered),
-               render=span("render.frame"), fetch_host=span("render.fetch_host"),
-               encode=span("codec.video_encode"), device_busy=busy, busy_window_s=prof_span,
-               decoders=decoders, frames_sent=sent["frames_sent"],
-               run_s=time.perf_counter() - t_run, card=stamp)
-    print(f"edges {n}x{in_w}x{in_h}->{out_w}x{out_h}: launches {launches}")
-    print(json.dumps({"edges": out}))
-    return launches, out
+    return dict(render=span("render.frame"), fetch_host=span("render.fetch_host"),
+                encode=span("codec.video_encode"))
+
+
+def decoder_stats(decoder_log):
+    """Each logged decoder's sends, frames, frames held back at the end and
+    delay in frames (`_DecoderLog`)."""
+    return [dict(thread=d["thread"], sent=d["sent"], decoded=d["out"],
+                 held_at_end=d["sent"] - d["out"],
+                 delay_frames_max=max(d["delays"], default=None),
+                 delay_frames_p50=(statistics.median(d["delays"]) if d["delays"] else None))
+            for d in decoder_log.decoders]
+
+
+# the reference's three 4K goldens (tests/snapshots/res4k_*.png), too slow
+# to render on the CPU in the test suite: rendered here on the card
+
+GOLDEN_IN_W, GOLDEN_IN_H = 160, 90
+GOLDEN_ALLOWED_ERROR = 1.0  # mean abs u8 error per channel (tests/harness.ALLOWED_ERROR)
+
+
+def golden_input(index, w=GOLDEN_IN_W, h=GOLDEN_IN_H):
+    """`tests/harness.make_test_input(index, (w, h))` with the port's BT.709
+    conversion: a solid hue per index, a white square at the top left and a
+    black bar at the bottom, as planar YUV420 (a host Frame of u8 planes)."""
+    import torch
+
+    from smelter_tpu_torch.core.types import Frame, PixelFormat, Resolution
+    from smelter_tpu_torch.ops import color_convert as cc
+
+    hues = [(0.9, 0.2, 0.2), (0.2, 0.9, 0.2), (0.2, 0.2, 0.9), (0.9, 0.9, 0.2),
+            (0.9, 0.2, 0.9), (0.2, 0.9, 0.9), (0.7, 0.5, 0.3), (0.3, 0.5, 0.7)]
+    rgb = torch.empty((3, h, w), dtype=torch.float32)
+    rgb[:] = torch.tensor(hues[index % len(hues)]).view(3, 1, 1)
+    rgb[:, : h // 8, : w // 8] = 1.0
+    rgb[:, -h // 16:, :] = 0.0  # the harness's slice: the last ceil(h / 16) rows
+    y, u, v = cc.rgb_planes_to_yuv(rgb[0], rgb[1], rgb[2])
+    planes = (cc.f32_to_u8(y), cc.f32_to_u8(cc.downsample_chroma_2x2(u)),
+              cc.f32_to_u8(cc.downsample_chroma_2x2(v)))
+    return Frame(data=tuple(p.numpy() for p in planes), format=PixelFormat.PLANAR_YUV420,
+                 resolution=Resolution(w, h), pts=0.0)
+
+
+def golden_scene(name):
+    """(number of inputs, root component) of a 4K golden, built with the
+    port's components as `tests/test_snapshots_extended.py` (res4k_tiles_16,
+    res4k_general_rotated) and `tests/test_snapshots_round5.py`
+    (res4k_general_bench16) build them."""
+    from smelter_tpu_torch.core.types import RGBAColor
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.scene.layout_types import BorderRadius, BoxShadow
+
+    inputs = [comp.InputStream(input_id=f"input_{i}") for i in range(16)]
+    if name == "res4k_tiles_16":
+        return 16, comp.Tiles(background_color=RGBAColor(16, 16, 16, 255), children=inputs)
+    n, h, rotated = {"res4k_general_rotated": (8, 1020.0, {2: 30.0, 5: -15.0}),
+                     "res4k_general_bench16": (16, 480.0, {5: 30.0, 10: -15.0})}[name]
+    children = []
+    for i in range(n):
+        row, col = divmod(i, 4)
+        shadow = ([BoxShadow(offset_x=10.0, offset_y=10.0, blur_radius=24.0,
+                             color=RGBAColor(0, 0, 0, 160))] if i % 3 == 0 else [])
+        children.append(comp.Rescaler(
+            child=inputs[i], border_radius=BorderRadius(24.0, 24.0, 24.0, 24.0),
+            border_width=4.0 if i % 2 else 0.0, border_color=RGBAColor(255, 255, 255, 220),
+            box_shadow=shadow,
+            position=comp.AbsolutePosition(width=900.0, height=h, top=float(row * (h + 60.0) + 30),
+                                           left=float(col * 960 + 30),
+                                           rotation_degrees=rotated.get(i, 0.0))))
+    return n, comp.View(background_color=RGBAColor(8, 8, 8), children=children)
+
+
+def goldens_4k_phase(dev, stamp):
+    """Renders each 4K golden's scene (`golden_scene`, `golden_input`
+    frames) with the port's renderer on the card into RGBA and holds it to
+    the committed PNG: mean abs error per channel <= GOLDEN_ALLOWED_ERROR.
+    Returns {golden: mean abs error}."""
+    import numpy as np
+    from PIL import Image
+
+    from smelter_tpu_torch.core.types import FrameSet, PixelFormat, Resolution
+    from smelter_tpu_torch.render.renderer import Renderer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    errors = {}
+    for name in ("res4k_tiles_16", "res4k_general_rotated", "res4k_general_bench16"):
+        n, scene = golden_scene(name)
+        r = Renderer(device=dev)
+        try:
+            for i in range(n):
+                r.register_input(f"input_{i}")
+            r.update_scene("out", scene, Resolution(OUT_W, OUT_H), PixelFormat.RGBA)
+            frames = {f"input_{i}": golden_input(i) for i in range(n)}
+            out = r.render(FrameSet(pts=0.0, frames=frames)).frames["out"]
+            rgb = out.data[..., :3].cpu().numpy().astype(np.float32)
+        finally:
+            r.close()
+        with Image.open(os.path.join(root, "tests", "snapshots", f"{name}.png")) as png:
+            golden = np.asarray(png.convert("RGB"), np.float32)
+        check(golden.shape == rgb.shape, f"{name}: shape {rgb.shape} != {golden.shape}")
+        errors[name] = float(np.abs(golden - rgb).mean())
+        print(f"golden {name}: mean abs error {errors[name]:.4f} {stamp}")
+    off = {k: v for k, v in errors.items() if v > GOLDEN_ALLOWED_ERROR}
+    check(not off, f"4K goldens past a mean abs error of {GOLDEN_ALLOWED_ERROR}: {off}")
+    return errors
 
 
 def profile_busy(prof, span_s):
@@ -2841,6 +3598,12 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "Used" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
+
+    # phase 13a: MoQ's transport, first, while this process holds nothing else
+    # (its receiving side shares the interpreter with whatever runs)
+    t_phase = time.perf_counter()
+    moq_transport_numbers = moq_transport(stamp)
+    print(f"moq transport: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 3 and 4: each kernel against its plain version on the card
     k2_err = k2_checks(yuv_out, dev)
@@ -2998,6 +3761,18 @@ def main() -> int:
         check(all(edge_launches.values()), f"edges: a kernel never launched: {edge_launches}")
     print(f"edges phase: {time.perf_counter() - t_phase:.1f} s")
 
+    # phase 13b: MoQ's media path through the server
+    t_phase = time.perf_counter()
+    moq_launches, moq = moq_phase(dev, stamp, moq_transport_numbers)
+    if moq_launches is not None:
+        check(all(moq_launches.values()), f"moq: a kernel never launched: {moq_launches}")
+    print(f"moq phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # the reference's 4K goldens, rendered on the card
+    t_phase = time.perf_counter()
+    golden_errors = goldens_4k_phase(dev, stamp)
+    print(f"4K goldens: {time.perf_counter() - t_phase:.1f} s")
+
     # phase 9: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
     # synchronised call (cuda_ms), "plain" = the plain version, one call;
@@ -3128,6 +3903,8 @@ def main() -> int:
     print(json.dumps({"nodes": {"kernel_launches": node_launches, **nodes}}))
     print(json.dumps({"captured_programs": {"builders": builder_stats, **capture_stats,
                                             "pipeline async": pipe_async, "card": card}}))
+    print(json.dumps({"goldens_4k": {"mean_abs_error": golden_errors,
+                                     "allowed": GOLDEN_ALLOWED_ERROR, "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
     # slice's main path; no single PyTorch call computes any of the three functions:
@@ -3141,7 +3918,8 @@ def main() -> int:
                               "animated": anim_launches["scene_assembly"],
                               "pipeline": pipe_launches["scene_assembly"],
                               "nodes": node_launches["scene_assembly"],
-                              "edges": edge_launches and edge_launches["scene_assembly"]},
+                              "edges": edge_launches and edge_launches["scene_assembly"],
+                              "moq": moq_launches and moq_launches["scene_assembly"]},
          "max_abs_err": k1_err,
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -3155,7 +3933,8 @@ def main() -> int:
                               "animated": anim_launches["yuv_out"],
                               "pipeline": pipe_launches["yuv_out"],
                               "nodes": node_launches["yuv_out"],
-                              "edges": edge_launches and edge_launches["yuv_out"]},
+                              "edges": edge_launches and edge_launches["yuv_out"],
+                              "moq": moq_launches and moq_launches["yuv_out"]},
          "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
@@ -3168,7 +3947,8 @@ def main() -> int:
                               "animated": anim_launches["sdf_layers"],
                               "pipeline": pipe_launches["sdf_layers"],
                               "nodes": node_launches["sdf_layers"],
-                              "edges": edge_launches and edge_launches["sdf_layers"]},
+                              "edges": edge_launches and edge_launches["sdf_layers"],
+                              "moq": moq_launches and moq_launches["sdf_layers"]},
          "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
@@ -3184,8 +3964,22 @@ def main() -> int:
     return 0
 
 
+def moq_capacity(counts, wait_s=20.0):
+    """`python3 chip_smoke.py --moq-capacity N ...`: phase 13a's transport
+    alone, ungated, at each publisher count N (`wait_s` after the last
+    write), one JSON line each; the card is not used (its `nvidia-smi`
+    line labels the numbers)."""
+    stamp = f"[{nvidia_smi()}]"
+    for n in counts:
+        out = moq_transport_phase(stamp, n=n, deadline_s=wait_s, gated=False)
+        print(json.dumps({"moq_capacity": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--moq-capacity"]:
+            sys.exit(moq_capacity([int(n) for n in sys.argv[2:]]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

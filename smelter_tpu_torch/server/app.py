@@ -15,12 +15,9 @@ for registered MP4s, error bodies `{"error_code", "message", ...}`.
 
 The port's server composes on the CUDA card; ``SMELTER_DEVICE=cpu`` runs
 it on the CPU, and without a card it refuses to start. It carries the
-reference's MP4, HLS, RTP, RTMP(S), WHIP/WHEP, V4L2 and DeckLink inputs and
-outputs, the /whip, /whep and /preview endpoints, and the shader, image,
-web-renderer and font resources. MoQ (the `moq_server` and `moq_client`
-inputs, the `moq_client` output; ROADMAP Queue 1 item 10) is not ported: it
-answers NOT_IMPLEMENTED (501) with the reference's error body, after
-validating the request, and registers nothing.
+reference's MP4, HLS, RTP, RTMP(S), WHIP/WHEP, V4L2, DeckLink and MoQ
+inputs and outputs, the /whip, /whep and /preview endpoints, and the shader,
+image, web-renderer and font resources.
 """
 
 from __future__ import annotations
@@ -49,8 +46,6 @@ import pydantic
 
 logger = logging.getLogger("smelter.server")
 
-PROTOCOL_EDGES = "ROADMAP Queue 1 item 10 (protocol edges)"
-
 _REGISTER_INPUT = pydantic.TypeAdapter(api.RegisterInput)
 _REGISTER_OUTPUT = pydantic.TypeAdapter(api.RegisterOutput)
 
@@ -61,12 +56,6 @@ class ApiError(Exception):
         self.error_code = error_code
         self.message = message
         self.http_status = http_status
-
-
-def _not_ported(what: str, item: str) -> ApiError:
-    return ApiError(
-        "NOT_IMPLEMENTED", f"{what} is not ported to smelter_tpu_torch yet: {item}", 501
-    )
 
 
 def _error_response(exc: Exception) -> web.Response:
@@ -107,6 +96,32 @@ class ApiState:
         self.start_time: Optional[float] = None
         self.input_kinds: dict = {}
         self.output_kinds: dict = {}
+        self.moq_server = None
+        self.moq_state = None
+        if config.start_moq_server:
+            self._start_moq_server()
+
+    def _start_moq_server(self):
+        """Start (or return) the shared MoQ QUIC server (reference
+        spawn_moq_server, instance.rs:630-646 + moq/server.rs). Lazily
+        started on first moq_server input when SMELTER_START_MOQ_SERVER
+        is unset, so tests and ad-hoc registrations just work."""
+        if self.moq_server is None:
+            from smelter_tpu_torch.io.moq import MoqServer, MoqServerState
+
+            cert = key = None
+            c = self.config
+            if c.moq_tls_cert_file and c.moq_tls_key_file:
+                with open(c.moq_tls_cert_file, "rb") as f:
+                    cert = f.read()
+                with open(c.moq_tls_key_file, "rb") as f:
+                    key = f.read()
+            self.moq_state = MoqServerState()
+            self.moq_server = MoqServer(
+                c.moq_server_port if c.start_moq_server else 0,
+                self.moq_state, cert_der=cert, key_pem=key,
+            )
+        return self.moq_server
 
     def _new_pipeline(self) -> Pipeline:
         c = self.config
@@ -434,7 +449,68 @@ def build_app(state: ApiState) -> web.Application:
                     )
                     state.input_kinds[input_id] = "whep"
                     return {}
-                raise _not_ported(f"input protocol {spec.type!r}", PROTOCOL_EDGES)
+                if isinstance(spec, api.MoqServerInput):
+                    from smelter_tpu_torch.io.moq.input import (
+                        MoqServerInput as _MoqSrc,
+                        MoqServerInputOptions,
+                    )
+                    from smelter_tpu_torch.pipeline.instance import RegisterInputOptions
+
+                    server = state._start_moq_server()
+                    source = _MoqSrc(MoqServerInputOptions(
+                        auth_token=spec.auth_token,
+                        decoder_map=spec.decoder_map,
+                    ))
+                    sc = spec.side_channel or {}
+                    state.pipeline.register_input(
+                        input_id,
+                        source,
+                        RegisterInputOptions(
+                            required=bool(spec.required),
+                            # no offset_ms: the reference MoqServerInput
+                            # schema has none (input/moq_server.rs)
+                            side_channel_video=bool(sc.get("video")),
+                            side_channel_audio=bool(sc.get("audio")),
+                            side_channel_dir=state.config.side_channel_socket_dir
+                            or None,
+                        ),
+                    )
+                    state.moq_state.register(input_id, source)
+                    state.input_kinds[input_id] = "moq_server"
+                    return {"port": server.port}
+                if isinstance(spec, api.MoqClientInput):
+                    from smelter_tpu_torch.io.moq.input import (
+                        MoqClientInput as _MoqCli,
+                        MoqClientInputOptions,
+                    )
+                    from smelter_tpu_torch.pipeline.instance import RegisterInputOptions
+
+                    source = _MoqCli(MoqClientInputOptions(
+                        endpoint_url=spec.endpoint_url,
+                        broadcast_path=spec.broadcast_path,
+                        decoder_map=spec.decoder_map,
+                        verify_tls=not state.config.moq_disable_tls_verification,
+                    ))
+                    sc = spec.side_channel or {}
+                    state.pipeline.register_input(
+                        input_id,
+                        source,
+                        RegisterInputOptions(
+                            required=bool(spec.required),
+                            offset=(spec.offset_ms / 1000.0)
+                            if spec.offset_ms is not None
+                            else None,
+                            side_channel_video=bool(sc.get("video")),
+                            side_channel_audio=bool(sc.get("audio")),
+                            side_channel_dir=state.config.side_channel_socket_dir
+                            or None,
+                        ),
+                    )
+                    state.input_kinds[input_id] = "moq_client"
+                    return {}
+                raise NotImplementedError(
+                    f"input protocol {spec.type!r} is not implemented yet"
+                )
 
             result = await _run_blocking(do)
             return _json_ok(result)
@@ -447,6 +523,8 @@ def build_app(state: ApiState) -> web.Application:
         def do() -> None:
             state.pipeline.unregister_input(input_id)
             state.input_kinds.pop(input_id, None)
+            if state.moq_state is not None:
+                state.moq_state.unregister(input_id)
 
         try:
             when = await _unregister_schedule(request)
@@ -565,6 +643,30 @@ def build_app(state: ApiState) -> web.Application:
                     state.pipeline.register_output(output_id, sink, video, audio)
                     state.output_kinds[output_id] = "rtmp"
                     return {}
+                if isinstance(spec, api.MoqClientOutput):
+                    from smelter_tpu_torch.io.moq import MoqClientOutput as _MoqSink
+
+                    video = (
+                        convert.output_video_options(spec.video, "moq")
+                        if spec.video
+                        else None
+                    )
+                    audio = (
+                        convert.output_audio_options(spec.audio)
+                        if spec.audio
+                        else None
+                    )
+                    sink = _MoqSink(
+                        spec.endpoint_url,
+                        spec.broadcast_path,
+                        container=spec.container or "cmaf",
+                        has_video=video is not None,
+                        has_audio=audio is not None,
+                        verify_tls=not state.config.moq_disable_tls_verification,
+                    )
+                    state.pipeline.register_output(output_id, sink, video, audio)
+                    state.output_kinds[output_id] = "moq_client"
+                    return {}
                 if isinstance(spec, (api.WhepOutput, api.WhipOutput)):
                     video = (
                         convert.whip_output_video_options(spec.video, "webrtc")
@@ -617,7 +719,9 @@ def build_app(state: ApiState) -> web.Application:
                     state.pipeline.register_output(output_id, sink, video, audio)
                     state.output_kinds[output_id] = "whip"
                     return {}
-                raise _not_ported(f"output protocol {spec.type!r}", PROTOCOL_EDGES)
+                raise NotImplementedError(
+                    f"output protocol {spec.type!r} is not implemented yet"
+                )
 
             result = await _run_blocking(do)
             return _json_ok(result)
@@ -1087,8 +1191,7 @@ def build_app(state: ApiState) -> web.Application:
 def run(config: Optional[Config] = None) -> None:
     """Serve the API on the configured port (and the WHIP/WHEP endpoints on
     their own port too when `start_whip_whep_server`). `Config.xla_debug`
-    and the MoQ server settings are read and reported but have no effect:
-    the port has no XLA, and MoQ is not ported yet."""
+    is read and reported but has no effect: the port has no XLA."""
     cfg = config or read_config()
     from smelter_tpu_torch.config import init_logger
 

@@ -2,7 +2,8 @@
 module of the reference package (and renders a scene of its own components
 with a shader, an image asset and a WebView without them: PIL is loaded
 only to raster a Text or decode an image, websockets only to reach a
-browser), and its pipeline without aiohttp or pydantic; the protocol edges
+browser), and its pipeline without aiohttp, pydantic or cryptography; its
+MoQ and QUIC edges without the reference package; the protocol edges
 load their native helpers (DTLS, DeckLink) only when an endpoint is made; its
 entry points refuse to run without a card unless given `device="cpu"`; and
 `chip_smoke.py` refuses to run (non-zero exit, no "ok" line) where torch
@@ -79,7 +80,8 @@ def test_port_imports_without_jax_or_triton():
     assert out.returncode == 0, out.stderr
     n_edges, n_modules, has_jax, has_triton, has_pil, has_ws, n_reference = out.stdout.split()
     assert int(n_modules) >= 10  # every module of the port was imported
-    assert int(n_edges) == 19  # the protocol edges: rtp, rtcp, rtmp/*, webrtc/*, v4l2, decklink
+    # the protocol edges: rtp, rtcp, rtmp/*, webrtc/*, v4l2, decklink, moq/*, quic/*
+    assert int(n_edges) == 34
     assert has_jax == "False"
     assert has_triton == "False"
     assert has_pil == "False"  # no Text rendered, no image decoded
@@ -124,14 +126,37 @@ def test_edge_libraries_load_only_when_an_endpoint_is_made():
 def test_pipeline_imports_without_the_server_stack():
     """The card's machine has neither aiohttp nor pydantic: the pipeline
     must import without them (only the server and the API schema need
-    them)."""
+    them), and without `cryptography` (only the MoQ, QUIC and WebRTC edges
+    need it)."""
     code = ("import sys, smelter_tpu_torch.pipeline\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
-            "{'aiohttp', 'pydantic', 'jax', 'smelter_tpu'}))")
+            "{'aiohttp', 'pydantic', 'jax', 'smelter_tpu', 'cryptography'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+_MOQ_QUIC = """
+import importlib, pkgutil, sys
+import smelter_tpu_torch.io.moq, smelter_tpu_torch.io.quic
+names = sorted(m.name for p in ("moq", "quic") for m in pkgutil.walk_packages(
+    getattr(smelter_tpu_torch.io, p).__path__, f"smelter_tpu_torch.io.{p}."))
+for name in names:
+    importlib.import_module(name)
+print(len(names), sorted({m.split(".")[0] for m in sys.modules} & {"jax", "smelter_tpu"}),
+      "aiohttp" in sys.modules, "pydantic" in sys.modules)
+"""
+
+
+def test_moq_and_quic_import_without_the_reference():
+    """The 13 modules under `io/moq/` and `io/quic/` (and the packages
+    themselves) load neither JAX nor any module of the reference package,
+    nor the server stack."""
+    out = subprocess.run([sys.executable, "-c", _MOQ_QUIC], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["13", "[]", "False", "False"]
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu():

@@ -6,11 +6,14 @@ web-renderer and font routes (and a shader registered over HTTP rendering
 into an MP4); the RTP, RTMP, WHIP, WHEP and preview routes (an RTP input
 registered over HTTP recorded into an MP4, and an MP4 composed into RTP, RTMP
 and WHIP outputs registered over HTTP: decoded frames within a mean abs error
-of 1.0 u8 per plane of the reference's); requests for MoQ, which is not
-ported, answer NOT_IMPLEMENTED with the ROADMAP item and register nothing."""
+of 1.0 u8 per plane of the reference's); and the MoQ routes: a
+`moq_server` input and a `moq_client` output registered, listed and
+unregistered as on the reference's."""
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import importlib
 import json
 import time
@@ -54,21 +57,40 @@ class PortServer(ServerThread):
 def _stop(server) -> None:
     try:
         server.state.pipeline.close()
+        if server.state.moq_server is not None:
+            server.state.moq_server.close()
     finally:
         server.stop()
 
 
+def _with_moq_tls(config, tmp_path, pkg: str):
+    """`config` with a TLS pair for the server's MoQ listener, written for
+    this test: the MoQ server's default certificate directory is a fixed
+    path that other workers write at the same time. Handed over as
+    SMELTER_MOQ_TLS_CERT_FILE and SMELTER_MOQ_TLS_KEY_FILE set it."""
+    from smelter_tpu_torch.io.quic.tls import generate_self_signed
+
+    cert, key = generate_self_signed()
+    paths = tmp_path / f"moq_cert_{pkg}.der", tmp_path / f"moq_key_{pkg}.pem"
+    paths[0].write_bytes(cert)
+    paths[1].write_bytes(key)
+    return dataclasses.replace(config, moq_tls_cert_file=str(paths[0]),
+                               moq_tls_key_file=str(paths[1]))
+
+
 @pytest.fixture()
-def server(monkeypatch):
+def server(monkeypatch, tmp_path):
     monkeypatch.setenv("SMELTER_DEVICE", "cpu")
-    s = PortServer(_config("smelter_tpu_torch"))
+    pkg = "smelter_tpu_torch"
+    s = PortServer(_with_moq_tls(_config(pkg), tmp_path, pkg))
     yield s
     _stop(s)
 
 
 @pytest.fixture()
-def reference_server():
-    s = ServerThread(_config("smelter_tpu"))
+def reference_server(tmp_path):
+    pkg = "smelter_tpu"
+    s = ServerThread(_with_moq_tls(_config(pkg), tmp_path, pkg))
     yield s
     _stop(s)
 
@@ -271,59 +293,112 @@ _VIEW_64 = {"resolution": {"width": 64, "height": 64}, "encoder": {"type": "ffmp
             "initial": {"root": {"type": "view", "background_color": "#000000FF"}}}
 
 
-@pytest.mark.parametrize("path,body,item", [
+@pytest.mark.parametrize("path,body", [
     ("/api/input/x/register", {"type": "rtp_stream", "port": 9000, "video": {
-        "decoder": "ffmpeg_h264"}, "audio": {"decoder": "aac"}}, "item 10"),
+        "decoder": "ffmpeg_h264"}, "audio": {"decoder": "aac"}}),
     ("/api/input/x/register", {"type": "rtmp_server", "app": "live",
-                               "stream_key": "k", "port": 70000}, "item 10"),
+                               "stream_key": "k", "port": 70000}),
     ("/api/output/x/register", {"type": "rtp_stream", "port": 9002, "video": {
         "resolution": {"width": 64, "height": 64}, "encoder": {"type": "ffmpeg_h264"},
-        "initial": {"root": {"type": "view", "background_color": "#zzz"}}}}, "item 10"),
-    ("/api/shader/s/register", {"source": "def shader(ctx): return ctx.texture(0)"}, "item 7"),
-    ("/api/image/i/register", {"asset_type": "png", "path": "/a.png"}, "item 7"),
+        "initial": {"root": {"type": "view", "background_color": "#zzz"}}}}),
+    ("/api/shader/s/register", {"source": "def shader(ctx): return ctx.texture(0)"}),
+    ("/api/image/i/register", {"asset_type": "png", "path": "/a.png"}),
     ("/api/web-renderer/w/register", {"url": "http://localhost/",
-                                      "resolution": {"width": 64, "height": 64}}, "item 7"),
-    ("/api/font/register", {"path": "/a.ttf"}, "item 7"),
-    ("/api/shader/s/unregister", {}, "item 7"),
-    ("/whip/x", None, "item 10"),
-    ("/whep/x", None, "item 10"),
-    ("/api/input/x/register", {"type": "moq_server", "auth_token": "t"}, "item 10"),
+                                      "resolution": {"width": 64, "height": 64}}),
+    ("/api/font/register", {"path": "/a.ttf"}),
+    ("/api/shader/s/unregister", {}),
+    ("/whip/x", None),
+    ("/whep/x", None),
+    ("/api/input/x/register", {"type": "moq_server", "auth_token": "t"}),
     ("/api/input/x/register", {"type": "moq_client", "endpoint_url": "https://localhost:1/",
-                               "broadcast_path": "a"}, "item 10"),
+                               "broadcast_path": "a"}),
     ("/api/output/x/register", {"type": "moq_client", "endpoint_url": "https://localhost:1/",
-                                "broadcast_path": "a", "video": _VIEW_64}, "item 10"),
+                                "broadcast_path": "a", "video": _VIEW_64}),
 ])
-def test_unported_requests_register_nothing(server, path, body, item, request):
-    """MoQ (the rest of item 10) answers NOT_IMPLEMENTED with the ROADMAP
-    item. The ported routes (the shader, image, web-renderer and font routes
-    of item 7; the RTP, RTMP, WHIP and WHEP edges of item 10) answer as the
+def test_edge_and_resource_requests_answer_as_the_reference(server, reference_server, path,
+                                                            body):
+    """The shader, image, web-renderer and font routes (ROADMAP item 7) and
+    the RTP, RTMP, WHIP, WHEP and MoQ edges (item 10) answer as the
     reference's server does to the same request: the same status, the same
     `error_code` (the shader source given fails validation, /a.png and
     /a.ttf do not exist, an AAC RTP input lacks its config, port 70000
     cannot be bound, `#zzz` is no colour, no WHIP input or WHEP output `x`
-    exists). Neither registers an input or an output."""
-    moq = body is not None and str(body.get("type", "")).startswith("moq")
-    answers = []
-    servers = [server] if moq else [request.getfixturevalue("reference_server"), server]
-    for s in servers:
-        with httpx.Client(base_url=s.base, timeout=30) as c:
+    exists, nothing answers QUIC on localhost:1 within the MoQ client's 15 s)
+    and the same body where 200 (a `moq_server` input answers the port of
+    the server's own MoQ listener, which differs between the two). `/status`
+    then lists what the reference's lists: nothing, the `moq_server` input
+    `x`, or (a fault of both: ROADMAP Queue 3) the `moq_client` input `x`
+    whose start failed. The two servers take the request at once (the MoQ
+    clients' waits overlap)."""
+    def ask(s):
+        with httpx.Client(base_url=s.base, timeout=60) as c:
             r = c.post(path, json=body) if body is not None else c.post(path, content=b"v=0")
-            answers.append((r.status_code, r.json()))
             st = c.get("/status").json()
-        assert st["inputs"] == [] and st["outputs"] == []
-    if not moq:
-        (ref_status, ref_body), (status, err) = answers
-        assert status == ref_status, (path, answers)
-        assert sorted(err) == sorted(ref_body) and err.get("error_code") == ref_body.get(
-            "error_code"), (path, answers)
-        if status == 200:
-            assert err == ref_body
-        return
-    status, err = answers[-1]
-    assert status == 501, err
-    assert sorted(err) == ["error_code", "message", "stack"]
-    assert err["error_code"] == "NOT_IMPLEMENTED"
-    assert f"ROADMAP Queue 1 {item}" in err["message"]
+        return r.status_code, r.json(), st["inputs"], st["outputs"]
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        answers = list(pool.map(ask, (reference_server, server)))
+    (ref_status, ref_body, ref_inputs, ref_outputs), (status, got, inputs, outputs) = answers
+    assert status == ref_status, (path, answers)
+    assert sorted(got) == sorted(ref_body) and got.get("error_code") == ref_body.get(
+        "error_code"), (path, answers)
+    assert (inputs, outputs) == (ref_inputs, ref_outputs), (path, answers)
+    assert outputs == []
+    if status == 200 and "port" in ref_body:
+        assert got["port"] == server.state.moq_server.port > 0
+        assert ref_body["port"] == reference_server.state.moq_server.port > 0
+    elif status == 200:
+        assert got == ref_body
+    for s in (reference_server, server):
+        for entry in inputs:
+            with httpx.Client(base_url=s.base, timeout=30) as c:
+                r = c.post(f"/api/input/{entry['input_id']}/unregister", json={})
+                assert r.status_code == 200, r.text
+                assert c.get("/status").json()["inputs"] == []
+        if s.state.moq_state is not None:
+            assert s.state.moq_state.find("x") is None
+
+
+def test_moq_registrations_over_http_match_the_reference(server, reference_server):
+    """A `moq_server` input and a `moq_client` output publishing into it,
+    both registered over HTTP on each server (its output connects to its own
+    MoQ listener; TLS verification off, as SMELTER_MOQ_DISABLE_TLS_VERIFICATION
+    sets it): the same answers, `/status` entries and unregisters as the
+    reference's, and the MoQ threads end once the listeners close."""
+    import threading
+
+    before = {t for t in threading.enumerate() if t.name.startswith(("quic", "moq"))}
+    answers = []
+    for s in (reference_server, server):
+        s.state.config.moq_disable_tls_verification = True
+        with httpx.Client(base_url=s.base, timeout=60) as c:
+            r_in = c.post("/api/input/m/register", json={"type": "moq_server",
+                                                          "auth_token": "t0k"})
+            assert r_in.status_code == 200, r_in.text
+            r_out = c.post("/api/output/o/register", json={
+                "type": "moq_client", "container": "legacy", "broadcast_path": "composed",
+                "endpoint_url": f"moql://127.0.0.1:{r_in.json()['port']}/m?token=t0k",
+                "video": _VIEW_64})
+            st = c.get("/status").json()
+            gone = [c.post("/api/output/o/unregister", json={}).status_code,
+                    c.post("/api/input/m/unregister", json={}).status_code]
+            after = c.get("/status").json()
+        answers.append((sorted(r_in.json()), r_out.status_code, r_out.json(), st["inputs"],
+                        st["outputs"], gone, after["inputs"], after["outputs"]))
+    assert answers[1] == answers[0]
+    assert answers[1][1:] == (200, {}, [{"input_id": "m", "input_type": "moq_server"}],
+                              [{"output_id": "o", "output_type": "moq_client"}], [200, 200], [],
+                              [])
+    for s in (reference_server, server):
+        s.state.moq_server.close()
+        s.state.pipeline.close()
+    deadline = time.time() + 15
+    left = None
+    while left is None or (left and time.time() < deadline):
+        time.sleep(0.1)
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith(("quic", "moq")) and t not in before]
+    assert not left, left
 
 
 @pytest.mark.parametrize("stage", [0, 1])

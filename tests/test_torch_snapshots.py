@@ -17,10 +17,13 @@ the reference's own snapshot test functions, with their `Renderer` swapped
 for the port's (`test_torch_web.PortRenderer`) and their `assert_snapshot`
 for a comparison that writes nothing.
 
-Scenes of those files left out: the static scenes of
-`tests/test_snapshots_extended.py` and `tests/test_snapshots_round5.py` (4K
-outputs, rotated and bordered layouts, tile counts) need nothing the port
-lacks, and wait only for a test of their own.
+The 13 static scenes of `tests/test_renderer.py` and
+`tests/test_snapshots_round5b.py` run the same way (the YUV420 output of
+`two_input_split` converted to RGB as `harness.assert_snapshot` converts
+it). The three 4K goldens (`res4k_*`) are rendered on the card by
+`chip_smoke.goldens_4k_phase`, at the same bound; here a test holds its
+scenes and input frames to the reference tests' own. Every golden of
+`tests/snapshots/` is read.
 """
 
 from __future__ import annotations
@@ -493,3 +496,91 @@ def test_port_renders_golden_node(golden, monkeypatch):
     assert golden in errors, f"{fn_name} rendered no frame named {golden}"
     err = errors[golden]
     assert err <= ALLOWED_ERROR, f"{golden}: mean error {err:.3f} > {ALLOWED_ERROR}"
+
+
+# golden -> (module, snapshot test function) of the static scenes of
+# tests/test_renderer.py and tests/test_snapshots_round5b.py
+SCENE_GOLDENS = {
+    "two_input_split": ("test_renderer", "test_two_input_split_yuv_out"),
+    "tiles_grid_4": ("test_renderer", "test_tiles_grid_snapshot"),
+    "view_border_radius_shadow": ("test_renderer", "test_view_border_radius_shadow"),
+    "tiles_03_portrait_inputs": ("test_snapshots_round5b", "test_tiles_portrait_inputs"),
+    "tiles_03_on_portrait_output": ("test_snapshots_round5b", "test_tiles_on_portrait_output"),
+    "view_overflow_visible_row": ("test_snapshots_round5b", "test_view_overflow_visible_row"),
+    "view_box_shadow_offset": ("test_snapshots_round5b", "test_box_shadow_offset"),
+    "view_box_shadow_over_sibling": ("test_snapshots_round5b", "test_box_shadow_over_sibling"),
+    "view_radius_large_border_clip": ("test_snapshots_round5b",
+                                      "test_border_radius_large_border_clip"),
+    "view_radius_degenerate_clamp": ("test_snapshots_round5b",
+                                     "test_border_radius_degenerate_clamp"),
+    "view_radius_degenerate_clamp_large_border": (
+        "test_snapshots_round5b", "test_border_radius_degenerate_clamp_large_border"),
+    "rescaler_fit_small_resolution": ("test_snapshots_round5b",
+                                      "test_rescaler_fit_small_resolution"),
+    "video_call_with_labels": ("test_snapshots_round5b", "test_video_call_with_labels"),
+}
+
+
+@pytest.mark.parametrize("golden", sorted(SCENE_GOLDENS))
+def test_port_renders_golden_scene(golden, monkeypatch):
+    """The reference's snapshot test of `golden` on the port's renderer (its
+    `Renderer` swapped for `test_torch_web.PortRenderer`): the frame named
+    `golden`, RGBA or PLANAR_YUV420 (converted to RGB as
+    `harness.assert_snapshot` converts it), compared with the committed PNG."""
+    import importlib
+
+    from harness import frame_to_rgb_u8
+    from test_torch_web import PortRenderer
+
+    module_name, fn_name = SCENE_GOLDENS[golden]
+    module = importlib.import_module(module_name)
+    errors = {}
+
+    def compare(name, frame, allowed_error=ALLOWED_ERROR):
+        errors[name] = _mean_error(name, frame_to_rgb_u8(frame))
+
+    monkeypatch.setattr(module, "Renderer", PortRenderer)
+    monkeypatch.setattr(module, "assert_snapshot", compare)
+    getattr(module, fn_name)()
+    assert golden in errors, f"{fn_name} rendered no frame named {golden}"
+    err = errors[golden]
+    assert err <= ALLOWED_ERROR, f"{golden}: mean error {err:.3f} > {ALLOWED_ERROR}"
+
+
+GOLDENS_4K = {
+    "res4k_tiles_16": ("test_snapshots_extended", "test_4k_tiles_grid_16"),
+    "res4k_general_rotated": ("test_snapshots_extended", "test_4k_general_rotated_tiles"),
+    "res4k_general_bench16": ("test_snapshots_round5", "test_4k_general_bench16"),
+}
+
+
+@pytest.mark.parametrize("golden", sorted(GOLDENS_4K))
+def test_chip_smoke_renders_the_4k_golden_scenes(golden, monkeypatch):
+    """The three 4K goldens are too slow to render on the CPU here;
+    `chip_smoke.goldens_4k_phase` renders them on the card. Its scene
+    (`golden_scene`, the port's components) is the one the reference's
+    snapshot test renders, its input frames (`golden_input`) are
+    `harness.make_test_input`'s, and its bound is `harness.ALLOWED_ERROR`."""
+    import importlib
+
+    import chip_smoke
+
+    module_name, fn_name = GOLDENS_4K[golden]
+    module = importlib.import_module(module_name)
+    seen = {}
+
+    def record(r, root, name, n_inputs=0, pts=0.0, res=RES):
+        seen[name] = (n_inputs, root, res, pts)
+
+    monkeypatch.setattr(module, "_render", record)
+    getattr(module, fn_name)()
+    n_inputs, root, res, pts = seen[golden]
+    assert chip_smoke.golden_scene(golden) == (n_inputs, from_reference(root))
+    assert (res.width, res.height, pts) == (chip_smoke.OUT_W, chip_smoke.OUT_H, 0.0)
+    assert module.IN_RES == Resolution(chip_smoke.GOLDEN_IN_W, chip_smoke.GOLDEN_IN_H)
+    for i in range(n_inputs):
+        want = make_test_input(i, module.IN_RES)
+        got = chip_smoke.golden_input(i)
+        for a, b in zip(want.data, got.data):
+            assert np.array_equal(np.asarray(a), b)
+    assert chip_smoke.GOLDEN_ALLOWED_ERROR == ALLOWED_ERROR
