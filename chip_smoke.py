@@ -140,6 +140,18 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      the port's renderer on the card and holds each to its PNG at a mean
      abs error of 1.0 per channel (`goldens_4k_phase`); prints
      `{"goldens_4k": ...}`.
+  15. the multi-device steps (`multichip_phase`, after the live phases have
+     closed their pipelines): (a) `graft_entry.dryrun_multichip(8,
+     device="cpu")`, 8 gloo ranks on a 2 x 4 ("streams", "space") mesh on
+     the card's host, gated on its own parity; (b) on the card over NCCL,
+     this process as the one rank of a 1 x 1 mesh: the grid step at
+     16 x 1080p -> 4K and the general step at 8 x 1080p -> 4K, each held to
+     its single-device builder on the card (<= 1 LSB, bit-equality
+     printed), the general step also to the port on the CPU at
+     8 x 480x270 -> 960x540, and the outputs-sharded step with 2 outputs at
+     4K, each equal to the compose of its order; prints each step's ms
+     beside one device's, each collective's ms and bytes, and
+     `{"multichip": ...}`; K2 and K3 must launch (the general step).
 The renderer phases (6, 7, 8's offline run and 10) run through captured
 programs: every render is also held bit for bit to the closure of its
 structure run eagerly on the same frame (`EagerCheck`, outside every count),
@@ -147,16 +159,17 @@ no frame that replays a graph may synchronise, the kernel and route counts
 are those of the graphs' records, and each phase prints its captures,
 structure keys, capture times and graph memory.
 (phase 13a runs right after the build, while the process holds nothing
-else; phase 10 runs between 8 and 9, phase 11 after 8, phases 12, 13b and
-14 after 10) and prints a JSON line of the edges phase (`{"edges": ...}`), one
+else; phase 10 runs between 8 and 9, phase 11 after 8, phases 12, 13b, 14
+and 15 after 10) and prints a JSON line of the edges phase (`{"edges": ...}`), one
 of the MoQ phase (`{"moq": ...}`), a JSON line of the
 animated-texture numbers, a JSON line of the pipeline's numbers
 (`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON line of the nodes
 phase (`{"nodes": ...}`), a JSON line of the captured programs of every
 phase (`{"captured_programs": ...}`), the 4K goldens' errors
-(`{"goldens_4k": ...}`), a JSON line of the kernels (`launches` from the
-pipeline's offline 4K run, each path's counts under `launches_by_path`, the
-nodes phase's included), the nvidia-smi line, and
+(`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
+JSON line of the kernels (`launches` from the pipeline's offline 4K run,
+each path's counts under `launches_by_path`, the nodes and multichip
+phases' included), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -3531,6 +3544,152 @@ def goldens_4k_phase(dev, stamp):
     return errors
 
 
+# the multichip phase (15): the multi-device steps (`parallel/flagship.py`
+# over `parallel/mesh.py`). (a) `dryrun_multichip` on 8 gloo ranks on the
+# card's host: the exchange between ranks, which one card cannot show
+# (NCCL refuses two ranks of a communicator on one card); (b) the steps at
+# full width on the card, over NCCL, this process as rank 0 of a world of
+# one (every card torch sees: one on the machine the records name)
+MULTICHIP_BUDGET_S = 60.0  # the run fails past it
+MULTICHIP_GENERAL_INPUTS = 8  # the reference's general step
+MULTICHIP_OUTPUTS = 2
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def multichip_phase(dev, stamp):
+    """Phase 15. (a) `dryrun_multichip(8, device="cpu")`: 8 gloo ranks on a
+    2 x 4 mesh, gated on its own parity. (b) On the card (NCCL, world size
+    `torch.cuda.device_count()`: this process alone on one card; with more,
+    `dryrun_multichip` over NCCL runs too): the grid step at 16 x 1080p ->
+    4K held <= 1 LSB to `make_flagship_compose` on the card (bit-equality
+    reported), the general step at 8 x 1080p -> 4K held <= 1 LSB to
+    `_make_general_compose` of its scene on the card and, at 8 x 480x270 ->
+    960x540, to the port on the CPU, and the outputs-sharded step with 2
+    outputs at 4K, each output equal to `make_flagship_compose` of its
+    order of the inputs. The steps take the host planes, as a caller's;
+    their kernel launches are counted over (b)'s three calls and nothing
+    else. Prints each step's ms (CUDA events, median of ITERS after WARMUP,
+    on planes already on the card) beside the single-device builder's, and
+    each collective's ms and bytes. Returns (launches, numbers)."""
+    import torch
+
+    from smelter_tpu_torch import interop
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.graft_entry import dryrun_multichip
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.parallel import flagship, mesh as meshes
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t_phase = time.perf_counter()
+    numbers = {"dryrun_cpu": dryrun_multichip(8, device="cpu")}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        numbers["dryrun_cuda"] = dryrun_multichip(n_cards)["seconds"]
+    in_res, out_res = Resolution(IN_W, IN_H), Resolution(OUT_W, OUT_H)
+    n_gen = MULTICHIP_GENERAL_INPUTS
+    frames = host_frames(N_INPUTS, IN_W, IN_H, seed=15)
+    gen_frames = tuple(p[:n_gen] for p in frames)
+    dev_frames = interop.planes_to_device(frames, dev)
+    dev_gen = tuple(p[:n_gen] for p in dev_frames)
+    with meshes.process_group("cuda"):
+        grid_mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("streams", "space"))
+        out_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("outputs",))
+        grid_step, _ = flagship.make_multichip_step(grid_mesh, N_INPUTS, in_res, out_res,
+                                                    device=dev)
+        gen_step, _ = flagship.make_multichip_general_step(grid_mesh, n_gen, in_res, out_res,
+                                                           device=dev)
+        out_step, out_args = flagship.make_multioutput_step(
+            out_mesh, MULTICHIP_OUTPUTS, N_INPUTS, in_res, out_res, device=dev)
+        perms = out_args[3]
+        torch.cuda.synchronize()
+        scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+        grid_out = interop.planes_to_host(grid_step(*frames))
+        gen_out = interop.planes_to_host(gen_step(*gen_frames))
+        outs = out_step(*frames, perms)
+        torch.cuda.synchronize()
+        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                    "sdf_layers": sdf_layers.LAUNCHES}
+        print(f"multichip path launches (grid, general and outputs-sharded steps): {launches}")
+        check(launches["yuv_out"] > 0 and launches["sdf_layers"] > 0,
+              f"multichip: the general step did not launch K2 and K3: {launches}")
+
+        single_grid, _ = flagship.make_flagship_compose(N_INPUTS, in_res, out_res, device=dev)
+        flat = flagship._scene_layouts(flagship._multichip_general_scene(n_gen, out_res),
+                                       n_gen, in_res, out_res)
+        single_gen, _ = flagship._make_general_compose(
+            flagship._general_stages(flat, n_gen, out_res, dev), n_gen, in_res, dev)
+        check_planes("multichip grid", grid_out, OUT_W, OUT_H)
+        check_planes("multichip general", gen_out, OUT_W, OUT_H)
+        for label, got, ref in (
+                ("grid", grid_out, interop.planes_to_host(single_grid(*dev_frames))),
+                ("general", gen_out, interop.planes_to_host(single_gen(*dev_gen)))):
+            mx, n_diff, _, total = lsb_stats(ref, got)
+            numbers[f"{label}_vs_one_device"] = dict(max_lsb=mx, pixels_differing=n_diff,
+                                                     pixels=total)
+            print(f"multichip {label} step (1x1 mesh) vs the single-device builder on the "
+                  f"card: max {mx} LSB, {n_diff} of {total} pixels differ "
+                  f"(bit-equal: {n_diff == 0})")
+            check(mx <= 1, f"multichip {label}: {mx} LSB from one device")
+        check(tuple(outs[0].shape) == (MULTICHIP_OUTPUTS, OUT_H, OUT_W),
+              f"multichip outputs-sharded step: {tuple(outs[0].shape)}")
+        for m, order in enumerate(perms.tolist()):
+            idx = torch.tensor(order, device=dev)
+            ref = single_grid(*(torch.index_select(p, 0, idx) for p in dev_frames))
+            check(all(torch.equal(a, b[m]) for a, b in zip(ref, outs)),
+                  f"multichip outputs-sharded step: output {m} differs from its compose")
+
+        # the general step against the port on the CPU, at a quarter of the width
+        small_in, small_out = Resolution(480, 270), Resolution(960, 540)
+        small = host_frames(n_gen, 480, 270, seed=16)
+        small_step, _ = flagship.make_multichip_general_step(grid_mesh, n_gen, small_in,
+                                                             small_out, device=dev)
+        flat = flagship._scene_layouts(flagship._multichip_general_scene(n_gen, small_out),
+                                       n_gen, small_in, small_out)
+        cpu_fn, _ = flagship._make_general_compose(
+            flagship._general_stages(flat, n_gen, small_out, "cpu"), n_gen, small_in, "cpu")
+        cpu = interop.planes_to_host(cpu_fn(*interop.planes_to_device(small, "cpu")))
+        mx, n_diff, _, total = lsb_stats(cpu, interop.planes_to_host(small_step(*small)))
+        numbers["general_vs_cpu_960x540"] = dict(max_lsb=mx, pixels_differing=n_diff,
+                                                 pixels=total)
+        print(f"multichip general step on the card vs the port on the CPU, "
+              f"{n_gen}x480x270 -> 960x540: max {mx} LSB, {n_diff} of {total} pixels differ")
+        check(mx <= 1, f"multichip general: card vs CPU off by {mx} LSB")
+
+        # times: the steps beside one device, and each step's collective
+        timed = {}
+        grid_fields = grid_step.local(*dev_frames)
+        gen_fields = gen_step.local(*dev_gen)
+        bcast = [p.clone() for p in dev_frames]
+        group = out_mesh.get_group("outputs")
+        for label, step_fn, single_fn, collective, moved in (
+                ("grid", lambda: grid_step(*dev_frames), lambda: single_grid(*dev_frames),
+                 lambda: grid_step.gather(grid_fields), _nbytes(grid_fields)),
+                ("general", lambda: gen_step(*dev_gen), lambda: single_gen(*dev_gen),
+                 lambda: gen_step.gather(gen_fields), _nbytes(gen_fields)),
+                ("outputs", lambda: out_step(*dev_frames, perms),
+                 lambda: [single_grid(*dev_frames) for _ in range(MULTICHIP_OUTPUTS)],
+                 lambda: [meshes.broadcast_from_first(p, group) for p in bcast],
+                 _nbytes(bcast))):
+            t_step, t_single, t_coll = cuda_ms(step_fn), cuda_ms(single_fn), cuda_ms(collective)
+            timed[label] = dict(step_ms=t_step, one_device_ms=t_single, collective_ms=t_coll,
+                                collective_bytes=moved)
+            print(f"time multichip {label} step, 1x1 NCCL mesh: {t_step:.4f} ms, one device "
+                  f"{t_single:.4f} ms; its collective {t_coll:.4f} ms for {moved} B a frame "
+                  f"{stamp}")
+        numbers["times"] = timed
+        del grid_fields, gen_fields, bcast
+    numbers["world_size"] = 1
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    numbers["budget_s"] = MULTICHIP_BUDGET_S
+    print(f"multichip phase: {numbers['phase_s']:.1f} s (budget {MULTICHIP_BUDGET_S:.0f} s)")
+    check(numbers["phase_s"] < MULTICHIP_BUDGET_S,
+          f"multichip phase took {numbers['phase_s']:.0f} s, past {MULTICHIP_BUDGET_S:.0f} s")
+    return launches, numbers
+
+
 def profile_busy(prof, span_s):
     """The card's busy share over the first `span_s` seconds of a stopped
     torch.profiler trace: the device time of its kernels and copies, each
@@ -3773,6 +3932,9 @@ def main() -> int:
     golden_errors = goldens_4k_phase(dev, stamp)
     print(f"4K goldens: {time.perf_counter() - t_phase:.1f} s")
 
+    # phase 15: the multi-device steps, once the live phases' pipelines are closed
+    multichip_launches, multichip = multichip_phase(dev, stamp)
+
     # phase 9: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
     # synchronised call (cuda_ms), "plain" = the plain version, one call;
@@ -3905,6 +4067,8 @@ def main() -> int:
                                             "pipeline async": pipe_async, "card": card}}))
     print(json.dumps({"goldens_4k": {"mean_abs_error": golden_errors,
                                      "allowed": GOLDEN_ALLOWED_ERROR, "card": card}}))
+    print(json.dumps({"multichip": {"kernel_launches": multichip_launches, **multichip,
+                                    "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
     # slice's main path; no single PyTorch call computes any of the three functions:
@@ -3919,7 +4083,8 @@ def main() -> int:
                               "pipeline": pipe_launches["scene_assembly"],
                               "nodes": node_launches["scene_assembly"],
                               "edges": edge_launches and edge_launches["scene_assembly"],
-                              "moq": moq_launches and moq_launches["scene_assembly"]},
+                              "moq": moq_launches and moq_launches["scene_assembly"],
+                              "multichip": multichip_launches["scene_assembly"]},
          "max_abs_err": k1_err,
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -3934,7 +4099,8 @@ def main() -> int:
                               "pipeline": pipe_launches["yuv_out"],
                               "nodes": node_launches["yuv_out"],
                               "edges": edge_launches and edge_launches["yuv_out"],
-                              "moq": moq_launches and moq_launches["yuv_out"]},
+                              "moq": moq_launches and moq_launches["yuv_out"],
+                              "multichip": multichip_launches["yuv_out"]},
          "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
@@ -3948,7 +4114,8 @@ def main() -> int:
                               "pipeline": pipe_launches["sdf_layers"],
                               "nodes": node_launches["sdf_layers"],
                               "edges": edge_launches and edge_launches["sdf_layers"],
-                              "moq": moq_launches and moq_launches["sdf_layers"]},
+                              "moq": moq_launches and moq_launches["sdf_layers"],
+                              "multichip": multichip_launches["sdf_layers"]},
          "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],

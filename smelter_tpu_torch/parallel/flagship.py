@@ -20,13 +20,32 @@ another is named; `interop.resolve_device` raises when there is no card)
 and returns (fn, example_args). A builder runs its function once on the example
 arguments, so that every host-built constant (resize and chroma weight
 matrices, shear masks, the K1 member table) is on the device before the
-first real frame. The multi-device builders are not ported yet (ROADMAP
-Queue 1 item 9).
+first real frame.
+
+The grid and the general compose are each built in stages (`Stages`): a
+per-stream stage on the stacked inputs, an assembly of the whole frame and
+its conversion to YUV420 rows. One device runs them in a row. The
+multi-device steps run the same stages over a `DeviceMesh`
+(`parallel/mesh.py`), one process per device:
+
+  - `make_multichip_step` (the Tiles grid) and `make_multichip_general_step`
+    (rotated, bordered, rounded Views): mesh ("streams", "space"); each rank
+    runs the per-stream stage on its block of inputs, the results are
+    all-gathered over "streams", and each rank assembles the whole frame
+    and converts its band of rows ("space");
+  - `make_multioutput_step`: mesh ("outputs",); the inputs are broadcast
+    from the first rank, and each rank composes its block of outputs, each
+    the Tiles grid of its own order of the inputs.
+
+A step takes the host planes (numpy arrays or tensors, the same on every
+rank), returns this rank's shard, and has the reference's names, defaults
+and (step, example_args); `mesh.gather_planes` gathers the global planes.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -36,9 +55,10 @@ from smelter_tpu_torch.interop import resolve_device
 from smelter_tpu_torch.ops import color_convert as cc
 from smelter_tpu_torch.ops.compose import compose_layouts
 from smelter_tpu_torch.ops.resample import build_mips, resize_matmul
+from smelter_tpu_torch.parallel import mesh as meshes
 from smelter_tpu_torch.render.program import split_layout
 from smelter_tpu_torch.scene import components as comp
-from smelter_tpu_torch.scene.layout_types import RenderChildNode, RenderColor
+from smelter_tpu_torch.scene.layout_types import BorderRadius, RenderChildNode, RenderColor
 from smelter_tpu_torch.scene.scene_state import BuildCtx, LayoutNode, build_stateful
 
 
@@ -122,6 +142,45 @@ def _analyze_opaque_grid(flat, out_res: Resolution):
     return bg, tiles
 
 
+def _identity(fields):
+    return fields
+
+
+@dataclasses.dataclass(frozen=True)
+class Stages:
+    """A flagship function in the stages a mesh splits it into.
+
+    `per_stream(y, u, v)` maps the stacked planes of a block of inputs to
+    its fields; `assemble(fields)` maps the fields of all N inputs to the
+    frame; `rows(frame, r0, r1)` gives the u8 YUV420 planes of the frame's
+    luma rows [r0, r1) (r0, r1 even). One device runs
+    rows(assemble(per_stream(y, u, v)), 0, height). A mesh gathers the
+    fields as `pack` gives them, tensors stacked over the block's inputs
+    (row i belongs to input i), and `unpack` turns the gathered tensors back
+    into fields for `assemble`."""
+
+    per_stream: Callable
+    assemble: Callable
+    rows: Callable
+    height: int
+    pack: Callable = _identity
+    unpack: Callable = _identity
+
+    def __call__(self, y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        return self.rows(self.assemble(self.per_stream(y, u, v)), 0, self.height)
+
+
+def _flagship_stages(n_inputs: int, in_res: Resolution, out_res: Resolution, device):
+    """The stages of the function `make_flagship_compose` builds, with the
+    builder that makes that function of them: the YUV grid when the Tiles
+    scene is an opaque grid, else the general RGBA compose."""
+    flat = _tiles_layouts(n_inputs, in_res, out_res)
+    grid = _analyze_opaque_grid(flat, out_res)
+    if grid is not None:
+        return _grid_stages(grid, n_inputs, out_res), _make_yuv_grid_compose
+    return _general_stages(flat, n_inputs, out_res, device), _make_general_compose
+
+
 def make_flagship_compose(
     n_inputs: int = 16,
     in_res: Resolution = Resolution(1920, 1080),
@@ -131,11 +190,8 @@ def make_flagship_compose(
     """Returns (fn, example_args): fn(y, u, v) with stacked u8 plane batches
     (N, H, W) / (N, H/2, W/2) on `device` -> the 4K YUV420 u8 planes."""
     device = resolve_device(device)
-    flat = _tiles_layouts(n_inputs, in_res, out_res)
-    grid = _analyze_opaque_grid(flat, out_res)
-    if grid is not None:
-        return _make_yuv_grid_compose(grid, n_inputs, in_res, out_res, device)
-    return _make_general_compose(flat, n_inputs, in_res, out_res, device)
+    stages, build = _flagship_stages(n_inputs, in_res, out_res, device)
+    return build(stages, n_inputs, in_res, device)
 
 
 def _general_layouts(n_inputs: int, in_res: Resolution, out_res: Resolution):
@@ -241,9 +297,11 @@ def plan_grid_partition(rects, H: int, W: int):
     return ordered
 
 
-def _make_yuv_grid_compose(grid, n_inputs, in_res: Resolution, out_res: Resolution,
-                           device=None):
-    device = resolve_device(device)
+def _grid_stages(grid, n_inputs, out_res: Resolution) -> Stages:
+    """The opaque grid in stages. Uniform tiles (every Tiles scene): the
+    per-stream stage resizes and rounds the block's tiles, batched, and the
+    assembly places them. Tiles of several sizes: the per-stream stage
+    passes the inputs through and the assembly resizes each tile."""
     bg, tiles = grid
     H, W = out_res.height, out_res.width
     ch, cw = H // 2, W // 2
@@ -251,14 +309,21 @@ def _make_yuv_grid_compose(grid, n_inputs, in_res: Resolution, out_res: Resoluti
     uniform = len(sizes) == 1 and len(tiles) == n_inputs
     partition = plan_grid_partition(tiles, H, W)
 
-    def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    def per_stream(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        if not uniform:
+            return y, u, v
+        _, _, _, th, tw = tiles[0]
+        return (_round_u8(resize_matmul(y, th, tw)),          # (k, th, tw)
+                _round_u8(resize_matmul(u, th // 2, tw // 2)),
+                _round_u8(resize_matmul(v, th // 2, tw // 2)))
+
+    def assemble(fields):
         if uniform:
-            _, _, _, th, tw = tiles[0]
-            bty = _round_u8(resize_matmul(y, th, tw))          # (N, th, tw)
-            btu = _round_u8(resize_matmul(u, th // 2, tw // 2))
-            btv = _round_u8(resize_matmul(v, th // 2, tw // 2))
+            bty, btu, btv = fields
             tile_of = lambda idx, h, w: (bty[idx], btu[idx], btv[idx])
         else:
+            y, u, v = fields
+
             def tile_of(idx, h, w):
                 return (
                     _round_u8(resize_matmul(y[idx], h, w)),
@@ -274,9 +339,10 @@ def _make_yuv_grid_compose(grid, n_inputs, in_res: Resolution, out_res: Resoluti
                 rows_u.append(torch.cat(ru, dim=1))
                 rows_v.append(torch.cat(rv, dim=1))
             return torch.cat(rows_y), torch.cat(rows_u), torch.cat(rows_v)
-        canvas_y = torch.full((H, W), bg[0], dtype=torch.uint8, device=y.device)
-        canvas_u = torch.full((ch, cw), bg[1], dtype=torch.uint8, device=y.device)
-        canvas_v = torch.full((ch, cw), bg[2], dtype=torch.uint8, device=y.device)
+        dev = fields[0].device
+        canvas_y = torch.full((H, W), bg[0], dtype=torch.uint8, device=dev)
+        canvas_u = torch.full((ch, cw), bg[1], dtype=torch.uint8, device=dev)
+        canvas_v = torch.full((ch, cw), bg[2], dtype=torch.uint8, device=dev)
         for idx, top, left, h, w in tiles:
             ty, tu, tv = tile_of(idx, h, w)
             canvas_y[top : top + h, left : left + w] = ty
@@ -284,9 +350,18 @@ def _make_yuv_grid_compose(grid, n_inputs, in_res: Resolution, out_res: Resoluti
             canvas_v[top // 2 : (top + h) // 2, left // 2 : (left + w) // 2] = tv
         return canvas_y, canvas_u, canvas_v
 
-    example_args = _example_args(n_inputs, in_res, device)
-    fn(*example_args)
-    return fn, example_args
+    def rows(planes, r0: int, r1: int):
+        y, u, v = planes
+        return y[r0:r1], u[r0 // 2 : r1 // 2], v[r0 // 2 : r1 // 2]
+
+    return Stages(per_stream, assemble, rows, H)
+
+
+def _make_yuv_grid_compose(stages: Stages, n_inputs, in_res: Resolution, device):
+    def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        return stages(y, u, v)
+
+    return _warmed(fn, n_inputs, in_res, device)
 
 
 def _round_u8(x: torch.Tensor) -> torch.Tensor:
@@ -294,28 +369,53 @@ def _round_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x.to(torch.float32) + 0.5, 0.0, 255.0).to(torch.uint8)
 
 
-def _make_general_compose(flat, n_inputs, in_res: Resolution, out_res: Resolution,
-                          device=None):
+def _general_stages(flat, n_inputs, out_res: Resolution, device) -> Stages:
+    """The general RGBA compose in stages: the per-stream stage converts each
+    input of the block to a 2-level RGBA mip pyramid (a field per input, its
+    levels (h, w, 4) f32), the assembly composes the canvas and `rows`
+    converts rows of it to YUV420 (K2). A mesh gathers one tensor per level,
+    (k, h, w, 4): only a mesh stacks the pyramids."""
+    statics, params = zip(*(split_layout(l, device=device) for l in flat))
+    levels = 2
+    cache: dict = {}
+
+    def per_stream(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        return [build_mips(cc.planar_yuv_to_rgba(y[i], u[i], v[i]), levels)
+                for i in range(y.shape[0])]
+
+    def assemble(pyramids):
+        return compose_layouts(
+            (out_res.width, out_res.height), statics, params, pyramids,
+            planar=True, cache=cache, device=device,
+        )
+
+    def rows(canvas: torch.Tensor, r0: int, r1: int):
+        return cc.planar_rgba_to_yuv420(canvas[:, r0:r1].contiguous())
+
+    def pack(pyramids):
+        return tuple(torch.stack(level) for level in zip(*pyramids))
+
+    def unpack(stacked):
+        return [[level[i] for level in stacked] for i in range(stacked[0].shape[0])]
+
+    return Stages(per_stream, assemble, rows, out_res.height, pack, unpack)
+
+
+def _make_general_compose(stages: Stages, n_inputs, in_res: Resolution, device):
     """The Tiles scene that is not an opaque grid (`_analyze_opaque_grid`
     refuses it), through the general RGBA compose, as the reference's: each
     input converted to a 2-level RGBA mip pyramid, the layouts split as not
     planner-stable and composed channel-major (the colour layers through K3
     on the card, the tiles through the sampled pass), and the canvas
     converted to YUV420 (K2)."""
-    device = resolve_device(device)
-    statics, params = zip(*(split_layout(l, device=device) for l in flat))
-    levels = 2
-    cache: dict = {}
-
     def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-        sources = [build_mips(cc.planar_yuv_to_rgba(y[i], u[i], v[i]), levels)
-                   for i in range(n_inputs)]
-        canvas = compose_layouts(
-            (out_res.width, out_res.height), statics, params, sources,
-            planar=True, cache=cache, device=device,
-        )
-        return cc.planar_rgba_to_yuv420(canvas)
+        return stages(y, u, v)
 
+    return _warmed(fn, n_inputs, in_res, device)
+
+
+def _warmed(fn, n_inputs: int, in_res: Resolution, device):
+    """(fn, example_args), fn run once on the example arguments."""
     example_args = _example_args(n_inputs, in_res, device)
     fn(*example_args)
     return fn, example_args
@@ -329,3 +429,146 @@ def _example_args(n_inputs: int, in_res: Resolution, device=None):
         torch.full((n_inputs, h // 2, w // 2), 128, dtype=torch.uint8, device=device),
         torch.full((n_inputs, h // 2, w // 2), 128, dtype=torch.uint8, device=device),
     )
+
+
+def _host_block(planes, lo: int, hi: int, device) -> list:
+    """Inputs [lo, hi) of stacked host planes (numpy arrays or tensors) on
+    `device`."""
+    return [torch.as_tensor(p)[lo:hi].to(device) for p in planes]
+
+
+class StreamsStep:
+    """A flagship function (`Stages`) over a ("streams", "space") mesh: this
+    rank runs the per-stream stage on its block of inputs and packs its
+    fields (`local`), the packed tensors are all-gathered over "streams" in
+    one collective each (`gather`), and the rank assembles the whole frame
+    and converts its band of rows (`finish`). Calling it runs the three on host planes and returns
+    this rank's (y, u, v) band, replicated over "streams"."""
+
+    def __init__(self, mesh, stages: Stages, n_inputs: int, device):
+        self.device = meshes.rank_device(mesh, device)
+        self.stages = stages
+        self.inputs = meshes.shard_range(n_inputs, mesh, "streams")
+        self.band = meshes.row_band(stages.height, mesh, "space")
+        self.group = mesh.get_group("streams")
+
+    def local(self, y, u, v) -> tuple:
+        block = _host_block((y, u, v), *self.inputs, self.device)
+        return self.stages.pack(self.stages.per_stream(*block))
+
+    def gather(self, packed):
+        return self.stages.unpack(
+            tuple(meshes.all_gather_stacked(f, self.group) for f in packed))
+
+    def finish(self, fields):
+        return self.stages.rows(self.stages.assemble(fields), *self.band)
+
+    def __call__(self, y, u, v):
+        return self.finish(self.gather(self.local(y, u, v)))
+
+
+def make_multichip_step(
+    mesh,
+    n_inputs: int = 16,
+    in_res: Resolution = Resolution(192, 108),
+    out_res: Resolution = Resolution(384, 216),
+    device=None,
+):
+    """The flagship compose (`make_flagship_compose`'s stages: the Tiles grid,
+    or its general fallback) over a ("streams", "space") mesh, as the
+    reference's sharding: inputs P("streams", None, None), outputs
+    P("space", None). Rank (s, p) resizes inputs [s k, (s + 1) k) (k =
+    N / streams), the tiles are all-gathered over "streams", and the rank
+    returns row band p of Y, U and V. `device`: this rank's (the mesh's
+    type; its current card or the CPU if None). Returns (step,
+    example_args), the example planes on the host."""
+    device = meshes.rank_device(mesh, device)
+    stages, _ = _flagship_stages(n_inputs, in_res, out_res, device)
+    return StreamsStep(mesh, stages, n_inputs, device), _example_args(n_inputs, in_res, "cpu")
+
+
+def _multichip_general_scene(n_inputs: int, out_res: Resolution):
+    """The reference's non-grid scene for the general step: absolute Views,
+    each rotated (7 + 11 i degrees), bordered and rounded, over a blue
+    background."""
+    w, h = out_res.width, out_res.height
+    children = []
+    for i in range(n_inputs):
+        children.append(
+            comp.View(
+                position=comp.AbsolutePosition(
+                    width=w * 0.30,
+                    height=h * 0.30,
+                    top=(h * 0.55) * ((i // 4) / 1.0 if n_inputs > 4 else 0.0)
+                    + h * 0.05,
+                    left=(w * 0.22) * (i % 4) + w * 0.04,
+                    rotation_degrees=7.0 + 11.0 * i,
+                ),
+                border_width=3.0,
+                border_color=RGBAColor(220, 60, 60, 255),
+                border_radius=BorderRadius(6.0, 6.0, 6.0, 6.0),
+                background_color=RGBAColor(0, 0, 0, 255),
+                children=[comp.InputStream(input_id=f"in_{i}")],
+            )
+        )
+    return comp.View(background_color=RGBAColor(12, 24, 48, 255), children=children)
+
+
+def make_multichip_general_step(
+    mesh,
+    n_inputs: int = 8,
+    in_res: Resolution = Resolution(128, 72),
+    out_res: Resolution = Resolution(256, 144),
+    device=None,
+):
+    """A non-grid scene (`_multichip_general_scene`) through the general RGBA
+    compose (`_general_stages`) over the same ("streams", "space") mesh: each
+    rank converts its block of inputs to mip pyramids, the pyramids are
+    all-gathered over "streams" (one collective per level), and each rank
+    composes the whole canvas (K3 paints the colour layers on a card) and
+    converts its band of rows to YUV420 (K2). The reference's general step
+    turns its Pallas kernels off, since GSPMD cannot split them; here each
+    rank runs the port's kernels on its own work. Returns (step,
+    example_args)."""
+    device = meshes.rank_device(mesh, device)
+    flat = _scene_layouts(_multichip_general_scene(n_inputs, out_res), n_inputs, in_res, out_res)
+    stages = _general_stages(flat, n_inputs, out_res, device)
+    return StreamsStep(mesh, stages, n_inputs, device), _example_args(n_inputs, in_res, "cpu")
+
+
+def make_multioutput_step(
+    mesh,
+    n_outputs: int = 8,
+    n_inputs: int = 16,
+    in_res: Resolution = Resolution(192, 108),
+    out_res: Resolution = Resolution(384, 216),
+    device=None,
+):
+    """M outputs over a ("outputs",) mesh, each the Tiles grid of its own
+    order of the same N inputs: the inputs P() (the first rank's planes are
+    broadcast to every rank on each call), the (M, N) int32 order table
+    P("outputs", None), the (M, OH, OW) outputs P("outputs", None, None).
+    Each output is `make_flagship_compose`'s function on
+    `index_select(inputs, order)`, so it equals the single-device compose of
+    that order pixel for pixel. The table is the reference's
+    (`np.random.RandomState(0)`, one permutation per output). Returns
+    (step, example_args); step(y, u, v, perms) returns this rank's
+    (m, OH, OW) y, u and v (m = M / outputs)."""
+    device = meshes.rank_device(mesh, device)
+    lo, hi = meshes.shard_range(n_outputs, mesh, "outputs")
+    group = mesh.get_group("outputs")
+    fn, example = make_flagship_compose(n_inputs, in_res, out_res, device=device)
+
+    def step(y, u, v, perms):
+        if mesh.get_local_rank("outputs") == 0:
+            planes = _host_block((y, u, v), 0, n_inputs, device)
+        else:
+            planes = [torch.empty_like(p) for p in example]
+        planes = [meshes.broadcast_from_first(p, group) for p in planes]
+        orders = torch.as_tensor(perms)[lo:hi].to(device=device, dtype=torch.int64)
+        outs = [fn(*(torch.index_select(p, 0, order) for p in planes)) for order in orders]
+        return tuple(torch.stack(plane) for plane in zip(*outs))
+
+    rng = np.random.RandomState(0)
+    perms = np.stack([rng.permutation(n_inputs) for _ in range(n_outputs)]).astype(np.int32)
+    return step, (*_example_args(n_inputs, in_res, "cpu"), torch.from_numpy(perms))

@@ -48,6 +48,20 @@ def test_yuv_out_kernel_matches_plain(cuda, shape, full_range):
             assert int((a.to(torch.int32) - b.to(torch.int32)).abs().max()) <= 1
 
 
+def test_yuv_out_kernel_on_a_band_of_rows(cuda):
+    """A multi-device step converts a copy of its band of rows
+    (`StreamsStep.finish`): K2 on it equals the same rows of K2 on the
+    whole canvas, bit for bit (even bands)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    canvas = torch.rand((4, 2160, 3840), generator=gen, device=cuda) * 1.3 - 0.1
+    whole = yuv_out.rgba_cm_to_yuv420(canvas)
+    for r0, r1 in ((0, 540), (540, 1080), (1620, 2160), (2, 4)):
+        band = yuv_out.rgba_cm_to_yuv420(canvas[:, r0:r1].contiguous())
+        for a, b in zip(band, (whole[0][r0:r1], whole[1][r0 // 2:r1 // 2],
+                               whole[2][r0 // 2:r1 // 2])):
+            assert torch.equal(a, b), (r0, r1)
+
+
 def test_yuv_out_kernel_refuses_a_strided_canvas(cuda):
     canvas = torch.zeros((4, 64, 64), device=cuda)[:, :, ::2]
     with pytest.raises(ValueError):
@@ -550,3 +564,26 @@ def test_rtp_input_into_the_server_on_the_card(cuda, tmp_path, monkeypatch):
     frames, (k1, k2) = _rtp_input_into_the_server(tmp_path)
     assert k1 > 0 and k2 > 0, (k1, k2)
     assert len(frames) >= 20 and frames[0][0].shape == (240, 320)
+
+
+def test_grid_step_on_a_1x1_nccl_mesh(cuda):
+    """The multi-device grid step on a mesh of this process alone (NCCL,
+    world size 1): its all-gather is a copy through the collective, and the
+    planes equal the single-device grid's on the card."""
+    from smelter_tpu_torch import graft_entry
+    from smelter_tpu_torch.core.types import Resolution
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from smelter_tpu_torch.parallel import flagship, mesh as meshes
+
+    in_res, out_res = Resolution(192, 108), Resolution(384, 216)
+    inputs = graft_entry.case_inputs(16, in_res, seed=0)
+    with meshes.process_group("cuda"):
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("streams", "space"))
+        step, _ = flagship.make_multichip_step(mesh, 16, in_res, out_res, device=cuda)
+        got = step(*inputs)
+        torch.cuda.synchronize()
+    fn, _ = flagship.make_flagship_compose(16, in_res, out_res, device=cuda)
+    ref = fn(*(torch.from_numpy(p).to(cuda) for p in inputs))
+    for name, a, b in zip("yuv", ref, got):
+        assert torch.equal(a, b), name

@@ -3,7 +3,9 @@ module of the reference package (and renders a scene of its own components
 with a shader, an image asset and a WebView without them: PIL is loaded
 only to raster a Text or decode an image, websockets only to reach a
 browser), and its pipeline without aiohttp, pydantic or cryptography; its
-MoQ and QUIC edges without the reference package; the protocol edges
+MoQ and QUIC edges without the reference package; its multi-device steps
+(`parallel/mesh.py`, `graft_entry.py`) without JAX or the reference, in
+the launching process and in the ranks it spawns; the protocol edges
 load their native helpers (DTLS, DeckLink) only when an endpoint is made; its
 entry points refuse to run without a card unless given `device="cpu"`; and
 `chip_smoke.py` refuses to run (non-zero exit, no "ok" line) where torch
@@ -157,6 +159,28 @@ def test_moq_and_quic_import_without_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["13", "[]", "False", "False"]
+
+
+_MESH = """
+import sys, tempfile
+from smelter_tpu_torch import graft_entry
+from smelter_tpu_torch.parallel import mesh
+with tempfile.TemporaryDirectory() as tmp:
+    ranks = mesh.launch(graft_entry.run_cases, 2, ("cpu", 1, (), 0, tmp))
+print(sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "smelter_tpu"}),
+      [r["foreign_modules"] for r in ranks])
+"""
+
+
+def test_mesh_and_its_ranks_import_without_jax():
+    """`parallel/mesh.py` and `graft_entry.py` load neither JAX nor the
+    reference, and neither does a rank they spawn (each reports the modules
+    of its own process): a spawned process imports its target's module
+    afresh, with the launcher's environment (JAX_PLATFORMS, XLA_FLAGS)."""
+    out = subprocess.run([sys.executable, "-c", _MESH], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] [[], []]"
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu():
