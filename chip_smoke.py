@@ -12,7 +12,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      `smelter_tpu_torch/csrc/` (into `smelter_tpu_torch/_build/`) and prints
      the build time and the compiler's register report;
   3. holds kernel K2 (YUV420 output) against its plain PyTorch version on
-     the card: <= 1 u8 LSB on every plane;
+     the card: <= 1 u8 LSB on every plane, and bit-equal, on the card and
+     against the plain version on the CPU, on a canvas with NaN, +Inf and
+     -Inf pixels; and the grid's u8 rounding of such values, card vs CPU;
   4. holds kernel K1 (scene assembly) against its plain version on the card,
      on the general_4k and renderer member tables at 4K, a mixed-member case
      with partial tiles, rotation, border, shadow and masks, and the
@@ -152,6 +154,13 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      4K, each equal to the compose of its order; prints each step's ms
      beside one device's, each collective's ms and bytes, and
      `{"multichip": ...}`; K2 and K3 must launch (the general step).
+  16. the benchmark (`bench_phase`, after phase 5): `smelter_tpu_torch.
+     bench.main()` at its own sizes (16 x 1080p -> 4K, 60 iterations),
+     which prints the reference bench's JSON line with the card's numbers;
+     K1 and K2 launched once per run of its general program and K3 never;
+     a grid and a general replay bit-equal to their eager functions, each
+     frame of a batched replay (4 frames) bit-equal to its single compose;
+     fails past 90 s; prints `{"bench_phase": ...}`.
 The renderer phases (6, 7, 8's offline run and 10) run through captured
 programs: every render is also held bit for bit to the closure of its
 structure run eagerly on the same frame (`EagerCheck`, outside every count),
@@ -168,8 +177,8 @@ phase (`{"nodes": ...}`), a JSON line of the captured programs of every
 phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
 JSON line of the kernels (`launches` from the pipeline's offline 4K run,
-each path's counts under `launches_by_path`, the nodes and multichip
-phases' included), the nvidia-smi line, and
+each path's counts under `launches_by_path`, the nodes, multichip and
+bench phases' included), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -348,7 +357,42 @@ def k2_checks(yuv_out, dev):
                       f"max diff {mx} LSB, {nd} of {d.numel()} pixels differ")
                 check(mx <= 1, f"K2 plane {name} off by {mx} LSB at {shape}")
                 worst = max(worst, mx)
+    # NaN, +Inf and -Inf pixels (a shader can yield them; 5% of the pixels,
+    # so that many 2x2 chroma quads mix them with finite ones): bit-equal to
+    # the plain version on the card and on the CPU, which the tests hold to
+    # the reference
+    canvas = torch.rand((4, 200, 520), generator=gen, device=dev)
+    bad = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+    which = torch.randint(0, 3, canvas.shape, generator=gen, device=dev)
+    hit = torch.rand(canvas.shape, generator=gen, device=dev) < 0.05
+    canvas = torch.where(hit, bad[which], canvas)
+    for full_range in (False, True):
+        got = yuv_out.rgba_cm_to_yuv420(canvas, full_range)
+        for where, ref in (("card", yuv_out.rgba_cm_to_yuv420_plain(canvas, full_range)),
+                           ("CPU", yuv_out.rgba_cm_to_yuv420_plain(canvas.cpu(), full_range))):
+            for name, a, b in zip("yuv", ref, got):
+                d = (a.to(torch.int32).cpu() - b.to(torch.int32).cpu()).abs()
+                mx, nd = int(d.max()), int((d > 0).sum())
+                print(f"K2 vs plain on the {where}, NaN/Inf canvas full_range={full_range} "
+                      f"plane {name}: max diff {mx} LSB, {nd} of {d.numel()} pixels differ")
+                check(mx == 0, f"K2 on NaN/Inf pixels: plane {name} off by {mx} LSB from "
+                               f"the plain version on the {where}")
     return worst
+
+
+def round_u8_check(dev):
+    """The grid's u8 rounding (`flagship._round_u8`) of NaN, +-Inf and
+    out-of-range values: the card equal to the CPU."""
+    import torch
+    from smelter_tpu_torch.parallel.flagship import _round_u8
+
+    vals = torch.tensor([float("nan"), float("inf"), -float("inf"), 300.0, -5.0, 127.5,
+                         254.5, 0.49, 1e30, -1e30])
+    x = vals.repeat(4096)[torch.randperm(4096 * len(vals), generator=torch.Generator().manual_seed(1))]
+    card, cpu = _round_u8(x.to(dev)).cpu(), _round_u8(x)
+    n = int((card != cpu).sum())
+    print(f"grid u8 rounding of NaN/Inf/out-of-range values, card vs CPU: {n} of {x.numel()} differ")
+    check(n == 0, f"_round_u8: {n} values differ between the card and the CPU")
 
 
 def _params(dev, top=0.0, left=0.0, width=0.0, height=0.0, rotation=0.0,
@@ -3690,6 +3734,108 @@ def multichip_phase(dev, stamp):
     return launches, numbers
 
 
+# the benchmark phase (16): `python -m smelter_tpu_torch.bench` at the
+# reference's sizes, then the gates the benchmark does not hold itself
+BENCH_BUDGET_S = 90.0
+
+
+def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h=OUT_H,
+                iters=60):
+    """`bench.main()` on the card (by default at its own sizes: 16 x 1080p ->
+    4K, 60 iterations; it prints its JSON line), with every kernel count set to 0 just before it
+    and read just after: K1 and K2 once per run of the general program (its
+    replays, and the builder's and the capture's eager warm-ups), K3 never.
+    Then, on programs built and captured as the benchmark builds them: a
+    grid replay and a general replay bit-equal to their functions run
+    eagerly (a general replay launching K1 and K2 once each), and each
+    frame of a batched replay (B = 4 distinct frames) bit-equal to the
+    grid's single compose of that frame. Fails past BENCH_BUDGET_S.
+    Returns (the benchmark's launches, the phase's numbers)."""
+    import numpy as np
+    import torch
+    from smelter_tpu_torch import bench, interop
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.parallel.flagship import (
+        make_flagship_batched_compose,
+        make_flagship_compose,
+        make_flagship_general_compose,
+    )
+    from smelter_tpu_torch.render.capture import capture
+
+    kernels = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+
+    def counts():
+        return {name: mod.LAUNCHES for name, mod in kernels.items()}
+
+    def reset():
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+
+    t_phase = time.perf_counter()
+    reset()
+    in_res, out_res = Resolution(in_w, in_h), Resolution(out_w, out_h)
+    result = bench.main(device=dev, n_inputs=n, in_res=in_res, out_res=out_res, iters=iters)
+    launches = counts()
+    t_bench = time.perf_counter() - t_phase
+    # the general program's runs: its replays, and the eager warm-ups of
+    # its builder and of its capture
+    general_runs = result["general_4k"]["replays"] + 2
+    print(f"bench: {t_bench:.1f} s, launches {launches} ({general_runs} runs of the general "
+          f"program) {stamp}")
+    check(launches["scene_assembly"] == launches["yuv_out"] == general_runs,
+          f"bench: K1/K2 launched {launches}, not once per run of the general program "
+          f"({general_runs})")
+    check(launches["sdf_layers"] == 0, f"bench: K3 launched {launches['sdf_layers']} times")
+    check(result["card"] == nvidia_smi(), f"bench: card {result['card']!r}")
+
+    frames = bench.host_frames(n, in_res)
+    dev_frames = [interop.planes_to_device(f, dev) for f in frames]
+    gates = {}
+    for label, build in (("grid", make_flagship_compose),
+                         ("general_4k", make_flagship_general_compose)):
+        fn, _ = build(n, in_res, out_res, device=dev)
+        prog, _ = capture(fn, dev_frames[0], dev)
+        reset()
+        replayed = interop.planes_to_host(prog(*dev_frames[1]))
+        replay_launches = counts()
+        eager = interop.planes_to_host(fn(*dev_frames[1]))
+        gates[f"{label}_replay_vs_eager_lsb"] = mx = lsb_stats(eager, replayed)[0]
+        print(f"bench {label}: replay vs eager max abs err {mx}, one replay launched "
+              f"{replay_launches}")
+        check(mx == 0, f"bench {label}: the replay differs from the eager function by {mx}")
+        expected = (1, 1, 0) if label == "general_4k" else (0, 0, 0)
+        check(tuple(replay_launches.values()) == expected,
+              f"bench {label}: one replay launched {replay_launches}")
+        if label == "grid":
+            grid_fn = fn
+        del prog
+    bfn, _ = make_flagship_batched_compose(n, in_res, out_res, bench.BATCH, device=dev)
+    order = (0, 1, 1, 0)[:bench.BATCH]
+    shifted = [tuple(torch.roll(p, b, dims=0) for p in dev_frames[k])
+               for b, k in enumerate(order)]  # each frame its own order of the inputs
+    batch = tuple(torch.stack(planes) for planes in zip(*shifted))
+    bprog, _ = capture(bfn, batch, dev)
+    batched = interop.planes_to_host(bprog(*batch))
+    worst = 0
+    for b, single_args in enumerate(shifted):
+        single = interop.planes_to_host(grid_fn(*single_args))
+        worst = max(worst, lsb_stats(single, [p[b] for p in batched])[0])
+    gates["batched_vs_single_lsb"] = worst
+    print(f"bench batched ({bench.BATCH} frames in one replay) vs single frames: max abs err "
+          f"{worst}")
+    check(worst == 0, f"bench: a batched frame differs from its single compose by {worst}")
+    check(all(np.isfinite(v) for k, v in result.items() if isinstance(v, float)),
+          "bench: a non-finite number")
+    del bprog, batch, shifted, dev_frames
+    phase_s = time.perf_counter() - t_phase
+    print(f"bench phase: {phase_s:.1f} s (budget {BENCH_BUDGET_S:.0f} s)")
+    check(phase_s < BENCH_BUDGET_S,
+          f"bench phase took {phase_s:.0f} s, past {BENCH_BUDGET_S:.0f} s")
+    return launches, {"bench_s": t_bench, "phase_s": phase_s, "gates": gates,
+                      "general_runs": general_runs}
+
+
 def profile_busy(prof, span_s):
     """The card's busy share over the first `span_s` seconds of a stopped
     torch.profiler trace: the device time of its kernels and copies, each
@@ -3766,6 +3912,7 @@ def main() -> int:
 
     # phase 3 and 4: each kernel against its plain version on the card
     k2_err = k2_checks(yuv_out, dev)
+    round_u8_check(dev)
     render_frames = renderer_inputs(N_INPUTS, IN_W, IN_H, seed=0)
     renderer_k1, overlay_rows, overlay_kinds = renderer_kernel_runs(dev, render_frames)
     cases = k1_tables(dev)
@@ -3840,6 +3987,9 @@ def main() -> int:
     parity_vs_cpu(make_flagship_compose, 4, 256, 144, 768, 432, dev, "grid")
     parity_vs_cpu(make_flagship_general_compose, 4, 256, 144, 768, 432, dev, "general_4k")
     parity_vs_cpu(make_flagship_compose, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, dev, "grid")
+
+    # phase 16: the benchmark entry point, `python -m smelter_tpu_torch.bench`
+    bench_launches, bench_numbers = bench_phase(dev, stamp)
 
     # phase 6: the renderer, 16 x 1080p -> 4K, a transition of 41 frames
     k3_frames = []
@@ -4069,6 +4219,8 @@ def main() -> int:
                                      "allowed": GOLDEN_ALLOWED_ERROR, "card": card}}))
     print(json.dumps({"multichip": {"kernel_launches": multichip_launches, **multichip,
                                     "card": card}}))
+    print(json.dumps({"bench_phase": {"kernel_launches": bench_launches, **bench_numbers,
+                                      "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
     # slice's main path; no single PyTorch call computes any of the three functions:
@@ -4084,7 +4236,8 @@ def main() -> int:
                               "nodes": node_launches["scene_assembly"],
                               "edges": edge_launches and edge_launches["scene_assembly"],
                               "moq": moq_launches and moq_launches["scene_assembly"],
-                              "multichip": multichip_launches["scene_assembly"]},
+                              "multichip": multichip_launches["scene_assembly"],
+                              "bench": bench_launches["scene_assembly"]},
          "max_abs_err": k1_err,
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -4100,7 +4253,8 @@ def main() -> int:
                               "nodes": node_launches["yuv_out"],
                               "edges": edge_launches and edge_launches["yuv_out"],
                               "moq": moq_launches and moq_launches["yuv_out"],
-                              "multichip": multichip_launches["yuv_out"]},
+                              "multichip": multichip_launches["yuv_out"],
+                              "bench": bench_launches["yuv_out"]},
          "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
@@ -4115,7 +4269,8 @@ def main() -> int:
                               "nodes": node_launches["sdf_layers"],
                               "edges": edge_launches and edge_launches["sdf_layers"],
                               "moq": moq_launches and moq_launches["sdf_layers"],
-                              "multichip": multichip_launches["sdf_layers"]},
+                              "multichip": multichip_launches["sdf_layers"],
+                              "bench": bench_launches["sdf_layers"]},
          "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],

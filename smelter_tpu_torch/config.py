@@ -4,9 +4,9 @@ Same `SMELTER_*` variable names and defaults and the same fields, so that
 `/status` reports the reference's configuration block; knobs the port has no
 use for are accepted but ignored so existing deployments' env files keep
 working. Not ported (ROADMAP "Do not port"): the XLA kernel guard
-(`force_xla_kernels`), the XLA compile cache (`apply_compile_cache`) and the
-XLA debug hook (`apply_xla_debug`); `SMELTER_XLA_DEBUG` is read into
-`xla_debug` and has no effect in the port.
+(`force_xla_kernels`) and the XLA compile cache (`apply_compile_cache`).
+`SMELTER_XLA_DEBUG` arms the port's counterpart of the reference's debug
+mode (`apply_xla_debug`, `check_finite`).
 """
 
 from __future__ import annotations
@@ -18,7 +18,10 @@ from dataclasses import dataclass, field
 
 from typing import Optional
 
+import torch
+
 from smelter_tpu_torch.core.types import Framerate
+from smelter_tpu_torch.render.capture import in_program
 
 
 def _env_bool(name: str, default: bool = False) -> bool:
@@ -134,10 +137,43 @@ class Config:
     moq_disable_tls_verification: bool = False
     moq_tls_cert_file: str = ""
     moq_tls_key_file: str = ""
-    # the reference's XLA debug mode (jax NaN/inf checks); read and
-    # reported, no effect in the port
+    # the reference's debug mode (its jax NaN/inf checks): `apply_xla_debug`
     xla_debug: bool = False
     logger: LoggerConfig = field(default_factory=LoggerConfig)
+
+
+# the debug mode is process-wide, as the jax flags it stands for
+_debug_nans_infs = False
+
+
+def apply_xla_debug(enabled: bool) -> None:
+    """The reference's debug mode (`SMELTER_XLA_DEBUG`), as it behaves: it
+    arms jax's NaN/Inf checks, which raise FloatingPointError when a float
+    result of a jitted function, called from the top level, holds NaN or
+    Inf. Here, from this call on in the process, `check_finite` raises on
+    the float results of the port's counterparts of those functions (the
+    kernels K1 and K3) and on a canvas handed to the YUV420 output, when
+    they are called outside a frame program. A frame program returns u8
+    planes, which no check sees in either package: a shader that yields NaN
+    still renders a frame, and a replay makes no synchronising call.
+    `False` leaves the mode as it is, as in the reference. The checks
+    synchronise with the card: a debugging mode only."""
+    global _debug_nans_infs
+    if enabled:
+        _debug_nans_infs = True
+
+
+def check_finite(t: torch.Tensor, where: str) -> torch.Tensor:
+    """Raise FloatingPointError naming `where`, as jax's NaN/Inf checks do,
+    when the debug mode is on, the caller runs outside a frame program
+    (`render.capture.in_program`) and the float tensor `t` holds NaN or
+    Inf. Returns `t`."""
+    if not _debug_nans_infs or in_program() or not t.is_floating_point():
+        return t
+    for kind, bad in (("nan", torch.isnan), ("inf", torch.isinf)):
+        if bool(bad(t).any()):
+            raise FloatingPointError(f"invalid value ({kind}) encountered in {where}")
+    return t
 
 
 def read_config() -> Config:

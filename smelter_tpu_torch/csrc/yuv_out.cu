@@ -35,12 +35,16 @@ constexpr float kYr = static_cast<float>(0.2126), kYg = static_cast<float>(0.715
 constexpr float kUr = static_cast<float>(-0.1146), kUg = static_cast<float>(0.3854);
 constexpr float kVg = static_cast<float>(0.4542), kVb = static_cast<float>(0.0458);
 
+// NaN passes through, as through torch.clamp and jnp.clip, so that a quad
+// holding NaN gives NaN chroma (then u8 0) as the plain version does;
+// fmaxf(NaN, 0) would be 0 and the quad's mean finite
 __device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
+  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
 __device__ __forceinline__ uint8_t to_u8(float x) {
-  // rintf rounds half to even, as torch.round and jnp.round do
+  // rintf rounds half to even, as torch.round and jnp.round do; NaN gives
+  // 0, as a NaN cast to u8 gives in torch and XLA
   float q = fminf(fmaxf(rintf(x * 255.0f), 0.0f), 255.0f);
   return static_cast<uint8_t>(q);
 }

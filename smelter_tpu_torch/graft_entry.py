@@ -131,9 +131,10 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     held to the single-device grid, the general step to a 1 x 1 mesh of
     itself (<= 1 u8 LSB each), and the outputs-sharded step with 2 n outputs
     must give (2 n, 216, 384) planes. Prints one "dryrun_multichip OK" line
-    and returns the numbers it checked. The steps shard only what divides:
-    an n whose "streams" size divides neither 16 nor 8 (9, 12, 15) fails
-    with the ranks' ValueError, where the reference pads."""
+    and returns the numbers it checked. The steps shard only what divides,
+    as the reference's do: an n whose "streams" size divides neither 16 nor
+    8 (9, 12, 15) is refused by both, the reference with a ValueError of its
+    own, this launcher with a RuntimeError carrying the ranks' ValueError."""
     device_type = "cuda" if device is None else torch.device(device).type
     streams, space = mesh_shape(n_devices)
     n_inputs = max(16, streams)

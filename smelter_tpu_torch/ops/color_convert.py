@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from smelter_tpu_torch.config import check_finite
 from smelter_tpu_torch.core.types import PixelFormat
 from smelter_tpu_torch.render.capture import device_constant
 from smelter_tpu_torch.ops.resample import (
@@ -319,9 +320,13 @@ def planar_rgba_to_yuv420(
     rgba_cm: torch.Tensor, full_range: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(4, H, W) RGBA f32 [0, 1] -> (y, u, v) u8 planes, 4:2:0, through
-    kernel K2 (its plain version for a CPU tensor)."""
+    kernel K2 (its plain version for a CPU tensor). In the debug mode,
+    outside a frame program, NaN or Inf in the colour planes raises
+    FloatingPointError, as the reference's chain of operations raises at
+    its first (`config.check_finite`); alpha is never read."""
     from smelter_tpu_torch.ops.hopper import yuv_out
 
+    check_finite(rgba_cm[:3], "planar_rgba_to_yuv420")
     return yuv_out.rgba_cm_to_yuv420(rgba_cm, full_range)
 
 

@@ -27,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from smelter_tpu_torch.config import check_finite
 from smelter_tpu_torch.interop import upload
 from smelter_tpu_torch.ops.compose import rounded_rect_sdf, smoothstep
 from smelter_tpu_torch.ops.hopper import build
@@ -211,11 +212,14 @@ def assemble_scene_planar(
 ) -> torch.Tensor:
     """Create the (4, H, W) premultiplied f32 canvas of one run of SDF
     members. Runs K1 for CUDA params (raising if it cannot) and the plain
-    version for CPU params."""
+    version for CPU params. In the debug mode, outside a frame program, a
+    canvas holding NaN or Inf raises FloatingPointError (`check_finite`)."""
     if params.device.type == "cpu":
-        return assemble_scene_planar_plain(resolution, specs, params)
-    if params.device.type != "cuda":
+        out = assemble_scene_planar_plain(resolution, specs, params)
+    elif params.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {params.device}")
-    if spec_rows is None:
-        spec_rows = spec_table(specs, params.device)
-    return _launch(resolution, specs, params, spec_rows)
+    else:
+        if spec_rows is None:
+            spec_rows = spec_table(specs, params.device)
+        out = _launch(resolution, specs, params, spec_rows)
+    return check_finite(out, "scene_assembly")

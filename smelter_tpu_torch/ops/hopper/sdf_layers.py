@@ -27,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from smelter_tpu_torch.config import check_finite
 from smelter_tpu_torch.interop import upload
 from smelter_tpu_torch.ops.compose import _over, _pixel_centers
 from smelter_tpu_torch.ops.hopper import build
@@ -127,13 +128,17 @@ def compose_sdf_layers_planar(
 ) -> torch.Tensor:
     """Blend L layers over the canvas in one pass. Runs K3 on a CUDA canvas,
     in place (raising if it cannot launch), and the plain version on a CPU
-    canvas. L = 0 returns the canvas untouched."""
+    canvas. L = 0 returns the canvas untouched. In the debug mode, outside a
+    frame program, a result holding NaN or Inf raises FloatingPointError
+    (`check_finite`)."""
     if not kinds:
         return canvas
     if canvas.device.type == "cpu":
-        return compose_sdf_layers_planar_plain(canvas, params, kinds)
-    if canvas.device.type != "cuda":
+        out = compose_sdf_layers_planar_plain(canvas, params, kinds)
+    elif canvas.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {canvas.device}")
-    if table is None:
-        table = kinds_table(kinds, canvas.device)
-    return _launch(canvas, params, kinds, table)
+    else:
+        if table is None:
+            table = kinds_table(kinds, canvas.device)
+        out = _launch(canvas, params, kinds, table)
+    return check_finite(out, "sdf_layers")

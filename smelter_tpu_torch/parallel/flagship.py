@@ -14,6 +14,8 @@ the driver's north-star shape, in its two scenes:
     the general compose (`ops/compose.py`: kernel K1 paints the colour and
     shadow members, the textures blend in groups) and the YUV420 output
     (kernel K2).
+  - `make_flagship_batched_compose`: the Tiles grid over a batch of frames
+    in one call, the counterpart of the reference bench's `jax.vmap`.
 
 Every builder takes the `device` its tensors live on (the CUDA card unless
 another is named; `interop.resolve_device` raises when there is no card)
@@ -362,6 +364,40 @@ def _make_yuv_grid_compose(stages: Stages, n_inputs, in_res: Resolution, device)
         return stages(y, u, v)
 
     return _warmed(fn, n_inputs, in_res, device)
+
+
+def make_flagship_batched_compose(
+    n_inputs: int = 16,
+    in_res: Resolution = Resolution(1920, 1080),
+    out_res: Resolution = Resolution(3840, 2160),
+    batch: int = 4,
+    device=None,
+):
+    """The counterpart of `jax.vmap` over `make_flagship_compose`'s function:
+    returns (fn, example_args), fn(y, u, v) taking `batch` frames of stacked
+    planes, (B, N, H, W) / (B, N, H/2, W/2) u8, and returning their
+    (B, OH, OW) / (B, OH/2, OW/2) planes in one call, frame b bit-equal to
+    the single compose of frame b. The Tiles grid batches through
+    `torch.func.vmap`: its resize GEMMs take the frames as one more batch
+    axis, and its assembly concatenates each frame's tiles. A Tiles scene
+    that is not an opaque grid takes the general compose, whose kernels
+    (K3, K2) vmap cannot batch: that raises ValueError naming the shape."""
+    device = resolve_device(device)
+    stages, build = _flagship_stages(n_inputs, in_res, out_res, device)
+    if build is not _make_yuv_grid_compose:
+        raise ValueError(
+            f"the Tiles scene of {n_inputs} x {in_res.width}x{in_res.height} -> "
+            f"{out_res.width}x{out_res.height} is not an opaque grid; its general "
+            f"compose launches kernels that a batch cannot go through")
+    batched = torch.func.vmap(stages)
+
+    def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        return batched(y, u, v)
+
+    example_args = tuple(p.expand(batch, *p.shape).contiguous()
+                         for p in _example_args(n_inputs, in_res, device))
+    fn(*example_args)
+    return fn, example_args
 
 
 def _round_u8(x: torch.Tensor) -> torch.Tensor:

@@ -82,6 +82,25 @@ def _building():
         _local.scope = None
 
 
+@contextlib.contextmanager
+def _running():
+    outer = getattr(_local, "running", False)
+    _local.running = True
+    try:
+        yield
+    finally:
+        _local.running = outer
+
+
+def in_program() -> bool:
+    """Whether the calling code runs inside a frame program on this thread:
+    while the program is built (its warm-up and capture) or run without a
+    graph on the CPU. That code is what the reference traces inside a
+    `jax.jit`, whose intermediate values its debug checks never see
+    (`config.check_finite`)."""
+    return _scope() is not None or getattr(_local, "running", False)
+
+
 def hold(t: torch.Tensor) -> torch.Tensor:
     """Keep a device tensor alive for as long as the program being built on
     this thread, if any (a graph reads it by address). Returns `t`."""
@@ -200,16 +219,25 @@ class CapturedProgram:
         self.capture_ms = capture_ms
         self.graph_bytes = graph_bytes
 
-    def __call__(self, *args):
+    def load(self, *args) -> None:
+        """Copy `args` into the static argument buffers, without waiting."""
         _copy_into(self._static, args)
+
+    def run(self):
+        """Run the program on what its static buffers hold: one graph replay
+        on a card. Returns the program's own outputs, which the next run
+        writes again."""
         if self._graph is None:
-            out = self.fn(*self._static)
-        else:
-            self._graph.replay()
-            for count in self._scope.on_replay:
-                count()
-            out = self._outputs
-        return _map_tensors(out, torch.clone)
+            with _running():
+                return self.fn(*self._static)
+        self._graph.replay()
+        for count in self._scope.on_replay:
+            count()
+        return self._outputs
+
+    def __call__(self, *args):
+        self.load(*args)
+        return _map_tensors(self.run(), torch.clone)
 
 
 def capture(fn: Callable, args: tuple, device, pool=None,

@@ -1191,11 +1191,12 @@ def build_app(state: ApiState) -> web.Application:
 def run(config: Optional[Config] = None) -> None:
     """Serve the API on the configured port (and the WHIP/WHEP endpoints on
     their own port too when `start_whip_whep_server`). `Config.xla_debug`
-    is read and reported but has no effect: the port has no XLA."""
+    arms the debug mode (`config.apply_xla_debug`), as in the reference."""
     cfg = config or read_config()
-    from smelter_tpu_torch.config import init_logger
+    from smelter_tpu_torch.config import apply_xla_debug, init_logger
 
     init_logger(cfg.logger)
+    apply_xla_debug(cfg.xla_debug)
     state = ApiState(cfg)
     app = build_app(state)
     whip_app = app.get("whip_app")

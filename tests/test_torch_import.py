@@ -5,7 +5,8 @@ only to raster a Text or decode an image, websockets only to reach a
 browser), and its pipeline without aiohttp, pydantic or cryptography; its
 MoQ and QUIC edges without the reference package; its multi-device steps
 (`parallel/mesh.py`, `graft_entry.py`) without JAX or the reference, in
-the launching process and in the ranks it spawns; the protocol edges
+the launching process and in the ranks it spawns; its benchmark
+(`bench.py`) and examples without them either; the protocol edges
 load their native helpers (DTLS, DeckLink) only when an endpoint is made; its
 entry points refuse to run without a card unless given `device="cpu"`; and
 `chip_smoke.py` refuses to run (non-zero exit, no "ok" line) where torch
@@ -181,6 +182,25 @@ def test_mesh_and_its_ranks_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] [[], []]"
+
+
+_BENCH_EXAMPLES = """
+import sys
+import smelter_tpu_torch.bench
+import smelter_tpu_torch.examples.offline_compose
+import smelter_tpu_torch.examples.flagship_live
+import smelter_tpu_torch.examples.moq_relay
+print(sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "smelter_tpu"}))
+"""
+
+
+def test_bench_and_examples_import_without_jax():
+    """`smelter_tpu_torch.bench` and the examples load neither JAX nor any
+    module of the reference package."""
+    out = subprocess.run([sys.executable, "-c", _BENCH_EXAMPLES], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu():
