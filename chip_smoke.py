@@ -161,6 +161,27 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      a grid and a general replay bit-equal to their eager functions, each
      frame of a batched replay (4 frames) bit-equal to its single compose;
      fails past 90 s; prints `{"bench_phase": ...}`.
+  17. the measurement tools (`tools_phase`, after phase 16): each of
+     `smelter_tpu_torch.tools`' `main()` at the reference's default sizes
+     (`bench_scenes --ops`, `bench_animations`, `bench_latency`,
+     `bench_flagship_ops` and `--general`, `bench_overlap --no-codec`),
+     each printing its JSON lines, with every kernel count set to 0 just
+     before each tool and read just after; gates: every line parses, none
+     has "error" and each names the card; `frames` as asked;
+     `bench_scenes` adds no structure key in its timed window, and one
+     replayed frame of each of its scenes is bit-equal to its program run
+     eagerly (`EagerCheck`); `bench_latency` has samples; the grid's
+     `device_p50_ms` of `bench_flagship_ops` is within 10% of phase 16's
+     (the same program, another reader); the reader's busy time, span and
+     kernel sum for general_4k beside CUDA events, and every replay of one
+     program but a trace's first (which may hold fewer) given the same
+     count of device activities in 12 traces of the grid
+     (`profile_reader_check`). Prints the structure keys each animation added in its burst and what
+     changed in them. The codec
+     tools (`bench_offline`, `bench_streams`, `bench_overlap`'s codec
+     stages) print `{"tool": ..., "skipped": ...}` after one probe of the
+     codec service where it cannot load. 150 s budget, recorded; fails
+     past 300 s; prints `{"tools_phase": ...}`.
 The renderer phases (6, 7, 8's offline run and 10) run through captured
 programs: every render is also held bit for bit to the closure of its
 structure run eagerly on the same frame (`EagerCheck`, outside every count),
@@ -177,8 +198,8 @@ phase (`{"nodes": ...}`), a JSON line of the captured programs of every
 phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
 JSON line of the kernels (`launches` from the pipeline's offline 4K run,
-each path's counts under `launches_by_path`, the nodes, multichip and
-bench phases' included), the nvidia-smi line, and
+each path's counts under `launches_by_path`, the nodes, multichip,
+bench and tools phases' included, the tools' per tool), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -3503,25 +3524,14 @@ GOLDEN_ALLOWED_ERROR = 1.0  # mean abs u8 error per channel (tests/harness.ALLOW
 
 
 def golden_input(index, w=GOLDEN_IN_W, h=GOLDEN_IN_H):
-    """`tests/harness.make_test_input(index, (w, h))` with the port's BT.709
-    conversion: a solid hue per index, a white square at the top left and a
-    black bar at the bottom, as planar YUV420 (a host Frame of u8 planes)."""
-    import torch
+    """`tests/harness.make_test_input(index, (w, h))`, the port's copy
+    (`smelter_tpu_torch.tools._inputs`): a solid hue per index, a white
+    square at the top left and a black bar at the bottom, as planar YUV420
+    (a host Frame of u8 planes)."""
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.tools._inputs import make_test_input
 
-    from smelter_tpu_torch.core.types import Frame, PixelFormat, Resolution
-    from smelter_tpu_torch.ops import color_convert as cc
-
-    hues = [(0.9, 0.2, 0.2), (0.2, 0.9, 0.2), (0.2, 0.2, 0.9), (0.9, 0.9, 0.2),
-            (0.9, 0.2, 0.9), (0.2, 0.9, 0.9), (0.7, 0.5, 0.3), (0.3, 0.5, 0.7)]
-    rgb = torch.empty((3, h, w), dtype=torch.float32)
-    rgb[:] = torch.tensor(hues[index % len(hues)]).view(3, 1, 1)
-    rgb[:, : h // 8, : w // 8] = 1.0
-    rgb[:, -h // 16:, :] = 0.0  # the harness's slice: the last ceil(h / 16) rows
-    y, u, v = cc.rgb_planes_to_yuv(rgb[0], rgb[1], rgb[2])
-    planes = (cc.f32_to_u8(y), cc.f32_to_u8(cc.downsample_chroma_2x2(u)),
-              cc.f32_to_u8(cc.downsample_chroma_2x2(v)))
-    return Frame(data=tuple(p.numpy() for p in planes), format=PixelFormat.PLANAR_YUV420,
-                 resolution=Resolution(w, h), pts=0.0)
+    return make_test_input(index, Resolution(w, h))
 
 
 def golden_scene(name):
@@ -3833,7 +3843,309 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
     check(phase_s < BENCH_BUDGET_S,
           f"bench phase took {phase_s:.0f} s, past {BENCH_BUDGET_S:.0f} s")
     return launches, {"bench_s": t_bench, "phase_s": phase_s, "gates": gates,
-                      "general_runs": general_runs}
+                      "general_runs": general_runs,
+                      "grid_device_p50_ms": result["device_p50_ms"]}
+
+
+# the tools phase (17): each of `smelter_tpu_torch.tools`' measurement tools
+# at the reference's default sizes, then the gates the tools do not hold
+TOOLS_BUDGET_S = 150.0  # recorded
+TOOLS_CEILING_S = 300.0  # the run fails past it
+# the reference's defaults that a tool's main() runs by itself
+TOOL_FRAMES = {"bench_scenes": 40, "tiles_relayout_8to9": 20, "animation": 30,
+               "bench_flagship_ops": 40}
+
+
+class StructureLog:
+    """While installed (a `with` block), records every render of an
+    `OutputProgram`: (the program's serial number, the structure keys the
+    render added to its cache). Host bookkeeping only: no device work, no
+    count. (A serial, not `id()`: a freed program's id is reused.)"""
+
+    def __enter__(self):
+        import itertools
+
+        from smelter_tpu_torch.render.program import OutputProgram
+
+        self._render = render = OutputProgram.render
+        self.renders = []
+        serials = itertools.count()
+
+        def logged(prog, *args, **kw):
+            before = set(prog._build_cache)
+            out = render(prog, *args, **kw)
+            serial = prog.__dict__.setdefault("_smoke_serial", next(serials))
+            self.renders.append((serial, tuple(k for k in prog._build_cache
+                                               if k not in before)))
+            return out
+
+        OutputProgram.render = logged
+        return self
+
+    def __exit__(self, *exc):
+        from smelter_tpu_torch.render.program import OutputProgram
+
+        OutputProgram.render = self._render
+        return False
+
+    def by_program(self):
+        """[[the keys each render added] for each program, in first-render order]."""
+        progs = {}
+        for pid, added in self.renders:
+            progs.setdefault(pid, []).append(added)
+        return list(progs.values())
+
+
+def key_changes(old, new, path="key", limit=6):
+    """The leaves in which two structure keys differ, as "path: old -> new"
+    (tuples by index, dataclasses by field)."""
+    import dataclasses
+
+    if old == new:
+        return []
+    if isinstance(old, tuple) and isinstance(new, tuple) and len(old) == len(new):
+        out = []
+        for i, (a, b) in enumerate(zip(old, new)):
+            out += key_changes(a, b, f"{path}[{i}]", limit - len(out))
+            if len(out) >= limit:
+                break
+        return out
+    if dataclasses.is_dataclass(old) and type(old) is type(new):
+        out = []
+        for f in dataclasses.fields(old):
+            out += key_changes(getattr(old, f.name), getattr(new, f.name),
+                               f"{path}.{f.name}", limit - len(out))
+            if len(out) >= limit:
+                break
+        return out
+    return [f"{path}: {old!r} -> {new!r}"]
+
+
+class _Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self):
+        return [json.loads(line) for line in "".join(self.text).splitlines() if line.strip()]
+
+
+def tools_phase(dev, stamp, grid_device_p50_ms):
+    """Phase 17: runs each measurement tool's `main()` on the card at the
+    reference's default sizes (they print their JSON lines), with every
+    kernel count set to 0 just before each tool and read just after. Gates:
+    every line parses and none has an "error" key; `frames` is the number
+    asked for; `bench_scenes` adds no structure key in its timed window;
+    one frame of each of its scenes, replayed, is bit-equal to its program
+    run eagerly; `bench_latency` has samples; `bench_flagship_ops`' grid
+    `device_p50_ms` is within 10% of phase 16's grid replay (the same
+    program: it cross-checks the profiler reader, whose measures of
+    general_4k `profile_reader_check` then prints, and which must give
+    every replay of one program but a trace's first the same count of
+    device activities);
+    `bench_overlap
+    --no-codec` runs. The codec tools (`bench_offline`, `bench_streams`,
+    `bench_overlap`'s codec stages) print {"skipped": ...} after one probe
+    of the codec service where it cannot load. Returns (launches per tool,
+    the phase's numbers)."""
+    from smelter_tpu_torch.core.types import FrameSet, Resolution
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.tools import (
+        bench_animations,
+        bench_flagship_ops,
+        bench_latency,
+        bench_offline,
+        bench_overlap,
+        bench_scenes,
+        bench_streams,
+    )
+    from smelter_tpu_torch.tools._inputs import seeded_frame_sets
+    from smelter_tpu_torch.tools._profile import card
+
+    kernels = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+    launches, lines, seconds = {}, {}, {}
+    card_line = card(dev)
+    t_phase = time.perf_counter()
+
+    def run(label, main, argv):
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            main(argv)
+        seconds[label] = time.perf_counter() - t0
+        launches[label] = {name: mod.LAUNCHES for name, mod in kernels.items()}
+        lines[label] = tee.lines()
+        check(lines[label], f"tools: {label} printed no line")
+        for line in lines[label]:
+            check("error" not in line, f"tools: {label} printed an error: {line}")
+            check(line.get("card") == card_line, f"tools: {label} card {line.get('card')!r}")
+        print(f"tools: {label} {seconds[label]:.1f} s, launches {launches[label]} {stamp}")
+        return lines[label]
+
+    with StructureLog() as scene_log:
+        scenes = run("bench_scenes", bench_scenes.main, ["--ops"])
+    check([line["scene"] for line in scenes] == list(bench_scenes.scene_defs()),
+          "tools: bench_scenes did not print every scene")
+    check(all(line["frames"] == TOOL_FRAMES["bench_scenes"] for line in scenes),
+          f"tools: bench_scenes frames {[line['frames'] for line in scenes]}")
+    late = [[k for k, added in enumerate(renders) if added and k >= bench_scenes.SETTLE_FRAMES]
+            for renders in scene_log.by_program()]
+    check(len(late) == len(scenes) and not any(late),
+          f"tools: bench_scenes added structure keys in its timed window at renders {late}")
+    # one replayed frame of each scene, held to its program run eagerly
+    eager_checked = {}
+    for name, (make, n) in bench_scenes.scene_defs().items():
+        frames0, _ = seeded_frame_sets(n, Resolution(960, 540))
+        r = bench_scenes.scene_renderer(make, n, Resolution(1920, 1080), dev)
+        with EagerCheck(f"bench_scenes {name}") as eager:
+            for k in range(2):
+                r.render(FrameSet(pts=k / 60.0, frames=frames0))
+        r.close()
+        kinds = [kind for _, _, kind in eager.renders]
+        check(kinds == ["capture", "replay"], f"tools: bench_scenes {name} renders {kinds}")
+        eager_checked[name] = eager.report()["eager_mismatches"]
+
+    with StructureLog() as anim_log:
+        anims = run("bench_animations", bench_animations.main, [])
+    check([line["frames"] for line in anims]
+          == [TOOL_FRAMES["tiles_relayout_8to9"]] + [TOOL_FRAMES["animation"]] * 4,
+          f"tools: bench_animations frames {[line['frames'] for line in anims]}")
+    # each animation renders through two programs (its first scene's and
+    # the transition's); the transition's renders: pts 0.2, then the burst
+    programs = anim_log.by_program()
+    check(len(programs) == 2 * len(anims), f"tools: bench_animations used {len(programs)} "
+                                           f"programs for {len(anims)} animations")
+    key_diffs = {}
+    for line, renders in zip(anims, programs[1::2]):
+        keys = [k for added in renders for k in added]
+        burst = [(k, added) for k, added in enumerate(renders) if k >= 1 and added]
+        diffs = []
+        for k, added in burst:
+            for key in added:
+                prev = keys[keys.index(key) - 1]
+                diffs.append({"render": k, "changes": key_changes(prev, key)})
+        key_diffs[line["animation"]] = diffs
+        if "retraces_during_animation" in line:  # the box animations
+            check(len(diffs) == line["retraces_during_animation"],
+                  f"tools: {line['animation']} retraces {line['retraces_during_animation']} "
+                  f"against the keys logged in its burst: {diffs}")
+    print(f"tools: bench_animations structure keys added in the burst: {json.dumps(key_diffs)}")
+
+    (latency,) = run("bench_latency", bench_latency.main, [])
+    check(latency["samples"] > 0, f"tools: bench_latency has no samples: {latency}")
+
+    (grid,) = run("bench_flagship_ops", bench_flagship_ops.main, [])
+    (general,) = run("bench_flagship_ops --general", bench_flagship_ops.main, ["--general"])
+    for line in (grid, general):
+        check(line["frames"] == TOOL_FRAMES["bench_flagship_ops"],
+              f"tools: bench_flagship_ops frames {line['frames']}")
+    ratio = grid["device_p50_ms"] / grid_device_p50_ms
+    print(f"tools: bench_flagship_ops grid device_p50_ms {grid['device_p50_ms']} against phase "
+          f"16's {grid_device_p50_ms} (x{ratio:.4f}) {stamp}")
+    check(abs(ratio - 1.0) <= 0.10, f"tools: bench_flagship_ops grid {grid['device_p50_ms']} ms "
+                                    f"is not within 10% of phase 16's {grid_device_p50_ms} ms")
+    reader = profile_reader_check(dev, stamp)
+
+    run("bench_overlap --no-codec", bench_overlap.main, ["--no-codec"])
+    why = edges_unavailable()  # the one probe of the codec service
+    skipped = {}
+    for label, main, argv in (("bench_overlap", bench_overlap.main, []),
+                              ("bench_offline", bench_offline.main, []),
+                              ("bench_streams", bench_streams.main, ["--max", "2"])):
+        if why is not None:
+            skipped[label] = why
+            print(json.dumps({"tool": label, "skipped": why}), flush=True)
+        else:
+            run(label, main, argv)
+    phase_s = time.perf_counter() - t_phase
+    print(f"tools phase: {phase_s:.1f} s (budget {TOOLS_BUDGET_S:.0f} s, recorded; fails past "
+          f"{TOOLS_CEILING_S:.0f} s)")
+    check(phase_s < TOOLS_CEILING_S, f"tools phase took {phase_s:.0f} s, past "
+                                     f"{TOOLS_CEILING_S:.0f} s")
+    return launches, {"phase_s": phase_s, "seconds": seconds, "lines": lines,
+                      "skipped": skipped, "eager_mismatches": eager_checked,
+                      "animation_key_changes": key_diffs,
+                      "flagship_grid_vs_bench": ratio, "profile_reader": reader}
+
+
+def profile_reader_check(dev, stamp, n=N_INPUTS, iters=20, repeats=12):
+    """The profiler reader's three measures of one program side by side:
+    `iters` general_4k replays (the captured program called as
+    `bench_flagship_ops` calls it) under `tools._profile.FrameProfile`, its
+    busy time (the tools' device time), its span (idle gaps included) and
+    its summed kernel time, beside CUDA events around the same calls
+    without the profiler. Medians in ms. Then `repeats` traces of `iters`
+    grid replays: every replay of one program runs the same device
+    activities, so the reader must give every frame but the first of every
+    trace the same count, and the first no more (a frame's activities
+    placed in another frame, or lost at the trace's end, fail it). The
+    first may hold fewer: the profiler can leave out a trace's first
+    records (seen on an H100: the first replay's first two
+    device-to-device copies, absent from the trace)."""
+    import torch
+
+    from smelter_tpu_torch import bench, interop
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.parallel.flagship import (
+        make_flagship_compose,
+        make_flagship_general_compose,
+    )
+    from smelter_tpu_torch.render.capture import capture
+    from smelter_tpu_torch.tools._profile import FrameProfile
+
+    in_res, out_res = Resolution(IN_W, IN_H), Resolution(OUT_W, OUT_H)
+    frames = [interop.planes_to_device(f, dev) for f in bench.host_frames(n, in_res)]
+    counts = {}
+    for name, make, traces in (("general_4k", make_flagship_general_compose, 1),
+                               ("grid", make_flagship_compose, repeats)):
+        fn, _ = make(n_inputs=n, in_res=in_res, out_res=out_res, device=dev)
+        prog, _ = capture(fn, frames[0], dev)
+        prog(*frames[0])
+        counts[name] = []
+        for _ in range(traces):
+            with FrameProfile(dev) as fp:
+                for i in range(iters):
+                    with fp.frame():
+                        prog(*frames[i % 2])
+            counts[name].append(fp.activity_counts())
+        if name == "general_4k":
+            events = []
+            for i in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                prog(*frames[i % 2])
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            out = {"busy_ms": statistics.median(fp.busy_ms()),
+                   "span_ms": statistics.median(fp.spans_ms()),
+                   "kernel_ms": statistics.median(fp.kernel_ms()),
+                   "cuda_events_ms": statistics.median(s.elapsed_time(e) for s, e in events)}
+        del prog
+    print(f"tools: profiler reader on general_4k ({iters} calls), medians: {json.dumps(out)} "
+          f"{stamp}")
+    # per program: the counts of the first frames, and of the others
+    seen = {name: [sorted({t[0] for t in per}), sorted({c for t in per for c in t[1:]})]
+            for name, per in counts.items()}
+    out["activities_per_frame"] = seen
+    print(f"tools: profiler reader, device activities of the first / the other frames in 1 "
+          f"general_4k trace and {repeats} grid traces of {iters} replays each: "
+          f"{json.dumps(seen)} {stamp}")
+    check(all(len(rest) == 1 and max(first) <= rest[0] for first, rest in seen.values()),
+          f"tools: the profiler reader gave replays of one program different activity counts: "
+          f"{json.dumps(counts)}")
+    return out
 
 
 def profile_busy(prof, span_s):
@@ -3990,6 +4302,9 @@ def main() -> int:
 
     # phase 16: the benchmark entry point, `python -m smelter_tpu_torch.bench`
     bench_launches, bench_numbers = bench_phase(dev, stamp)
+
+    # phase 17: the measurement tools, `python -m smelter_tpu_torch.tools.<name>`
+    tool_launches, tool_numbers = tools_phase(dev, stamp, bench_numbers["grid_device_p50_ms"])
 
     # phase 6: the renderer, 16 x 1080p -> 4K, a transition of 41 frames
     k3_frames = []
@@ -4221,6 +4536,8 @@ def main() -> int:
                                     "card": card}}))
     print(json.dumps({"bench_phase": {"kernel_launches": bench_launches, **bench_numbers,
                                       "card": card}}))
+    print(json.dumps({"tools_phase": {"kernel_launches": tool_launches, **tool_numbers,
+                                      "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
     # slice's main path; no single PyTorch call computes any of the three functions:
@@ -4237,7 +4554,8 @@ def main() -> int:
                               "edges": edge_launches and edge_launches["scene_assembly"],
                               "moq": moq_launches and moq_launches["scene_assembly"],
                               "multichip": multichip_launches["scene_assembly"],
-                              "bench": bench_launches["scene_assembly"]},
+                              "bench": bench_launches["scene_assembly"],
+                              "tools": {tool: n["scene_assembly"] for tool, n in tool_launches.items()}},
          "max_abs_err": k1_err,
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -4254,7 +4572,8 @@ def main() -> int:
                               "edges": edge_launches and edge_launches["yuv_out"],
                               "moq": moq_launches and moq_launches["yuv_out"],
                               "multichip": multichip_launches["yuv_out"],
-                              "bench": bench_launches["yuv_out"]},
+                              "bench": bench_launches["yuv_out"],
+                              "tools": {tool: n["yuv_out"] for tool, n in tool_launches.items()}},
          "max_abs_err": k2_err,
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
@@ -4270,7 +4589,8 @@ def main() -> int:
                               "edges": edge_launches and edge_launches["sdf_layers"],
                               "moq": moq_launches and moq_launches["sdf_layers"],
                               "multichip": multichip_launches["sdf_layers"],
-                              "bench": bench_launches["sdf_layers"]},
+                              "bench": bench_launches["sdf_layers"],
+                              "tools": {tool: n["sdf_layers"] for tool, n in tool_launches.items()}},
          "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],

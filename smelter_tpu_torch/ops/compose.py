@@ -582,6 +582,21 @@ def canvas_clipper(h: int, w: int):
     return clip
 
 
+def _member_region(static: LayoutStatic) -> Tuple[int, int, int, int]:
+    """The unclipped region kernel K1 paints for a member: `_layer_region`,
+    one pixel wider on every side for an upright colour member. Its static
+    rect is its rect rounded, and its edge is anti-aliased over half a pixel
+    past the rect, so a fractional edge covers one pixel beyond the rounded
+    rect (the reference paints it: its kernel evaluates whole blocks, its
+    group path aligned unions); a pixel the member does not cover takes its
+    exact zero."""
+    top, left, h, w = _layer_region(static)
+    upright = static.static_rotation is None or abs(static.static_rotation) <= 1e-9
+    if static.content == "color" and upright:
+        return top - 1, left - 1, h + 2, w + 2
+    return top, left, h, w
+
+
 def _assembly_members(items, i: int, j: int, clip):
     """Split the run items[i:j] into kernel K1's members and the group path's
     items: returns (specs, member_params, group_items).
@@ -603,7 +618,7 @@ def _assembly_members(items, i: int, j: int, clip):
 
     for k in range(i, j):
         st, p = items[k]
-        reg = clip(_layer_region(st))
+        reg = clip(_member_region(st))
         if reg is None:  # fully off-canvas: contributes nothing
             continue
         if st.content in ("color", "box_shadow") and not any(

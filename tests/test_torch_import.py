@@ -6,8 +6,9 @@ browser), and its pipeline without aiohttp, pydantic or cryptography; its
 MoQ and QUIC edges without the reference package; its multi-device steps
 (`parallel/mesh.py`, `graft_entry.py`) without JAX or the reference, in
 the launching process and in the ranks it spawns; its benchmark
-(`bench.py`) and examples without them either; the protocol edges
-load their native helpers (DTLS, DeckLink) only when an endpoint is made; its
+(`bench.py`), examples and measurement tools (`tools/`) without them
+either; the protocol edges load their native helpers (DTLS, DeckLink) only
+when an endpoint is made; its
 entry points refuse to run without a card unless given `device="cpu"`; and
 `chip_smoke.py` refuses to run (non-zero exit, no "ok" line) where torch
 sees no CUDA card."""
@@ -201,6 +202,27 @@ def test_bench_and_examples_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+_TOOLS = """
+import importlib, pkgutil, sys
+import smelter_tpu_torch.tools
+names = sorted(m.name for m in pkgutil.iter_modules(smelter_tpu_torch.tools.__path__))
+for name in names:
+    importlib.import_module(f"smelter_tpu_torch.tools.{name}")
+print(" ".join(names), sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "smelter_tpu"}))
+"""
+
+
+def test_tools_import_without_jax():
+    """Every module of `smelter_tpu_torch.tools` (the measurement tools)
+    loads neither JAX nor any module of the reference package."""
+    out = subprocess.run([sys.executable, "-c", _TOOLS], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == (
+        "_inputs _profile bench_animations bench_flagship_ops bench_latency bench_offline "
+        "bench_overlap bench_scenes bench_streams []")
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu():

@@ -117,8 +117,28 @@ def _off_canvas_case():
     return (w, h), statics, params, None
 
 
+def _fractional_case():
+    """Upright colour members whose edges fall inside pixels: each static
+    rect is its rect rounded, and the anti-aliased edge reaches one pixel
+    past it (the bottom and right of the first, the top and left of the
+    second). No edge falls on the reference group path's 8-row union bound,
+    where that path would clip it and its kernel would not."""
+    h, w = 64, 256
+    St = jcomp.LayoutStatic
+    statics = [St(content="color", static_rect=(0, 0, h, w)),
+               St(content="color", static_rect=(12, 20, 22, 40)),
+               St(content="color", static_rect=(38, 100, 20, 30))]
+    params = [
+        _params(top=0, left=0, width=w, height=h, color=(0.1, 0.1, 0.3, 1.0)),
+        _params(top=12, left=20, width=40.5, height=22.5, color=(0.9, 0.2, 0.2, 1.0)),
+        _params(top=37.6, left=99.6, width=30.3, height=20.3, color=(0.2, 0.9, 0.4, 0.8)),
+    ]
+    return (w, h), statics, params, None
+
+
 CASES = {"mixed": _mixed_case, "interleaved": _interleaved_case,
-         "two_masks": _two_masks_case, "off_canvas": _off_canvas_case}
+         "two_masks": _two_masks_case, "off_canvas": _off_canvas_case,
+         "fractional": _fractional_case}
 
 
 def _jax_compose(monkeypatch, mode, res, statics, params, src, planar):
@@ -153,7 +173,7 @@ def test_compose_matches_jax(monkeypatch, case, mode):
     _assert_canvas_close(got, ref)
 
 
-@pytest.mark.parametrize("case", ["mixed", "two_masks", "off_canvas"])
+@pytest.mark.parametrize("case", ["mixed", "two_masks", "off_canvas", "fractional"])
 def test_kernel_plain_matches_pallas_interpret(monkeypatch, case):
     """K1 alone: the canvas the assembly pass creates, before any texture."""
     (w, h), statics, params, src = CASES[case]()
