@@ -182,6 +182,23 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      stages) print `{"tool": ..., "skipped": ...}` after one probe of the
      codec service where it cannot load. 150 s budget, recorded; fails
      past 300 s; prints `{"tools_phase": ...}`.
+  18. the 16-bit compose canvas (`canvas_storage_phase`, after phase 17):
+     (a) K1 with u16, f16 and bf16 stores on the phase 3/4 member tables,
+     tile-class edge cases and NaN/Inf colours, and K2 on u16, f16 and bf16 canvases (the
+     general_4k canvas, random ones at 1080p, odd and W % 4 != 0 widths,
+     planes 1 and 4 elements off their allocation, NaN/Inf in f16 and
+     bf16), each bit-equal to its plain version; (b) the general_4k builder
+     under each SMELTER_CANVAS_DTYPE: the stored dtype, K1 and K2 once per
+     replay, each replay bit-equal to its function run eagerly, u16 within
+     1 LSB of f32 (gated), f16 and bf16 recorded, each replay timed; (c)
+     phase 6's renderer transition, 10 frames, under f32 and u16 (K3 on the
+     decoded root): every u16 frame within 1 LSB of f32, every render held
+     to its program run eagerly; (d) `bench_canvas_ab --variants
+     u16,f16,bf16,f32 --gate u16`, `bench_assembly_ab` and `bench_align_ab`
+     at the reference's defaults: every line parses, none has "error", each
+     names the card. 90 s budget, recorded; fails past 200 s; prints
+     `{"canvas_storage": ...}`; phase 9 times K1's 16-bit stores and K2's
+     16-bit loads beside their bounds.
 The renderer phases (6, 7, 8's offline run and 10) run through captured
 programs: every render is also held bit for bit to the closure of its
 structure run eagerly on the same frame (`EagerCheck`, outside every count),
@@ -199,7 +216,9 @@ phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
 JSON line of the kernels (`launches` from the pipeline's offline 4K run,
 each path's counts under `launches_by_path`, the nodes, multichip,
-bench and tools phases' included, the tools' per tool), the nvidia-smi line, and
+bench and tools phases' included, the tools' and the A/B tools' per tool;
+K1's and K2's 16-bit times, bounds and launches per replay under
+`storage_16bit`), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -910,9 +929,9 @@ def start_transition(dev, n, in_w, in_h, out_w, out_h, frames, scene=renderer_sc
 
 
 def render_transition(dev, n, in_w, in_h, out_w, out_h, frames, on_frame=None,
-                      scene=renderer_scene):
+                      scene=renderer_scene, n_frames=N_RENDER_FRAMES):
     """Render pts 0 (stage 0), update the scene to stage 1, render pts k/FPS
-    for k = 1..N_RENDER_FRAMES. Returns the frames' planes, on `dev`;
+    for k = 1..n_frames. Returns the frames' planes, on `dev`;
     `on_frame(k, planes)` is called after each frame."""
     from smelter_tpu_torch.core.types import FrameSet
 
@@ -920,7 +939,7 @@ def render_transition(dev, n, in_w, in_h, out_w, out_h, frames, on_frame=None,
     outs = [first]
     if on_frame is not None:
         on_frame(0, first)
-    for k in range(1, N_RENDER_FRAMES + 1):
+    for k in range(1, n_frames + 1):
         outs.append(r.render(FrameSet(pts=k / FPS, frames=frames)).frames["out"].data)
         if on_frame is not None:
             on_frame(k, outs[-1])
@@ -942,12 +961,12 @@ def renderer_kernel_runs(dev, frames):
     k1_runs = []
     launch = scene_assembly.assemble_scene_planar
 
-    def capture(resolution, specs, params, spec_rows=None):
+    def capture(resolution, specs, params, spec_rows=None, out_dtype=torch.float32):
         # the run of the frame, not the capture of its graph (which runs
         # nothing on the card)
         if not torch.cuda.is_current_stream_capturing():
             k1_runs.append(("renderer frame table", resolution, specs, params.clone()))
-        return launch(resolution, specs, params, spec_rows)
+        return launch(resolution, specs, params, spec_rows, out_dtype)
 
     scene_assembly.assemble_scene_planar = capture
     try:
@@ -4078,6 +4097,275 @@ def tools_phase(dev, stamp, grid_device_p50_ms):
                       "flagship_grid_vs_bench": ratio, "profile_reader": reader}
 
 
+# phase 18: the 16-bit compose canvas (SMELTER_CANVAS_DTYPE) and the route
+# switch of the canvas-opening run (SMELTER_SCENE_ASSEMBLY)
+CANVAS_BUDGET_S = 90.0  # recorded
+CANVAS_CEILING_S = 200.0  # the run fails past it
+CANVAS_STORAGE = ("uint16", "float16", "bfloat16")
+CANVAS_RENDER_FRAMES = 10
+
+
+def _storage_dtype(name):
+    """The torch dtype a SMELTER_CANVAS_DTYPE value names."""
+    import torch
+
+    from smelter_tpu_torch.ops.compose import _CANVAS_DTYPES
+
+    return _CANVAS_DTYPES.get(name, torch.float32)
+
+
+def _bits_differ(a, b):
+    """Elements whose stored bits differ (16-bit storage compared as int16),
+    a NaN of a float storage matching any NaN (torch and the card's
+    intrinsics give NaN other payload bits)."""
+    import torch
+
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    differ = a.view(view) != b.view(view)
+    if a.is_floating_point():
+        differ &= ~(torch.isnan(a) & torch.isnan(b))
+    return int(differ.sum())
+
+
+def k1_nan_case(dev):
+    """A K1 case of NaN and +-Inf colours over an opaque background, which
+    pins the 16-bit stores of NaN (u16 code 0) and +-Inf against the plain
+    version. Each such member's region lies 20 px inside its rect, where its
+    alpha is exactly 1, and the two are disjoint: a NaN colour times the
+    zero alpha outside a rect is NaN, which the plain version paints over
+    its whole region and the kernel's tile classes drop, so only there do
+    the two agree by design."""
+    import torch
+
+    from smelter_tpu_torch.ops.hopper.scene_assembly import MemberSpec
+
+    h, w = 200, 520
+    nan, inf = float("nan"), float("inf")
+    rows = [[0.0, 0.0, w, h, 0.0, 0, 0, 0, 0, 0.1, 0.1, 0.15, 1.0, 0, 0, 0, 0, 0, 0],
+            [20.0, 30.0, 200.0, 100.0, 0.0, *[8.0] * 4, nan, 0.5, inf, 0.8, 0, 0, 0, 0, 0, 0],
+            [60.0, 280.0, 200.0, 120.0, 0.0, *[6.0] * 4, 0.2, -inf, 0.4, 0.9, 0, 0, 0, 0, 0, 0]]
+    specs = [MemberSpec("color", False, False, 0, (), region)
+             for region in ((0, 0, h, w), (40, 50, 100, 210), (80, 300, 160, 460))]
+    return ("NaN/Inf colours 520x200", (w, h), specs,
+            torch.tensor(rows, dtype=torch.float32, device=dev))
+
+
+def k2_canvases_16bit(dev, general_canvas, dtype):
+    """(name, canvas) K2 cases in 16-bit storage `dtype`: the general_4k
+    canvas and random canvases with headroom past [0, 1] at 1080p and 200 x
+    520 (the 8-byte path), at 201 x 519 and 202 x 518 (W % 4 != 0: the quad
+    path), inside a buffer 1 element off (2-byte aligned: the quad path) and
+    4 elements off (8-byte aligned but not 16: the 8-byte path); for f16 and
+    bf16 also a canvas with 5% NaN, +Inf and -Inf pixels."""
+    import torch
+
+    from smelter_tpu_torch.ops.compose import _canvas_encode
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def rand(h, w):
+        return _canvas_encode(torch.rand((4, h, w), generator=gen, device=dev) * 1.3 - 0.1,
+                              dtype)
+
+    def offset(h, w, k):
+        buf = torch.empty(4 * h * w + k, dtype=dtype, device=dev)
+        view = buf[k:].view(4, h, w)
+        view.copy_(rand(h, w))
+        return view
+
+    cases = [("general_4k canvas", _canvas_encode(general_canvas, dtype)),
+             ("random 1920x1080", rand(1080, 1920)), ("random 520x200", rand(200, 520)),
+             ("random 519x201", rand(201, 519)), ("random 518x202", rand(202, 518)),
+             ("520x200 at +1 element", offset(200, 520, 1)),
+             ("520x200 at +4 elements", offset(200, 520, 4))]
+    if dtype != torch.uint16:
+        canvas = torch.rand((4, 200, 520), generator=gen, device=dev)
+        bad = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+        which = torch.randint(0, 3, canvas.shape, generator=gen, device=dev)
+        hit = torch.rand(canvas.shape, generator=gen, device=dev) < 0.05
+        cases.append(("NaN/Inf 520x200", torch.where(hit, bad[which], canvas).to(dtype)))
+    return cases
+
+
+def canvas_kernel_checks(dev, k1_cases, general_canvas):
+    """Phase 18a: K1 with each 16-bit store on `k1_cases` (the general_4k and
+    renderer tables, the mixed case, the tile-class edge cases) and K2 on
+    each 16-bit canvas of `k2_canvases_16bit`, both full ranges, each
+    bit-equal to its plain version on the card."""
+    import torch
+
+    from smelter_tpu_torch.ops.hopper import scene_assembly as sa
+    from smelter_tpu_torch.ops.hopper import yuv_out
+
+    k1_cases = list(k1_cases) + [k1_nan_case(dev)]
+    for name in CANVAS_STORAGE:
+        dt = _storage_dtype(name)
+        for case, res, specs, params in k1_cases:
+            got = sa.assemble_scene_planar(res, specs, params, out_dtype=dt)
+            torch.cuda.synchronize()
+            ref = sa.assemble_scene_planar_plain(res, specs, params, dt)
+            n = _bits_differ(got, ref)
+            print(f"K1 {name} store vs plain {case} ({len(specs)} members, {res[0]}x{res[1]}): "
+                  f"{n} of {got.numel()} values differ")
+            check(got.dtype == dt and n == 0, f"K1 {name} store {case}: {n} values differ")
+        for case, canvas in k2_canvases_16bit(dev, general_canvas, dt):
+            for full_range in (False, True):
+                got = yuv_out.rgba_cm_to_yuv420(canvas, full_range)
+                torch.cuda.synchronize()
+                ref = yuv_out.rgba_cm_to_yuv420_plain(canvas, full_range)
+                n = sum(int((a != b).sum()) for a, b in zip(got, ref))
+                print(f"K2 {name} load vs plain {case} full_range={full_range}: {n} pixels "
+                      f"differ")
+                check(n == 0, f"K2 {name} load {case} full_range={full_range}: {n} pixels "
+                              f"differ")
+
+
+def canvas_builders_phase(dev, stamp):
+    """Phase 18b: the general_4k builder at 16 x 1080p -> 4K under each
+    SMELTER_CANVAS_DTYPE (set while it is built and captured): the stored
+    dtype (the canvas handed to the YUV420 output), K1 and K2 launched once
+    per replay, each replay bit-equal to its function run eagerly; u16
+    within 1 LSB of f32 (gated), f16 and bf16 recorded; each replay timed."""
+    import torch
+
+    from smelter_tpu_torch import interop
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.parallel.flagship import make_flagship_general_compose
+    from smelter_tpu_torch.render.capture import capture
+    from smelter_tpu_torch.tools._ab import env
+
+    dev_frames = interop.planes_to_device(host_frames(N_INPUTS, IN_W, IN_H), dev)
+    outs, numbers = {}, {}
+    convert = cc.planar_rgba_to_yuv420
+    for name in ("float32",) + CANVAS_STORAGE:
+        with env({"SMELTER_CANVAS_DTYPE": name}):
+            fn, _ = make_flagship_general_compose(N_INPUTS, Resolution(IN_W, IN_H),
+                                                  Resolution(OUT_W, OUT_H), device=dev)
+            prog, _ = capture(fn, dev_frames, dev)
+        stored = []
+        cc.planar_rgba_to_yuv420 = lambda c, fr=False: (stored.append(c.dtype), convert(c, fr))[1]
+        try:
+            eager = interop.planes_to_host(fn(*dev_frames))
+        finally:
+            cc.planar_rgba_to_yuv420 = convert
+        for mod in (scene_assembly, yuv_out, sdf_layers):
+            mod.LAUNCHES = 0
+        replay = interop.planes_to_host(prog(*dev_frames))
+        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
+                    "sdf_layers": sdf_layers.LAUNCHES}
+        mx = lsb_stats(eager, replay)[0]
+        t_replay = cuda_ms(lambda: prog(*dev_frames))
+        print(f"canvas {name}: stored {stored}, launches per replay {launches}, replay vs "
+              f"eager max {mx}, replay {t_replay:.4f} ms {stamp}")
+        check(stored == [_storage_dtype(name)], f"canvas {name}: the canvas was {stored}")
+        check(launches == {"scene_assembly": 1, "yuv_out": 1, "sdf_layers": 0},
+              f"canvas {name}: launches per replay {launches}")
+        check(mx == 0, f"canvas {name}: the replay differs from the eager function by {mx}")
+        check_planes(f"canvas {name}", replay, OUT_W, OUT_H)
+        outs[name] = replay
+        numbers[name] = {"replay_ms": t_replay, "launches": launches}
+        del prog
+    for name in CANVAS_STORAGE:
+        mx, n_diff, n_gt1, total = lsb_stats(outs["float32"], outs[name])
+        numbers[name].update(max_lsb_vs_f32=mx, share_gt1=n_gt1 / total,
+                             share_differ=n_diff / total)
+        print(f"canvas {name} vs float32, general_4k 16x1080p->4K: max {mx} LSB, {n_diff} "
+              f"of {total} pixels differ, {n_gt1} by 2+ "
+              f"({'gated' if name == 'uint16' else 'recorded'})")
+    check(numbers["uint16"]["max_lsb_vs_f32"] <= 1,
+          f"canvas uint16 is {numbers['uint16']['max_lsb_vs_f32']} LSB off f32")
+    return numbers
+
+
+def canvas_renderer_phase(dev, frames):
+    """Phase 18c: phase 6's renderer transition, CANVAS_RENDER_FRAMES frames
+    after the update, under f32 and under u16 (set for the whole run, so
+    every program is built under it): K3 runs on the decoded root; every
+    frame within 1 LSB of the f32 run; every render held to its program run
+    eagerly (`EagerCheck`)."""
+    from smelter_tpu_torch import interop
+    from smelter_tpu_torch.ops.hopper import sdf_layers
+    from smelter_tpu_torch.tools._ab import env
+
+    seqs, k3 = {}, {}
+    for name in ("float32", "uint16"):
+        sdf_layers.LAUNCHES = 0
+        with env({"SMELTER_CANVAS_DTYPE": name}), EagerCheck(f"canvas {name} renderer") as eager:
+            outs = render_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames,
+                                     n_frames=CANVAS_RENDER_FRAMES)
+        k3[name] = sdf_layers.LAUNCHES
+        eager.report()
+        seqs[name] = [interop.planes_to_host(p) for p in outs]
+    worst = [lsb_stats(a, b)[:3] for a, b in zip(seqs["float32"], seqs["uint16"])]
+    print(f"canvas uint16 renderer transition vs float32, per frame (max LSB, pixels differ, "
+          f"by 2+): {worst}; K3 launches {k3}")
+    check(k3["uint16"] > 0 and k3["uint16"] == k3["float32"],
+          f"canvas renderer: K3 launches {k3}")
+    check(max(w[0] for w in worst) <= 1, f"canvas renderer: u16 off f32 by {worst}")
+    return {"frames": len(worst), "max_lsb_vs_f32": max(w[0] for w in worst),
+            "k3_launches": k3}
+
+
+def canvas_tools_phase(dev, stamp):
+    """Phase 18d: `bench_canvas_ab` (u16, f16, bf16 and f32, u16 gated),
+    `bench_assembly_ab` and `bench_align_ab` at the reference's defaults,
+    each kernel count set to 0 just before each and read just after. Every
+    line parses, none has "error", each names the card in "device", and
+    each variant has rounds x iters frames."""
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.tools import _ab, bench_align_ab, bench_assembly_ab, bench_canvas_ab
+    from smelter_tpu_torch.tools._profile import card
+
+    kernels = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+    card_line = card(dev)
+    launches, lines = {}, {}
+    for label, main, argv in (
+            ("bench_canvas_ab", bench_canvas_ab.main,
+             ["--variants", "u16,f16,bf16,f32", "--gate", "u16"]),
+            ("bench_assembly_ab", bench_assembly_ab.main, []),
+            ("bench_align_ab", bench_align_ab.main, [])):
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            main(argv)
+        launches[label] = {name: mod.LAUNCHES for name, mod in kernels.items()}
+        (line,) = tee.lines()
+        lines[label] = line
+        check("error" not in line, f"canvas tools: {label} printed an error: {line}")
+        check(line["device"] == card_line, f"canvas tools: {label} device {line['device']!r}")
+        frames = {tag: v["frames"] for tag, v in line["variants"].items()}
+        check(set(frames.values()) == {_ab.ROUNDS * _ab.ITERS},
+              f"canvas tools: {label} frames {frames}")
+        print(f"canvas tools: {label} {time.perf_counter() - t0:.1f} s, launches "
+              f"{launches[label]} {stamp}")
+    return launches, lines
+
+
+def canvas_storage_phase(dev, stamp, k1_cases, general_canvas, frames):
+    """Phase 18: (a) `canvas_kernel_checks`, (b) `canvas_builders_phase`,
+    (c) `canvas_renderer_phase`, (d) `canvas_tools_phase`; timed against
+    CANVAS_BUDGET_S (recorded), failing past CANVAS_CEILING_S. Prints
+    `{"canvas_storage": ...}`; returns (the tools' launches, the numbers)."""
+    t_phase = time.perf_counter()
+    canvas_kernel_checks(dev, k1_cases, general_canvas)
+    builders = canvas_builders_phase(dev, stamp)
+    renderer = canvas_renderer_phase(dev, frames)
+    tool_launches, tool_lines = canvas_tools_phase(dev, stamp)
+    phase_s = time.perf_counter() - t_phase
+    print(f"canvas storage phase: {phase_s:.1f} s (budget {CANVAS_BUDGET_S:.0f} s, recorded; "
+          f"fails past {CANVAS_CEILING_S:.0f} s)")
+    check(phase_s < CANVAS_CEILING_S, f"canvas storage phase took {phase_s:.0f} s, past "
+                                      f"{CANVAS_CEILING_S:.0f} s")
+    numbers = {"phase_s": phase_s, "builders": builders, "renderer": renderer,
+               "tools": tool_lines, "tool_launches": tool_launches}
+    print(json.dumps({"canvas_storage": {**numbers, "card": nvidia_smi()}}), flush=True)
+    return tool_launches, numbers
+
+
 def profile_reader_check(dev, stamp, n=N_INPUTS, iters=20, repeats=12):
     """The profiler reader's three measures of one program side by side:
     `iters` general_4k replays (the captured program called as
@@ -4306,6 +4594,10 @@ def main() -> int:
     # phase 17: the measurement tools, `python -m smelter_tpu_torch.tools.<name>`
     tool_launches, tool_numbers = tools_phase(dev, stamp, bench_numbers["grid_device_p50_ms"])
 
+    # phase 18: the 16-bit compose canvas, its kernels, builders, renderer and A/B tools
+    canvas_launches, canvas_numbers = canvas_storage_phase(
+        dev, stamp, cases + [renderer_k1] + k1_edge_cases(dev), general_canvas, render_frames)
+
     # phase 6: the renderer, 16 x 1080p -> 4K, a transition of 41 frames
     k3_frames = []
 
@@ -4447,6 +4739,41 @@ def main() -> int:
     print(f"time K2 yuv_out 4K: kernel {t_k2:.4f} ms, call {t_k2_call:.4f} ms, device "
           f"{t_k2_dev} ms, plain {t_k2_plain:.4f} ms, bound {k2_bound:.4f} ms by {k2_by} "
           f"({k2_bytes} B), {k2_bound / t_k2:.0%} of bound {stamp}")
+    # the 16-bit canvas (phase 18): K1's store and K2's load in each storage
+    # on the general_4k table and canvas; bounds from this run's bytes
+    from smelter_tpu_torch.ops.compose import _canvas_encode
+
+    storage = {"scene_assembly": {}, "yuv_out": {}}
+    rows = scene_assembly.spec_table(specs, dev)
+    _, pairs = tile_class.reach(specs, params, OUT_H, OUT_W)
+    for name in CANVAS_STORAGE:
+        dt = _storage_dtype(name)
+        fn = lambda dt=dt: scene_assembly.assemble_scene_planar(  # noqa: E731
+            res, specs, params, rows, out_dtype=dt)
+        n_bytes = 4 * OUT_H * OUT_W * 2 + params.numel() * 4 + rows.numel() * 4
+        bound, by = bound_ms(n_bytes, BLEND_OPS * pairs)
+        t, t_dev = kernel_ms(fn), device_ms(fn, "scene_assembly_kernel")
+        t_plain = cuda_ms(lambda dt=dt: scene_assembly.assemble_scene_planar_plain(
+            res, specs, params, dt))
+        storage["scene_assembly"][name] = dict(
+            ms=t, device_ms=t_dev, plain_ms=t_plain, bound_ms=bound, bound_by=by, bytes=n_bytes,
+            launches_per_replay=canvas_numbers["builders"][name]["launches"]["scene_assembly"])
+        print(f"time K1 scene_assembly 4K general_4k table, {name} store: kernel {t:.4f} ms, "
+              f"device {t_dev} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms by {by} "
+              f"({n_bytes} B), {bound / t:.0%} of bound {stamp}")
+        canvas16 = _canvas_encode(general_canvas, dt)
+        fn = lambda c=canvas16: yuv_out.rgba_cm_to_yuv420(c)  # noqa: E731
+        n_bytes = 3 * OUT_H * OUT_W * 2 + OUT_H * OUT_W * 3 // 2
+        bound, by = bound_ms(n_bytes)
+        t, t_dev = kernel_ms(fn), device_ms(fn, "yuv420_out")
+        t_plain = cuda_ms(lambda c=canvas16: yuv_out.rgba_cm_to_yuv420_plain(c))
+        storage["yuv_out"][name] = dict(
+            ms=t, device_ms=t_dev, plain_ms=t_plain, bound_ms=bound, bound_by=by, bytes=n_bytes,
+            launches_per_replay=canvas_numbers["builders"][name]["launches"]["yuv_out"])
+        print(f"time K2 yuv_out 4K, {name} canvas: kernel {t:.4f} ms, device {t_dev} ms, "
+              f"plain {t_plain:.4f} ms, bound {bound:.4f} ms by {by} ({n_bytes} B), "
+              f"{bound / t:.0%} of bound {stamp}")
+        del canvas16
     # K3 updates its canvas in place: the timed calls cycle over three
     # copies, so that no launch finds the canvas of the last one in L2
     k3_timed = [("no layers (canvas read and write only)", general_canvas,
@@ -4555,8 +4882,10 @@ def main() -> int:
                               "moq": moq_launches and moq_launches["scene_assembly"],
                               "multichip": multichip_launches["scene_assembly"],
                               "bench": bench_launches["scene_assembly"],
-                              "tools": {tool: n["scene_assembly"] for tool, n in tool_launches.items()}},
-         "max_abs_err": k1_err,
+                              "tools": {tool: n["scene_assembly"] for tool, n in tool_launches.items()},
+                              "canvas_tools": {tool: n["scene_assembly"]
+                                               for tool, n in canvas_launches.items()}},
+         "max_abs_err": k1_err, "storage_16bit": storage["scene_assembly"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": None, "call_ms": k1_main["call_ms"],
@@ -4573,8 +4902,10 @@ def main() -> int:
                               "moq": moq_launches and moq_launches["yuv_out"],
                               "multichip": multichip_launches["yuv_out"],
                               "bench": bench_launches["yuv_out"],
-                              "tools": {tool: n["yuv_out"] for tool, n in tool_launches.items()}},
-         "max_abs_err": k2_err,
+                              "tools": {tool: n["yuv_out"] for tool, n in tool_launches.items()},
+                              "canvas_tools": {tool: n["yuv_out"]
+                                               for tool, n in canvas_launches.items()}},
+         "max_abs_err": k2_err, "storage_16bit": storage["yuv_out"],
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
          "bytes": k2_bytes},
@@ -4590,7 +4921,9 @@ def main() -> int:
                               "moq": moq_launches and moq_launches["sdf_layers"],
                               "multichip": multichip_launches["sdf_layers"],
                               "bench": bench_launches["sdf_layers"],
-                              "tools": {tool: n["sdf_layers"] for tool, n in tool_launches.items()}},
+                              "tools": {tool: n["sdf_layers"] for tool, n in tool_launches.items()},
+                              "canvas_tools": {tool: n["sdf_layers"]
+                                               for tool, n in canvas_launches.items()}},
          "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],

@@ -1,19 +1,23 @@
 // K1: single-pass SDF scene assembly. Creates the channel-major premultiplied
-// (4, H, W) f32 canvas of a run of colour and box-shadow members: every
-// pixel starts transparent black in registers, OVER-blends each member in
-// paint order, and is written once.
+// (4, H, W) canvas of a run of colour and box-shadow members: every pixel
+// starts transparent black in f32 registers, OVER-blends each member in
+// paint order, and is written once, in the canvas's storage: f32, or 16 bits
+// (u16 fixed point, f16 or bf16; smelter_tpu_torch/ops/compose.py
+// _canvas_encode). Only that one store converts.
 //
 // Replaces the Pallas TPU kernel smelter_tpu/ops/pallas/scene_assembly.py
 // (_kernel_body, with _blend_member, _mask_alpha_rows, _sdf, _smoothstep).
 // The layer math and the tile classes are in sdf_common.cuh.
 //
 // Bound on the H100 by one 4K f32 canvas write (4 x 3840 x 2160 x 4 bytes =
-// 133 MB, 0.0396 ms at 3.35 TB/s); nothing is read but the small member
-// tables. What the design does about it:
+// 133 MB, 0.0396 ms at 3.35 TB/s), or half of it for a 16-bit canvas
+// (66 MB, 0.0198 ms); nothing is read but the small member tables. What the
+// design does about it:
 //   - Persistent blocks of 256 threads walk the canvas's 32 x 32 tiles;
 //     each thread owns 4 consecutive x of one row: a float4 store per plane
-//     where W % 4 == 0 and the canvas is 16-byte aligned (a scalar path
-//     otherwise), so a warp writes four full 128-byte lines per plane.
+//     where W % 4 == 0 and the canvas is 16-byte aligned, or 8 bytes (4
+//     16-bit values) per plane where W % 4 == 0 and it is 8-byte aligned (a
+//     scalar path otherwise), so a warp writes full 128-byte lines.
 //   - A block loads its members once (when there are at most kChunk; in
 //     passes of kChunk per tile otherwise, so their number is unbounded):
 //     what is constant per member (centre, half sizes, colours, cos and sin
@@ -36,6 +40,8 @@
 // rotated-mask bits, region y0, x0, y1, x1 (half-open, clipped to the
 // canvas).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -50,6 +56,39 @@ constexpr int kVec = 4;                       // pixels per thread, along x
 constexpr int kThreadsX = kTile / kVec;       // 8
 constexpr int kThreads = kThreadsX * kTile;   // 256
 constexpr int kRowsPerWarp = 32 / kThreadsX;  // 4
+
+// canvas storage, by the code the entry takes (scene_assembly.OUT_DTYPES)
+enum OutKind { kF32 = 0, kU16 = 1, kF16 = 2, kBF16 = 3 };
+// the u16 fixed point of color_convert.canvas_decode: value * 8192 + 16384
+constexpr float kFixedScale = 8192.0f;
+constexpr float kFixedOffset = 16384.0f;
+
+// One f32 value as the bits of its 16-bit storage (compose._canvas_encode).
+template <int kOut>
+__device__ __forceinline__ uint16_t encode16(float x);
+
+template <>
+__device__ __forceinline__ uint16_t encode16<kU16>(float x) {
+  // one cvt.rni.u16.f32: round half to even (as torch.round), clamp to
+  // [0, 65535] and NaN to code 0 (PTX's float-to-integer conversion
+  // saturates and turns NaN into 0), as _canvas_encode pins it; a C++ cast
+  // of NaN or of an out-of-range value would be undefined. The product by
+  // 2^13 is exact, so contraction could not change the sum.
+  const float v = x * kFixedScale + kFixedOffset;
+  unsigned short q;
+  asm("cvt.rni.u16.f32 %0, %1;" : "=h"(q) : "f"(v));
+  return q;
+}
+
+template <>
+__device__ __forceinline__ uint16_t encode16<kF16>(float x) {
+  return __half_as_ushort(__float2half_rn(x));  // nearest even, as torch
+}
+
+template <>
+__device__ __forceinline__ uint16_t encode16<kBF16>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));  // nearest even, as torch
+}
 
 __device__ __forceinline__ void load_spec_member(const int* __restrict__ specs,
                                                  const float* __restrict__ params,
@@ -66,10 +105,11 @@ __device__ __forceinline__ void load_spec_member(const int* __restrict__ specs,
 // (kThreads, 2): without a floor of 2 blocks per SM, ptxas holds the kernel
 // to 64 registers and spills; with it, it takes 86 and spills nothing, and
 // the store path runs at the card's fill rate (PERF.md, PR 3).
+template <int kOut>
 __global__ void __launch_bounds__(kThreads, 2)
     scene_assembly_kernel(const int* __restrict__ specs,
                           const float* __restrict__ params,
-                          float* __restrict__ out, int n_members,
+                          void* __restrict__ out_, int n_members,
                           int param_w, int h, int w, int vec) {
   __shared__ smelter::MemberConst members[smelter::kChunk];
 
@@ -147,38 +187,83 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     if (y >= h || x >= w) continue;
     const size_t i = static_cast<size_t>(y) * w + x;
-    if (vec) {  // W % 4 == 0, so all 4 pixels are in the row
+    if constexpr (kOut == kF32) {
+      float* out = static_cast<float*>(out_);
+      if (vec) {  // W % 4 == 0, so all 4 pixels are in the row
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        *reinterpret_cast<float4*>(out + c * plane + i) =
-            make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+        for (int c = 0; c < 4; ++c)
+          *reinterpret_cast<float4*>(out + c * plane + i) =
+              make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          if (x + k < w)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) out[c * plane + i + k] = acc[k][c];
+      }
     } else {
+      uint16_t* out = static_cast<uint16_t*>(out_);
+      if (vec) {  // W % 4 == 0: 4 values of a plane in one 8-byte store
 #pragma unroll
-      for (int k = 0; k < kVec; ++k)
-        if (x + k < w)
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t lo = encode16<kOut>(acc[0][c]) |
+                              (static_cast<uint32_t>(encode16<kOut>(acc[1][c])) << 16);
+          const uint32_t hi = encode16<kOut>(acc[2][c]) |
+                              (static_cast<uint32_t>(encode16<kOut>(acc[3][c])) << 16);
+          *reinterpret_cast<uint2*>(out + c * plane + i) = make_uint2(lo, hi);
+        }
+      } else {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) out[c * plane + i + k] = acc[k][c];
+        for (int k = 0; k < kVec; ++k)
+          if (x + k < w)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              out[c * plane + i + k] = encode16<kOut>(acc[k][c]);
+      }
     }
   }
 }
 
+template <int kOut>
+cudaError_t launch(const int* specs, const float* params, void* out,
+                   int n_members, int param_w, int h, int w,
+                   cudaStream_t stream) {
+  const int align = kOut == kF32 ? 16 : 8;
+  const int vec =
+      w % kVec == 0 && reinterpret_cast<uintptr_t>(out) % align == 0;
+  const int n_tiles = ((w + kTile - 1) / kTile) * ((h + kTile - 1) / kTile);
+  const dim3 block(kThreadsX, kTile);
+  const int grid = smelter::persistent_grid<kOut>(scene_assembly_kernel<kOut>,
+                                                  kThreads, n_tiles);
+  scene_assembly_kernel<kOut><<<grid, block, 0, stream>>>(
+      specs, params, out, n_members, param_w, h, w, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// out_kind: the canvas storage (OutKind). Returns the launch's cudaError_t.
 extern "C" int smelter_scene_assembly(const void* specs, const void* params,
                                       void* out, int n_members, int spec_w,
-                                      int param_w, int h, int w,
+                                      int param_w, int h, int w, int out_kind,
                                       void* stream) {
   if (spec_w != kSpecW || param_w < smelter::kParamsBase || n_members < 0 ||
       h <= 0 || w <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int vec = w % kVec == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int n_tiles = ((w + kTile - 1) / kTile) * ((h + kTile - 1) / kTile);
-  const dim3 block(kThreadsX, kTile);
-  const int grid =
-      smelter::persistent_grid(scene_assembly_kernel, kThreads, n_tiles);
-  scene_assembly_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(specs), static_cast<const float*>(params),
-      static_cast<float*>(out), n_members, param_w, h, w, vec);
-  return static_cast<int>(cudaGetLastError());
+  const int* s = static_cast<const int*>(specs);
+  const float* p = static_cast<const float*>(params);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (out_kind) {
+    case kF32:
+      return static_cast<int>(launch<kF32>(s, p, out, n_members, param_w, h, w, st));
+    case kU16:
+      return static_cast<int>(launch<kU16>(s, p, out, n_members, param_w, h, w, st));
+    case kF16:
+      return static_cast<int>(launch<kF16>(s, p, out, n_members, param_w, h, w, st));
+    case kBF16:
+      return static_cast<int>(launch<kBF16>(s, p, out, n_members, param_w, h, w, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

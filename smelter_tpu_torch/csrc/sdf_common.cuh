@@ -377,7 +377,9 @@ __device__ __forceinline__ bool warp_classes(const MemberConst* members,
 
 // Blocks of a persistent grid over `blocks` blocks' worth of work: as many
 // as are resident on the card's SMs at once, and no more than `blocks`.
-template <typename Kernel>
+// The residency is read once per (kTag, Kernel type): instances of one
+// kernel template share a type, so each passes its own tag.
+template <int kTag = 0, typename Kernel>
 inline int persistent_grid(Kernel kernel, int threads, int blocks) {
   static int resident = 0;
   if (resident <= 0) {

@@ -6,7 +6,9 @@ deferred-YUV tile convert (`yuv_tile_rgba_cm`), the full-resolution RGBA
 conversion of every input format (`convert_to_rgba_f32`,
 `DeferredYuvSource.mips`) and the canvas -> YUV420, NV12 and YUV444
 outputs. The YUV420 output (and so NV12, its interleaved form) runs kernel
-K2 (`ops/hopper/yuv_out.py`); YUV444 is elementwise, with no kernel.
+K2 (`ops/hopper/yuv_out.py`); YUV444 is elementwise, with no kernel. The
+canvas outputs also take the 16-bit storage of the root canvas
+(`canvas_decode`).
 
 Everything is f32 in [0, 1]; constants and operation order follow the
 reference so that the two packages agree to the u8 LSB. Internal RGBA
@@ -316,14 +318,36 @@ def convert_to_rgba_f32(format_name: str, planes) -> torch.Tensor:
     raise ValueError(f"unsupported pixel format {format_name}")
 
 
+# ---------------------------------------------------------------------------
+# The root planar canvas may be stored in 16 bits (`compose._canvas_dtype`,
+# SMELTER_CANVAS_DTYPE); every reader decodes it to f32 first.
+# ---------------------------------------------------------------------------
+
+CANVAS_FIXED_SCALE = 8192.0
+CANVAS_FIXED_OFFSET = 16384.0
+
+
+def canvas_decode(x: torch.Tensor) -> torch.Tensor:
+    """Canvas storage -> f32 premultiplied values (the reference's
+    `canvas_decode`). A uint16 canvas is fixed point with headroom,
+    value * 8192 + 16384, so it holds [-2, 6) at a step of 1/8192: resize
+    ringing past [0, 1] survives until the final YUV clip, as in f32. The
+    decode is exact in f32. Float canvases pass through (f16 and bf16
+    widen exactly; an f32 canvas is returned as it is, with no copy)."""
+    if x.dtype == torch.uint16:
+        return (x.to(torch.float32) - CANVAS_FIXED_OFFSET) * (1.0 / CANVAS_FIXED_SCALE)
+    return x.to(torch.float32)
+
+
 def planar_rgba_to_yuv420(
     rgba_cm: torch.Tensor, full_range: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(4, H, W) RGBA f32 [0, 1] -> (y, u, v) u8 planes, 4:2:0, through
-    kernel K2 (its plain version for a CPU tensor). In the debug mode,
-    outside a frame program, NaN or Inf in the colour planes raises
-    FloatingPointError, as the reference's chain of operations raises at
-    its first (`config.check_finite`); alpha is never read."""
+    """(4, H, W) RGBA canvas (f32 [0, 1], or 16-bit storage: `canvas_decode`)
+    -> (y, u, v) u8 planes, 4:2:0, through kernel K2 (its plain version for
+    a CPU tensor), which decodes a 16-bit canvas itself. In the debug mode,
+    outside a frame program, NaN or Inf in the colour planes of a float
+    canvas raises FloatingPointError, as the reference's chain of operations
+    raises at its first (`config.check_finite`); alpha is never read."""
     from smelter_tpu_torch.ops.hopper import yuv_out
 
     check_finite(rgba_cm[:3], "planar_rgba_to_yuv420")
@@ -342,7 +366,9 @@ def rgba_to_planar_yuv420(
 def planar_rgba_to_yuv444(
     rgba_cm: torch.Tensor, full_range: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(4, H, W) RGBA f32 [0, 1] -> (y, u, v) u8 planes, 4:4:4."""
+    """(4, H, W) RGBA canvas (f32 [0, 1], or 16-bit storage) -> (y, u, v)
+    u8 planes, 4:4:4."""
+    rgba_cm = canvas_decode(rgba_cm)
     y, u, v = rgb_planes_to_yuv(rgba_cm[0], rgba_cm[1], rgba_cm[2], full_range)
     return f32_to_u8(y), f32_to_u8(u), f32_to_u8(v)
 
@@ -356,8 +382,9 @@ def rgba_to_planar_yuv444(
 
 
 def planar_rgba_to_nv12(rgba_cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(4, H, W) RGBA f32 [0, 1] -> NV12: y (H, W) u8 and the interleaved
-    uv (H/2, W/2, 2) u8, through `planar_rgba_to_yuv420` (K2 on the card)."""
+    """(4, H, W) RGBA canvas (f32 [0, 1], or 16-bit storage) -> NV12: y (H,
+    W) u8 and the interleaved uv (H/2, W/2, 2) u8, through
+    `planar_rgba_to_yuv420` (K2 on the card)."""
     y, u, v = planar_rgba_to_yuv420(rgba_cm)
     return y, torch.stack([u, v], dim=-1)
 

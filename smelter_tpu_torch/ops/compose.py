@@ -11,6 +11,15 @@ planner-stable (`static_rect` set) renders region-locally:
 A run of such layouts that opens the canvas paints its colour and shadow
 members in one pass of kernel K1 (`ops/hopper/scene_assembly.py`), which
 creates the canvas; the textures then blend in coalesced union groups.
+`SMELTER_SCENE_ASSEMBLY=off` (`_assembly_mode`) sends the whole run to the
+group path instead.
+
+The root planar canvas may be stored in 16 bits (`_canvas_dtype`,
+SMELTER_CANVAS_DTYPE=auto|float32|uint16|float16|bfloat16; `auto` is f32):
+every blend stays f32, reading a region decodes it
+(`color_convert.canvas_decode`) and only the stored value quantizes
+(`_canvas_encode`). K1 stores 16 bits itself; K3 and the sampled pass
+decode the canvas once, and it stays f32 for the rest of the paint order.
 
 Textures whose geometry animates take the traced routes, which read the
 animated numbers on the device and never wait for the host:
@@ -35,12 +44,18 @@ Corner-radius order is [top_left, top_right, bottom_right, bottom_left].
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from smelter_tpu_torch.ops.color_convert import (
+    CANVAS_FIXED_OFFSET,
+    CANVAS_FIXED_SCALE,
+    canvas_decode,
+)
 from smelter_tpu_torch.ops.resample import (
     resize_matmul,
     resize_matmul_traced,
@@ -391,7 +406,7 @@ def _apply_masks_local(tile, static: LayoutStatic, params: LayoutParams):
 
 def _blend_region(canvas, layer, otop: int, oleft: int) -> torch.Tensor:
     """OVER-blend a premultiplied (4, h, w) layer at a static integer
-    origin, clipped, in place."""
+    origin, clipped, in place (in f32 on the decoded region)."""
     H, W = canvas.shape[1], canvas.shape[2]
     bh, bw_ = layer.shape[1], layer.shape[2]
     y0, y1 = max(otop, 0), min(otop + bh, H)
@@ -399,7 +414,8 @@ def _blend_region(canvas, layer, otop: int, oleft: int) -> torch.Tensor:
     if y0 >= y1 or x0 >= x1:
         return canvas
     vis = layer[:, y0 - otop : y1 - otop, x0 - oleft : x1 - oleft]
-    canvas[:, y0:y1, x0:x1] = _over(vis, canvas[:, y0:y1, x0:x1])
+    region = canvas_decode(canvas[:, y0:y1, x0:x1])
+    canvas[:, y0:y1, x0:x1] = _canvas_encode(_over(vis, region), canvas.dtype)
     return canvas
 
 
@@ -438,7 +454,8 @@ def _place_tile_traced(canvas, tile, top, left) -> torch.Tensor:
     shifted = tile[:, src_r[:, None], src_c[None, :]]
     shifted = torch.where(valid_r[:, None] & valid_c[None, :], shifted, 0.0)
     window = (slice(None), rows[:, None], cols[None, :])
-    canvas[window] = _over(shifted, canvas[window])
+    canvas[window] = _canvas_encode(_over(shifted, canvas_decode(canvas[window])),
+                                    canvas.dtype)
     return canvas
 
 
@@ -544,11 +561,14 @@ def _blend_group(canvas, members, union, sources, h: int, w: int):
     """OVER-blend one coalesced group: one canvas region read, one blend
     chain, one region write. The write is an in-place slice assignment into
     the canvas, which this frame owns (the reference returns an updated
-    copy, which XLA turns into the same in-place update)."""
+    copy, which XLA turns into the same in-place update). The region
+    decodes to f32, the chain blends in f32, and only the stored value
+    quantizes to a 16-bit canvas's storage."""
     uy, ux, uh, uw = union
-    acc = canvas[:, uy : uy + uh, ux : ux + uw]
+    acc = canvas_decode(canvas[:, uy : uy + uh, ux : ux + uw])
     for st, p in members:
         acc = _over(_region_layer(st, p, sources, uy, ux, uh, uw), acc)
+    acc = _canvas_encode(acc, canvas.dtype)
     if (uh, uw) == (h, w):
         return acc
     canvas[:, uy : uy + uh, ux : ux + uw] = acc
@@ -556,16 +576,70 @@ def _blend_group(canvas, members, union, sources, h: int, w: int):
 
 
 def _align_union(reg, h: int, w: int, sublane: int = 8):
-    """Expand a group's union to (sublane, 128) boundaries. Exact: member
-    contributions are evaluated over the whole union and are zero outside
-    their footprint, and OVER with a zero layer is the identity. (Kept from
-    the TPU tiling; whether it pays on the H100 is open, see PERF.md.)"""
+    """Expand a group's union to (sublane, 128) boundaries: sublane 8 for an
+    f32 canvas, 16 for a 16-bit one, as the reference's TPU tiling. Exact:
+    member contributions are evaluated over the whole union and are zero
+    outside their footprint, and OVER with a zero layer is the identity.
+    (`tools/bench_align_ab.py` measures it against exact unions on the
+    card.)"""
     uy, ux, uh, uw = reg
     y0 = (uy // sublane) * sublane
     x0 = (ux // 128) * 128
     y1 = min(h, -(-(uy + uh) // sublane) * sublane)
     x1 = min(w, -(-(ux + uw) // 128) * 128)
     return y0, x0, y1 - y0, x1 - x0
+
+
+def _assembly_mode() -> str:
+    """SMELTER_SCENE_ASSEMBLY=auto|on|off: "off" sends a canvas-opening run
+    to the group path for every member (the reference's "off"); "auto" and
+    "on" send its colour and shadow members to K1 (its plain version on the
+    CPU). Builders read it when they are built."""
+    return os.environ.get("SMELTER_SCENE_ASSEMBLY", "auto")
+
+
+_CANVAS_DTYPES = {
+    "uint16": torch.uint16, "u16": torch.uint16,
+    "float16": torch.float16, "f16": torch.float16,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+}
+
+
+def _canvas_dtype(planar: bool) -> torch.dtype:
+    """Storage dtype of the root planar canvas (SMELTER_CANVAS_DTYPE:
+    auto|float32|uint16|u16|float16|f16|bfloat16|bf16; anything else is
+    f32). `auto` is f32 on the card and on the CPU: the reference's TPU
+    choice of u16 came from TPU measurements, and `tools/bench_canvas_ab.py`
+    measures the card's. A 16-bit canvas halves the canvas traffic of K1's
+    write, the group chains' region reads and writes and K2's read; every
+    blend stays f32. Non-planar (RGBA) canvases never quantize. Builders
+    read it when they are built; the multi-device steps keep f32, as the
+    reference's sharded traces do."""
+    if not planar:
+        return torch.float32
+    return _CANVAS_DTYPES.get(os.environ.get("SMELTER_CANVAS_DTYPE", "auto"), torch.float32)
+
+
+def _canvas_encode(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 premultiplied values -> canvas storage (the inverse of
+    `color_convert.canvas_decode`). uint16: round(x * 8192 + 16384), half to
+    even, clipped to [0, 65535]; NaN gives code 0 (decoded -2.0), as the
+    reference's clip keeps NaN and its cast gives 0, pinned here rather than
+    left to the cast. f16 and bf16 round to nearest even. An f32 target
+    returns `x` as it is."""
+    if dtype == torch.uint16:
+        q = torch.round(x * CANVAS_FIXED_SCALE + CANVAS_FIXED_OFFSET)
+        q = torch.nan_to_num(torch.clamp(q, 0.0, 65535.0), nan=0.0)
+        return q.to(torch.uint16)
+    return x.to(dtype)
+
+
+def _new_canvas(h: int, w: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A transparent (4, h, w) canvas in storage `dtype` (uint16: the fixed
+    point zero level, 16384)."""
+    if dtype == torch.uint16:
+        return torch.full((4, h, w), int(CANVAS_FIXED_OFFSET), dtype=dtype, device=device)
+    return torch.zeros((4, h, w), dtype=dtype, device=device)
 
 
 def canvas_clipper(h: int, w: int):
@@ -637,11 +711,12 @@ def _assembly_members(items, i: int, j: int, clip):
 
 
 def _try_scene_assembly(items, i: int, j: int, sources, h: int, w: int, clip,
-                        cache: Optional[dict] = None):
+                        cache: Optional[dict] = None, out_dtype: torch.dtype = torch.float32):
     """Paint the colour/box-shadow members of a canvas-opening run of
     region-local layouts (`_assembly_members`) in one pass of kernel K1,
-    which creates the canvas; return (canvas, group_items), the rest being
-    left for the group path, or None when no member routes to the kernel.
+    which creates the canvas in storage `out_dtype`; return (canvas,
+    group_items), the rest being left for the group path, or None when no
+    member routes to the kernel.
 
     `cache`, when given, keeps the member spec table on the device between
     calls: the statics fix it. The parameters are packed anew on every
@@ -659,7 +734,7 @@ def _try_scene_assembly(items, i: int, j: int, sources, h: int, w: int, clip,
         spec_rows = sa.spec_table(specs, params.device)
         if cache is not None:
             cache[key] = spec_rows
-    canvas = sa.assemble_scene_planar((w, h), specs, params, spec_rows)
+    canvas = sa.assemble_scene_planar((w, h), specs, params, spec_rows, out_dtype)
     return canvas, group_items
 
 
@@ -695,8 +770,9 @@ def _assemble_local_run(canvas, run_items, sources, h: int, w: int, clip):
         cur = ([(st2, p2)], r2, r2[2] * r2[3], k)
     if cur is not None:
         groups.append((cur[0], cur[1], cur[3]))
+    sublane = 8 if canvas.dtype == torch.float32 else 16
     groups = [
-        (members, _align_union(union, h, w), idx)
+        (members, _align_union(union, h, w, sublane), idx)
         for members, union, idx in groups
     ]
     return _assemble_groups(canvas, groups, sources, h, w)
@@ -718,10 +794,13 @@ def compose_layouts(
     planar: bool = False,
     cache: Optional[dict] = None,
     device=None,
+    canvas_dtype: Optional[torch.dtype] = None,
+    assembly: Optional[str] = None,
 ) -> torch.Tensor:
-    """Blend all layouts over a transparent canvas; returns premultiplied f32
-    — channel-major (4, H, W) when `planar=True`, (H, W, 4) otherwise.
-    Layout order = paint order (later on top). (The reference's
+    """Blend all layouts over a transparent canvas; returns premultiplied
+    values — channel-major (4, H, W) when `planar=True`, stored in
+    `canvas_dtype` (f32, or 16 bits: `_canvas_dtype`), and (H, W, 4) f32
+    otherwise. Layout order = paint order (later on top). (The reference's
     `_compose_layouts_impl` is this function's body.)
 
     Consecutive region-local layouts whose footprints overlap (a tile's
@@ -737,7 +816,11 @@ def compose_layouts(
     statics fix (K1's member spec table, K3's kinds table); pass the same
     dict only with the same statics. Parameters are never cached.
     `device`: where the canvas lives; the caller names it, or it is the
-    device of the layouts' params (with no layouts and no device, raises)."""
+    device of the layouts' params (with no layouts and no device, raises).
+    `canvas_dtype` and `assembly`: the SMELTER_CANVAS_DTYPE and
+    SMELTER_SCENE_ASSEMBLY switches as a builder read them when it was
+    built; None reads the environment now (`_canvas_dtype`,
+    `_assembly_mode`). A non-planar canvas is f32 whatever is asked."""
     from smelter_tpu_torch.ops.hopper import sdf_layers
 
     w, h = resolution
@@ -745,9 +828,16 @@ def compose_layouts(
         if not params:
             raise ValueError("compose_layouts: no layouts and no device given")
         device = params[0].top.device
+    if not planar:
+        dt = torch.float32
+    else:
+        dt = _canvas_dtype(True) if canvas_dtype is None else canvas_dtype
+    if assembly is None:
+        assembly = _assembly_mode()
     canvas = None  # created by K1, from the background, or transparent
     if background is not None:
-        canvas = background.permute(2, 0, 1).clone(memory_format=torch.contiguous_format)
+        canvas = _canvas_encode(
+            background.permute(2, 0, 1).clone(memory_format=torch.contiguous_format), dt)
     items = list(zip(statics, params))
     px = py = None
 
@@ -763,7 +853,7 @@ def compose_layouts(
     def _opened(canvas):
         """The canvas, or a transparent one where nothing opened it yet."""
         if canvas is None:
-            return torch.zeros((4, h, w), dtype=torch.float32, device=device)
+            return _new_canvas(h, w, dt, device)
         return canvas
 
     _clip = canvas_clipper(h, w)
@@ -787,12 +877,12 @@ def compose_layouts(
             while run_end < len(items) and _local(items[run_end][0]):
                 run_end += 1
             run_items = items[i:run_end]
-            if i == 0 and background is None:
+            if i == 0 and background is None and assembly != "off":
                 # canvas-opening run: K1 paints the SDF members (background,
                 # colour backdrops, shadows) and creates the canvas; the
                 # textures then blend through the group path
                 assembled = _try_scene_assembly(items, i, run_end, sources, h, w,
-                                                _clip, cache)
+                                                _clip, cache, dt)
                 if assembled is not None:
                     canvas, run_items = assembled
             canvas = _assemble_local_run(_opened(canvas), run_items, sources, h, w, _clip)
@@ -820,16 +910,19 @@ def compose_layouts(
                 if cache is not None:
                     cache[key] = table
             rows = sdf_layers.pack_layer_params([p_ for _, p_ in items[i:j]])
-            # K3 updates a CUDA canvas in place: nothing else holds it here
+            # K3 speaks f32: a 16-bit canvas decodes once here and stays f32
+            # for the rest of the paint order. K3 updates a CUDA canvas in
+            # place: nothing else holds it here
             canvas = sdf_layers.compose_sdf_layers_planar(
-                canvas.contiguous(), rows, kinds, table)
+                canvas_decode(canvas).contiguous(), rows, kinds, table)
             i = j
             continue
         # anything else (a masked colour/box-shadow layer, a texture off the
-        # routes above): the sampled full-canvas pass
+        # routes above): the sampled full-canvas pass, on the canvas decoded
+        # once (it stays f32 for the rest of the paint order)
         if px is None:
             px, py = _pixel_centers(0, 0, h, w, device)
-        canvas = _over(render_single_layout(st, p, sources, px, py), canvas)
+        canvas = _over(render_single_layout(st, p, sources, px, py), canvas_decode(canvas))
         i += 1
     canvas = _opened(canvas)
     return canvas if planar else canvas.permute(1, 2, 0)

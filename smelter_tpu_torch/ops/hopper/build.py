@@ -95,9 +95,9 @@ def library() -> ctypes.CDLL:
     Each entry returns the `cudaError_t` of its launch."""
     lib = ctypes.CDLL(str(library_path()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.smelter_yuv420_out.argtypes = [p, p, p, p, i, i, i, p]
+    lib.smelter_yuv420_out.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.smelter_yuv420_out.restype = i
-    lib.smelter_scene_assembly.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.smelter_scene_assembly.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.smelter_scene_assembly.restype = i
     lib.smelter_sdf_layers.argtypes = [p, p, p, i, i, i, p]
     lib.smelter_sdf_layers.restype = i

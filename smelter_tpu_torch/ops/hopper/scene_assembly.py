@@ -2,9 +2,12 @@
 
 Replaces the Pallas TPU kernel `smelter_tpu/ops/pallas/scene_assembly.py`
 (`_kernel_body`, launched at :261). One pass creates the channel-major
-premultiplied (4, H, W) f32 canvas of a canvas-opening run of colour and
+premultiplied (4, H, W) canvas of a canvas-opening run of colour and
 box-shadow members: each pixel starts transparent and OVER-blends every
-member whose clipped footprint holds it, in paint order. The CUDA kernel is
+member whose clipped footprint holds it, in paint order, in f32. The one
+store writes the canvas's storage dtype (`OUT_DTYPES`): f32, or 16 bits
+(u16 fixed point, f16, bf16: `compose._canvas_encode`), which halves the
+write. The CUDA kernel is
 `smelter_tpu_torch/csrc/scene_assembly.cu` (layer math and tile classes in
 `csrc/sdf_common.cuh`); it is bound by the one canvas write. Per 32 x 32
 tile it drops members that are exactly 0 there, blends flat values where a
@@ -29,7 +32,7 @@ import torch
 
 from smelter_tpu_torch.config import check_finite
 from smelter_tpu_torch.interop import upload
-from smelter_tpu_torch.ops.compose import rounded_rect_sdf, smoothstep
+from smelter_tpu_torch.ops.compose import _canvas_encode, rounded_rect_sdf, smoothstep
 from smelter_tpu_torch.ops.hopper import build
 from smelter_tpu_torch.render.capture import each_run
 
@@ -38,6 +41,8 @@ PARAMS_BASE = 19  # 0:top 1:left 2:w 3:h 4:rot 5..8:radius 9..12:color
 MASK_W = 9  # radius[4], top, left, w, h, rotation_rad
 SPEC_W = 9  # columns of the int32 spec table (csrc/scene_assembly.cu)
 _KINDS = {"color": 0, "box_shadow": 1}
+# canvas storage dtypes the kernel stores, by the code its entry takes
+OUT_DTYPES = {torch.float32: 0, torch.uint16: 1, torch.float16: 2, torch.bfloat16: 3}
 
 # kernel launches since the last reset (the main path's proof of use); a
 # CUDA graph's replays count the launches captured in it
@@ -155,12 +160,14 @@ def _member_layer(spec: MemberSpec, p: torch.Tensor, px, py) -> torch.Tensor:
 
 
 def assemble_scene_planar_plain(
-    resolution: Tuple[int, int], specs: Sequence[MemberSpec], params: torch.Tensor
+    resolution: Tuple[int, int], specs: Sequence[MemberSpec], params: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: each member evaluated over its clipped
-    footprint and OVER-blended into a transparent canvas, in paint order.
-    (The kernel's tile classes give the same values, so this version
-    evaluates everything.)"""
+    footprint and OVER-blended into a transparent f32 canvas, in paint
+    order, then stored as `out_dtype` (`compose._canvas_encode`). (The
+    kernel's tile classes give the same values, so this version evaluates
+    everything.)"""
     w, h = resolution
     dev = params.device
     acc = torch.zeros((4, h, w), dtype=torch.float32, device=dev)
@@ -172,10 +179,10 @@ def assemble_scene_planar_plain(
         layer = _member_layer(spec, params[li], px, py)
         under = acc[:, y0:y1, x0:x1]
         acc[:, y0:y1, x0:x1] = layer + under * (1.0 - layer[3:4])
-    return acc
+    return _canvas_encode(acc, out_dtype)
 
 
-def _launch(resolution, specs, params, spec_rows):
+def _launch(resolution, specs, params, spec_rows, out_dtype=torch.float32):
     w, h = resolution
     n = len(specs)
     need = PARAMS_BASE + MASK_W * max((s.n_masks for s in specs), default=0)
@@ -192,12 +199,12 @@ def _launch(resolution, specs, params, spec_rows):
         raise ValueError("K1 takes contiguous tables")
     if h <= 0 or w <= 0:
         raise ValueError(f"K1 takes a non-empty canvas, got {w}x{h}")
-    out = torch.empty((4, h, w), dtype=torch.float32, device=params.device)
+    out = torch.empty((4, h, w), dtype=out_dtype, device=params.device)
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
         err = build.library().smelter_scene_assembly(
             spec_rows.data_ptr(), params.data_ptr(), out.data_ptr(),
-            n, SPEC_W, params.shape[1], h, w, stream,
+            n, SPEC_W, params.shape[1], h, w, OUT_DTYPES[out_dtype], stream,
         )
     build.check(err, "scene_assembly launch")
     each_run(_count)
@@ -209,17 +216,21 @@ def assemble_scene_planar(
     specs: Sequence[MemberSpec],
     params: torch.Tensor,  # (L, PARAMS_BASE + MASK_W * max_masks) f32
     spec_rows: Optional[torch.Tensor] = None,  # spec_table(specs), if built
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Create the (4, H, W) premultiplied f32 canvas of one run of SDF
-    members. Runs K1 for CUDA params (raising if it cannot) and the plain
-    version for CPU params. In the debug mode, outside a frame program, a
-    canvas holding NaN or Inf raises FloatingPointError (`check_finite`)."""
+    """Create the (4, H, W) premultiplied canvas of one run of SDF members,
+    stored as `out_dtype` (`OUT_DTYPES`; the blends are f32 either way).
+    Runs K1 for CUDA params (raising if it cannot) and the plain version for
+    CPU params. In the debug mode, outside a frame program, a float canvas
+    holding NaN or Inf raises FloatingPointError (`check_finite`)."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"K1 stores {sorted(map(str, OUT_DTYPES))}, not {out_dtype}")
     if params.device.type == "cpu":
-        out = assemble_scene_planar_plain(resolution, specs, params)
+        out = assemble_scene_planar_plain(resolution, specs, params, out_dtype)
     elif params.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {params.device}")
     else:
         if spec_rows is None:
             spec_rows = spec_table(specs, params.device)
-        out = _launch(resolution, specs, params, spec_rows)
+        out = _launch(resolution, specs, params, spec_rows, out_dtype)
     return check_finite(out, "scene_assembly")

@@ -55,7 +55,7 @@ import torch
 from smelter_tpu_torch.core.types import Resolution, RGBAColor
 from smelter_tpu_torch.interop import resolve_device
 from smelter_tpu_torch.ops import color_convert as cc
-from smelter_tpu_torch.ops.compose import compose_layouts
+from smelter_tpu_torch.ops.compose import _assembly_mode, _canvas_dtype, compose_layouts
 from smelter_tpu_torch.ops.resample import build_mips, resize_matmul
 from smelter_tpu_torch.parallel import mesh as meshes
 from smelter_tpu_torch.render.program import split_layout
@@ -172,15 +172,18 @@ class Stages:
         return self.rows(self.assemble(self.per_stream(y, u, v)), 0, self.height)
 
 
-def _flagship_stages(n_inputs: int, in_res: Resolution, out_res: Resolution, device):
+def _flagship_stages(n_inputs: int, in_res: Resolution, out_res: Resolution, device,
+                     canvas_dtype: torch.dtype = torch.float32):
     """The stages of the function `make_flagship_compose` builds, with the
     builder that makes that function of them: the YUV grid when the Tiles
-    scene is an opaque grid, else the general RGBA compose."""
+    scene is an opaque grid, else the general RGBA compose with its canvas
+    stored as `canvas_dtype`."""
     flat = _tiles_layouts(n_inputs, in_res, out_res)
     grid = _analyze_opaque_grid(flat, out_res)
     if grid is not None:
         return _grid_stages(grid, n_inputs, out_res), _make_yuv_grid_compose
-    return _general_stages(flat, n_inputs, out_res, device), _make_general_compose
+    return (_general_stages(flat, n_inputs, out_res, device, canvas_dtype),
+            _make_general_compose)
 
 
 def make_flagship_compose(
@@ -190,9 +193,11 @@ def make_flagship_compose(
     device=None,
 ):
     """Returns (fn, example_args): fn(y, u, v) with stacked u8 plane batches
-    (N, H, W) / (N, H/2, W/2) on `device` -> the 4K YUV420 u8 planes."""
+    (N, H, W) / (N, H/2, W/2) on `device` -> the 4K YUV420 u8 planes. The
+    general fallback reads SMELTER_CANVAS_DTYPE and SMELTER_SCENE_ASSEMBLY
+    here, when it is built."""
     device = resolve_device(device)
-    stages, build = _flagship_stages(n_inputs, in_res, out_res, device)
+    stages, build = _flagship_stages(n_inputs, in_res, out_res, device, _canvas_dtype(True))
     return build(stages, n_inputs, in_res, device)
 
 
@@ -247,11 +252,14 @@ def make_flagship_general_compose(
     """The flagship shape through the general compose (not the opaque YUV
     grid), the `general_4k` scene (`_general_layouts`). All geometry is
     planner-stable, so every layout takes the region-local paths; the
-    channel-major canvas flows straight into the YUV420 output."""
+    channel-major canvas flows straight into the YUV420 output. The canvas
+    storage (SMELTER_CANVAS_DTYPE) and the route of its opening run
+    (SMELTER_SCENE_ASSEMBLY) are read here, when the builder is built."""
     device = resolve_device(device)
     flat = _general_layouts(n_inputs, in_res, out_res)
     statics, params = zip(*(split_layout(l, fast=True, device=device) for l in flat))
     cache: dict = {}  # this scene's K1 member table, kept on the device
+    canvas_dtype, assembly = _canvas_dtype(True), _assembly_mode()
 
     def general4k(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
         # deferred sources: the texture layouts crop+resize the subsampled
@@ -262,6 +270,7 @@ def make_flagship_general_compose(
         canvas = compose_layouts(
             (out_res.width, out_res.height), statics, params, sources,
             planar=True, cache=cache, device=device,
+            canvas_dtype=canvas_dtype, assembly=assembly,
         )
         return cc.planar_rgba_to_yuv420(canvas)
 
@@ -405,15 +414,18 @@ def _round_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x.to(torch.float32) + 0.5, 0.0, 255.0).to(torch.uint8)
 
 
-def _general_stages(flat, n_inputs, out_res: Resolution, device) -> Stages:
+def _general_stages(flat, n_inputs, out_res: Resolution, device,
+                    canvas_dtype: torch.dtype = torch.float32) -> Stages:
     """The general RGBA compose in stages: the per-stream stage converts each
     input of the block to a 2-level RGBA mip pyramid (a field per input, its
-    levels (h, w, 4) f32), the assembly composes the canvas and `rows`
-    converts rows of it to YUV420 (K2). A mesh gathers one tensor per level,
-    (k, h, w, 4): only a mesh stacks the pyramids."""
+    levels (h, w, 4) f32), the assembly composes the canvas, stored as
+    `canvas_dtype`, and `rows` converts rows of it to YUV420 (K2). A mesh
+    gathers one tensor per level, (k, h, w, 4): only a mesh stacks the
+    pyramids. SMELTER_SCENE_ASSEMBLY is read here, when it is built."""
     statics, params = zip(*(split_layout(l, device=device) for l in flat))
     levels = 2
     cache: dict = {}
+    assembly = _assembly_mode()
 
     def per_stream(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
         return [build_mips(cc.planar_yuv_to_rgba(y[i], u[i], v[i]), levels)
@@ -423,6 +435,7 @@ def _general_stages(flat, n_inputs, out_res: Resolution, device) -> Stages:
         return compose_layouts(
             (out_res.width, out_res.height), statics, params, pyramids,
             planar=True, cache=cache, device=device,
+            canvas_dtype=canvas_dtype, assembly=assembly,
         )
 
     def rows(canvas: torch.Tensor, r0: int, r1: int):
@@ -516,10 +529,12 @@ def make_multichip_step(
     P("space", None). Rank (s, p) resizes inputs [s k, (s + 1) k) (k =
     N / streams), the tiles are all-gathered over "streams", and the rank
     returns row band p of Y, U and V. `device`: this rank's (the mesh's
-    type; its current card or the CPU if None). Returns (step,
+    type; its current card or the CPU if None). The canvas stays f32 under
+    any SMELTER_CANVAS_DTYPE, as the reference's sharded traces keep it, so
+    that a step equals one device's f32 compose. Returns (step,
     example_args), the example planes on the host."""
     device = meshes.rank_device(mesh, device)
-    stages, _ = _flagship_stages(n_inputs, in_res, out_res, device)
+    stages, _ = _flagship_stages(n_inputs, in_res, out_res, device, torch.float32)
     return StreamsStep(mesh, stages, n_inputs, device), _example_args(n_inputs, in_res, "cpu")
 
 
@@ -564,11 +579,12 @@ def make_multichip_general_step(
     composes the whole canvas (K3 paints the colour layers on a card) and
     converts its band of rows to YUV420 (K2). The reference's general step
     turns its Pallas kernels off, since GSPMD cannot split them; here each
-    rank runs the port's kernels on its own work. Returns (step,
+    rank runs the port's kernels on its own work. Its canvas stays f32, as
+    the reference's sharded traces keep it. Returns (step,
     example_args)."""
     device = meshes.rank_device(mesh, device)
     flat = _scene_layouts(_multichip_general_scene(n_inputs, out_res), n_inputs, in_res, out_res)
-    stages = _general_stages(flat, n_inputs, out_res, device)
+    stages = _general_stages(flat, n_inputs, out_res, device, torch.float32)
     return StreamsStep(mesh, stages, n_inputs, device), _example_args(n_inputs, in_res, "cpu")
 
 
@@ -586,14 +602,16 @@ def make_multioutput_step(
     P("outputs", None), the (M, OH, OW) outputs P("outputs", None, None).
     Each output is `make_flagship_compose`'s function on
     `index_select(inputs, order)`, so it equals the single-device compose of
-    that order pixel for pixel. The table is the reference's
+    that order pixel for pixel (a general fallback's canvas stays f32, as
+    in the reference's sharded traces). The table is the reference's
     (`np.random.RandomState(0)`, one permutation per output). Returns
     (step, example_args); step(y, u, v, perms) returns this rank's
     (m, OH, OW) y, u and v (m = M / outputs)."""
     device = meshes.rank_device(mesh, device)
     lo, hi = meshes.shard_range(n_outputs, mesh, "outputs")
     group = mesh.get_group("outputs")
-    fn, example = make_flagship_compose(n_inputs, in_res, out_res, device=device)
+    stages, build = _flagship_stages(n_inputs, in_res, out_res, device, torch.float32)
+    fn, example = build(stages, n_inputs, in_res, device)
 
     def step(y, u, v, perms):
         if mesh.get_local_rank("outputs") == 0:

@@ -56,6 +56,8 @@ from smelter_tpu_torch.ops.compose import (
     MAX_MASKS_COUNT,
     LayoutParams,
     LayoutStatic,
+    _assembly_mode,
+    _canvas_dtype,
     compose_layouts,
 )
 from smelter_tpu_torch.ops.resample import build_mips, resize_bilinear, resize_matmul
@@ -1074,9 +1076,13 @@ class OutputProgram:
         # what the statics fix, on the device, per layout node
         caches: Dict[int, dict] = {nid: {} for nid in static_statics}
         dummy = torch.zeros((2, 2, 4), dtype=torch.float32, device=device)
-        # a YUV-bound root layout canvas stays channel-major end to end
+        # a YUV-bound root layout canvas stays channel-major end to end, in
+        # the storage SMELTER_CANVAS_DTYPE names when the program is built
+        # (f32 or 16 bits; only the converters below read it)
         root_planar = (isinstance(root.params, LayoutNode)
                        and out_format != PixelFormat.RGBA)
+        canvas_dtype = _canvas_dtype(root_planar)
+        assembly = _assembly_mode()
 
         def run(frame_buf, raw_planes, packed_params, aux_textures, shader_params):
             layout_params = _unpack_layout_params(packed_params, static_statics)
@@ -1141,7 +1147,7 @@ class OutputProgram:
                     (res.width, res.height), static_statics[nid],
                     layout_params[nid], sources,
                     planar=is_root and root_planar, cache=caches[nid],
-                    device=device,
+                    device=device, canvas_dtype=canvas_dtype, assembly=assembly,
                 )
                 if is_root:
                     return [canvas]

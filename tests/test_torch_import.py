@@ -221,7 +221,8 @@ def test_tools_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == (
-        "_inputs _profile bench_animations bench_flagship_ops bench_latency bench_offline "
+        "_ab _inputs _profile bench_align_ab bench_animations bench_assembly_ab "
+        "bench_canvas_ab bench_flagship_ops bench_latency bench_offline "
         "bench_overlap bench_scenes bench_streams []")
 
 

@@ -121,9 +121,9 @@ def k1_calls(monkeypatch):
     calls = []
     orig = scene_assembly.assemble_scene_planar
 
-    def spy(resolution, specs, params, spec_rows=None):
+    def spy(resolution, specs, params, spec_rows=None, out_dtype=torch.float32):
         calls.append(params.clone())
-        return orig(resolution, specs, params, spec_rows)
+        return orig(resolution, specs, params, spec_rows, out_dtype)
 
     monkeypatch.setattr(scene_assembly, "assemble_scene_planar", spy)
     return calls
