@@ -199,6 +199,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      names the card. 90 s budget, recorded; fails past 200 s; prints
      `{"canvas_storage": ...}`; phase 9 times K1's 16-bit stores and K2's
      16-bit loads beside their bounds.
+  19. the tools on the card (`soak_tools_phase`, after phase 15): (a)
+     `smelter_tpu_torch.tools.soak_live.run_round`, 2 rounds of 8 s at
+     1280x720 from 2 x 640x360, and (b) 1 round of 12 s at 3840x2160 from
+     2 x 1920x1080: a scene structure change every 3 s, each captured in a
+     background thread while the loop renders at full speed, no profiler
+     active; gates per round: every update's scene reaches the output
+     within its burst, each update captured a program, its first replay is
+     bit-equal to its program run eagerly (`EagerCheck`), the last frame is
+     within 1 LSB of the port on the CPU; K1 and K2 launched (K3 printed);
+     (c) `python -m smelter_tpu_torch.tools.dependency_check --json` in a
+     child: torch, the card, nvcc and the kernels' build pass, the FFmpeg
+     check agrees with phase 12's probe, exit 1 exactly when a required
+     check fails (no FFmpeg); (d) an offline pipeline (1 raw input, 10
+     frames at 1280x720) with only SMELTER_JAX_PROFILER_DIR set writes
+     `trace.json` there, holding K2. 60 s budget, recorded; fails past
+     150 s; prints `{"soak_tools": ...}`.
 The renderer phases (6, 7, 8's offline run and 10) run through captured
 programs: every render is also held bit for bit to the closure of its
 structure run eagerly on the same frame (`EagerCheck`, outside every count),
@@ -206,8 +222,8 @@ no frame that replays a graph may synchronise, the kernel and route counts
 are those of the graphs' records, and each phase prints its captures,
 structure keys, capture times and graph memory.
 (phase 13a runs right after the build, while the process holds nothing
-else; phase 10 runs between 8 and 9, phase 11 after 8, phases 12, 13b, 14
-and 15 after 10) and prints a JSON line of the edges phase (`{"edges": ...}`), one
+else; phase 10 runs between 8 and 9, phase 11 after 8, phases 12, 13b, 14,
+15 and 19 after 10) and prints a JSON line of the edges phase (`{"edges": ...}`), one
 of the MoQ phase (`{"moq": ...}`), a JSON line of the
 animated-texture numbers, a JSON line of the pipeline's numbers
 (`{"pipeline": {"offline": ..., "live": [...]}}`), a JSON line of the nodes
@@ -216,7 +232,7 @@ phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
 JSON line of the kernels (`launches` from the pipeline's offline 4K run,
 each path's counts under `launches_by_path`, the nodes, multichip,
-bench and tools phases' included, the tools' and the A/B tools' per tool;
+bench, tools and soak phases' included, the tools' and the A/B tools' per tool;
 K1's and K2's 16-bit times, bounds and launches per replay under
 `storage_16bit`), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
@@ -811,15 +827,18 @@ class EagerCheck:
     (`tally_launches_by_thread`), `RouteCounter` pauses, and the sync
     debug mode is off during it. Records per render whether it replayed a
     captured graph, and every program captured (its structure key, capture
-    ms and graph memory)."""
+    ms and graph memory). With `first_replay_only`, only the first replay of
+    each output program is compared (a soak's hot loop stays hot)."""
 
     running = False
 
-    def __init__(self, label):
+    def __init__(self, label, first_replay_only=False):
         self.label = label
+        self.first_replay_only = first_replay_only
         self.renders = []  # (program id, key, "replay" / "capture" / "frozen")
         self.programs = {}  # id(CapturedProgram) -> (capture ms, graph bytes)
         self.mismatches = []
+        self.compared = 0
 
     def __enter__(self):
         import gc
@@ -849,7 +868,10 @@ class EagerCheck:
             program = prog._build_cache.get(key)
             if program is not None:
                 self.programs.setdefault(id(program), (program.capture_ms, program.graph_bytes))
-            if out is not None:
+            if out is not None and not (self.first_replay_only and (
+                    kind != "replay" or getattr(prog, "_smoke_compared", False))):
+                prog._smoke_compared = True
+                self.compared += 1
                 self._compare(prog, pts, input_frames, key, frame_plan, out)
             return out
 
@@ -905,7 +927,7 @@ class EagerCheck:
                    capture_ms_max=max(ms) if ms else None,
                    graph_mb_total=sum(graph_mb), graph_mb_max=max(graph_mb) if graph_mb else None,
                    reserved_mb=torch.cuda.memory_reserved() / 2**20,
-                   eager_mismatches=len(self.mismatches))
+                   eager_compared=self.compared, eager_mismatches=len(self.mismatches))
         print(f"captured programs, {self.label}: {json.dumps(out)}")
         check(not self.mismatches, f"{self.label}: replay differs from the eager closure on "
                                    f"(output, pts) {self.mismatches[:8]}")
@@ -4366,6 +4388,241 @@ def canvas_storage_phase(dev, stamp, k1_cases, general_canvas, frames):
     return tool_launches, numbers
 
 
+SOAK_BUDGET_S = 60.0  # recorded
+SOAK_CEILING_S = 150.0  # the run fails past it
+# (label, rounds, seconds a round, output, inputs): the reference tool's size,
+# then 16:9 4K
+SOAK_RUNS = (("720p", 2, 8.0, (1280, 720), (640, 360)),
+             ("4K", 1, 12.0, (3840, 2160), (1920, 1080)))
+CARD_CHECKS = ("torch", "CUDA card", "nvcc (sm_90a)", "kernels build")
+FFMPEG_CHECK = "native smelter_io (FFmpeg)"
+PROFILED_FRAMES = 10
+
+
+def soak_cpu_frame(info, out):
+    """The last frame a soak round showed (`soak_live.run_round`'s
+    "last"), rendered by the port on the CPU: its scene, the round's
+    inputs, its pts."""
+    from smelter_tpu_torch.core.types import FrameSet, PixelFormat
+    from smelter_tpu_torch.render.renderer import Renderer
+    from smelter_tpu_torch.tools import soak_live
+
+    last = info["last"]
+    r = Renderer(device="cpu")
+    try:
+        for iid in info["inputs"]:
+            r.register_input(iid)
+        r.update_scene("out", soak_live.scene(last["angle"], last["wpx"], out), out,
+                       PixelFormat.PLANAR_YUV420)
+        planes = r.render(FrameSet(pts=last["pts"], frames=info["inputs"])).frames["out"].data
+    finally:
+        r.close()
+    return tuple(p.numpy() for p in planes)
+
+
+def soak_run(dev, stamp, label, rounds, seconds, out, in_res):
+    """Phase 19a/b: `soak_live.run_round` on the card, `rounds` rounds of
+    `seconds`, with the kernel counts set to 0 just before each round and
+    read just after. Gates per round: no profiler active before or after;
+    at least one update; every update's scene reached the output within its
+    burst (not every frame of it frozen); every update captured at least
+    one program in the background; the first replay of each update's
+    program bit-equal to that program run eagerly (`EagerCheck`); the last
+    frame shown within 1 LSB of the port on the CPU (`soak_cpu_frame`).
+    Gates over the rounds: K1 and K2 launched. Returns (launches,
+    numbers)."""
+    import torch
+
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
+    from smelter_tpu_torch.tools import soak_live
+
+    out, in_res = Resolution(*out), Resolution(*in_res)
+    mods = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+    launches = dict.fromkeys(mods, 0)
+    rounds_out = []
+    for i in range(rounds):
+        name = f"soak {label} round {i + 1}/{rounds}"
+        check(not torch.autograd._profiler_enabled(), f"{name}: a profiler is active")
+        for m in mods.values():
+            m.LAUNCHES = 0
+        with EagerCheck(name, first_replay_only=True) as eager:
+            info = soak_live.run_round(i, seconds, dev, out, in_res)
+        counts = {k: m.LAUNCHES for k, m in mods.items()}
+        check(not torch.autograd._profiler_enabled(), f"{name}: a profiler is active")
+        for k, n in counts.items():
+            launches[k] += n
+        programs = eager.report()
+        cpu = soak_cpu_frame(info, out)
+        mx, n_diff, n_gt1, n_px = lsb_stats(cpu, info["last"]["planes"])
+        ms = sorted(c["capture_ms"] for cs in info["captures"] for c in cs)
+        graph_mb = [c["graph_bytes"] / 2**20 for cs in info["captures"] for c in cs]
+        row = dict(frames=info["frames"], updates=info["updates"],
+                   seconds=info["elapsed_s"], frames_per_s=info["frames"] / info["elapsed_s"],
+                   replayed_per_s=(info["frames"] - sum(info["frozen_by_update"]))
+                   / info["elapsed_s"],
+                   frames_by_update=info["frames_by_update"],
+                   frozen_by_update=info["frozen_by_update"],
+                   captures_by_update=[len(cs) for cs in info["captures"]],
+                   capture_ms_p50=statistics.median(ms) if ms else None,
+                   capture_ms_max=max(ms) if ms else None, capture_ms=ms,
+                   graph_mb_max=max(graph_mb) if graph_mb else None,
+                   eager_compared=programs["eager_compared"], launches=counts,
+                   last_vs_cpu=dict(max_abs=mx, pixels_differing=n_diff, pixels=n_px,
+                                    pts=info["last"]["pts"], angle=info["last"]["angle"],
+                                    wpx=info["last"]["wpx"]))
+        print(f"{name} {out.width}x{out.height} from 2 x {in_res.width}x{in_res.height}: "
+              f"{json.dumps(row)} {stamp}")
+        rounds_out.append(row)
+        check(info["updates"] >= 1, f"{name}: no structure update")
+        never = [k for k, (n, fz) in enumerate(zip(info["frames_by_update"],
+                                                   info["frozen_by_update"])) if fz >= n]
+        check(not never, f"{name}: updates {never} never reached the output within their burst")
+        uncaptured = [k for k, cs in enumerate(info["captures"]) if not cs]
+        check(not uncaptured, f"{name}: updates {uncaptured} captured no program")
+        check(programs["eager_compared"] == info["updates"],
+              f"{name}: {programs['eager_compared']} first replays held to eager, "
+              f"not one per update ({info['updates']})")
+        check(mx <= 1, f"{name}: the last frame differs from the CPU by {mx} LSB")
+    check(launches["scene_assembly"] > 0 and launches["yuv_out"] > 0,
+          f"soak {label}: K1 or K2 never launched: {launches}")
+    return launches, dict(rounds=rounds_out, seconds_a_round=seconds,
+                          out=f"{out.width}x{out.height}", inputs=f"2 x {in_res.width}x{in_res.height}")
+
+
+def profiled_offline_run(dev, out_w, out_h, n_frames=PROFILED_FRAMES):
+    """An offline pipeline (ahead-of-time, never-drop) on `dev`: one raw
+    YUV420 input of `n_frames` at 30 fps and out_w x out_h, in a tilted box
+    over a background (the general route: K1, K2) of a raw YUV420 output,
+    no codecs; run under whatever profiler setting the environment holds.
+    Returns the frames delivered."""
+    from smelter_tpu_torch.core.types import Framerate, Resolution, RGBAColor
+    from smelter_tpu_torch.pipeline import (
+        EndCondition, OutputVideoOptions, Pipeline, PipelineOptions, RawDataOutputSink,
+        RegisterInputOptions, VideoEncoderOptions)
+    from smelter_tpu_torch.pipeline.input import RawDataInput
+    from smelter_tpu_torch.scene import components as comp
+
+    p = Pipeline(PipelineOptions(output_framerate=Framerate(FPS), ahead_of_time_processing=True,
+                                 never_drop_output_frames=True), device=dev)
+    src = RawDataInput(has_video=True, has_audio=False)
+    p.register_input("input_0", src, RegisterInputOptions(required=True, offset=0.0))
+    sink = RawDataOutputSink()
+    root = comp.View(background_color=RGBAColor(20, 20, 40), children=[comp.Rescaler(
+        child=comp.InputStream(input_id="input_0"), position=comp.AbsolutePosition(
+            width=out_w / 2, height=out_h / 2, top=out_h / 8, left=out_w / 8,
+            rotation_degrees=10.0))])
+    p.register_output("out", sink, video=OutputVideoOptions(
+        resolution=Resolution(out_w, out_h), encoder=VideoEncoderOptions(codec="raw"),
+        initial_root=root, end_condition=EndCondition(all_inputs=True)))
+    video = []
+    try:
+        p.start()
+        feeder = _threads([(_feed_video, (src, host_frames(2, out_w, out_h), n_frames))])
+        _drain(sink.video, video)
+        p.wait_for_outputs_done(timeout=60)
+        for t in feeder:
+            t.join(timeout=10)
+    finally:
+        p.close()
+    return len(video)
+
+
+def profiler_setting_check(dev, stamp):
+    """Phase 19d: `profiled_offline_run` at 1280x720 with only the
+    reference's SMELTER_JAX_PROFILER_DIR set: after `close()` its directory
+    holds the torch.profiler `trace.json`, with K2's kernel in it."""
+    import tempfile
+
+    names = ("SMELTER_TORCH_PROFILER_DIR", "SMELTER_JAX_PROFILER_DIR")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["SMELTER_JAX_PROFILER_DIR"] = tmp
+            frames = profiled_offline_run(dev, 1280, 720)
+            path = os.path.join(tmp, "trace.json")
+            text = open(path).read() if os.path.exists(path) else None
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    check(text is not None, "profiler setting: no trace.json under SMELTER_JAX_PROFILER_DIR")
+    out = dict(frames=frames, trace_bytes=len(text), k2_events=text.count("yuv420_out"),
+               k1_events=text.count("scene_assembly"))
+    print(f"profiler setting (SMELTER_JAX_PROFILER_DIR alone): {json.dumps(out)} {stamp}")
+    check(frames >= 1, "profiler setting: the pipeline delivered no frame")
+    check(out["k2_events"] > 0, "profiler setting: K2 is not in the trace")
+    return out
+
+
+def dependency_check_gates(rc, stdout, stderr, stamp):
+    """Phase 19c: `python -m smelter_tpu_torch.tools.dependency_check --json`
+    ran in a child. Gates: the torch, CUDA card, nvcc and kernels-build
+    checks pass and are required; the FFmpeg check agrees with this
+    process's probe (`edges_unavailable`), failing with the loader's own
+    message where the codec service cannot load; the exit code is 1 exactly
+    when a required check failed."""
+    check(stdout.strip().startswith("{"), f"dependency_check printed no JSON: {stderr[-2000:]}")
+    report = json.loads(stdout)
+    by_name = {c["name"]: c for c in report["checks"]}
+    print(f"dependency_check (exit {rc}): " + json.dumps(
+        {c["name"]: ("ok" if c["ok"] else "FAIL" if c["required"] else "skip", c["detail"][:160])
+         for c in report["checks"]}) + f" {stamp}")
+    for name in CARD_CHECKS:
+        check(by_name[name]["ok"] and by_name[name]["required"],
+              f"dependency_check: {name}: {by_name[name]['detail']}")
+    probe = edges_unavailable()
+    ffmpeg = by_name[FFMPEG_CHECK]
+    loader = probe.split("; building")[0] if probe else None
+    check(ffmpeg["ok"] == (probe is None) and (probe is None or loader in ffmpeg["detail"]),
+          f"dependency_check: FFmpeg check {ffmpeg} against this process's probe {probe!r}")
+    hard = [c["name"] for c in report["checks"] if c["required"] and not c["ok"]]
+    check(rc == (1 if hard else 0) and report["ok"] == (not hard),
+          f"dependency_check: exit {rc}, ok {report['ok']}, required checks failing {hard}")
+    return dict(exit=rc, ok=report["ok"], failing_required=hard,
+                ffmpeg=ffmpeg["ok"], card=by_name["CUDA card"]["detail"])
+
+
+def soak_tools_phase(dev, stamp):
+    """Phase 19, the tools on the card: (a) `soak_live` at the reference's
+    size, (b) at 4K (`soak_run`), (c) `dependency_check --json` in a child,
+    which runs while (d), the reference's profiler setting
+    (`profiler_setting_check`), runs here. 60 s budget, recorded; fails
+    past SOAK_CEILING_S. Returns (the soak's launches over (a) and (b),
+    the phase's numbers)."""
+    t_phase = time.perf_counter()
+    numbers, launches = {}, {}
+    for label, rounds, seconds, out, in_res in SOAK_RUNS:
+        counts, numbers[f"soak_{label}"] = soak_run(dev, stamp, label, rounds, seconds, out,
+                                                    in_res)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    t_dep = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "smelter_tpu_torch.tools.dependency_check", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        numbers["profiler_setting"] = profiler_setting_check(dev, stamp)
+        stdout, stderr = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    numbers["dependency_check"] = dependency_check_gates(child.returncode, stdout, stderr, stamp)
+    numbers["dependency_and_profiler_s"] = time.perf_counter() - t_dep
+    numbers["seconds"] = time.perf_counter() - t_phase
+    numbers["budget_s"] = SOAK_BUDGET_S
+    numbers["launches"] = launches
+    print(f"tools on the card phase: {numbers['seconds']:.1f} s (budget {SOAK_BUDGET_S:.0f} s, "
+          f"{'within' if numbers['seconds'] <= SOAK_BUDGET_S else 'OVER'}); soak launches "
+          f"{launches} {stamp}")
+    check(numbers["seconds"] <= SOAK_CEILING_S,
+          f"phase 19 took {numbers['seconds']:.1f} s, past {SOAK_CEILING_S:.0f} s")
+    return launches, numbers
+
+
 def profile_reader_check(dev, stamp, n=N_INPUTS, iters=20, repeats=12):
     """The profiler reader's three measures of one program side by side:
     `iters` general_4k replays (the captured program called as
@@ -4692,6 +4949,10 @@ def main() -> int:
     # phase 15: the multi-device steps, once the live phases' pipelines are closed
     multichip_launches, multichip = multichip_phase(dev, stamp)
 
+    # phase 19: the tools on the card: soak_live, dependency_check, the
+    # reference's profiler setting
+    soak_launches, soak_numbers = soak_tools_phase(dev, stamp)
+
     # phase 9: timings (medians of ITERS runs after WARMUP)
     # kernels: "kernel" = back-to-back launches (kernel_ms), "call" = one
     # synchronised call (cuda_ms), "plain" = the plain version, one call;
@@ -4865,6 +5126,7 @@ def main() -> int:
                                       "card": card}}))
     print(json.dumps({"tools_phase": {"kernel_launches": tool_launches, **tool_numbers,
                                       "card": card}}))
+    print(json.dumps({"soak_tools": {**soak_numbers, "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
     # slice's main path; no single PyTorch call computes any of the three functions:
@@ -4884,7 +5146,8 @@ def main() -> int:
                               "bench": bench_launches["scene_assembly"],
                               "tools": {tool: n["scene_assembly"] for tool, n in tool_launches.items()},
                               "canvas_tools": {tool: n["scene_assembly"]
-                                               for tool, n in canvas_launches.items()}},
+                                               for tool, n in canvas_launches.items()},
+                              "soak": soak_launches["scene_assembly"]},
          "max_abs_err": k1_err, "storage_16bit": storage["scene_assembly"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -4904,7 +5167,8 @@ def main() -> int:
                               "bench": bench_launches["yuv_out"],
                               "tools": {tool: n["yuv_out"] for tool, n in tool_launches.items()},
                               "canvas_tools": {tool: n["yuv_out"]
-                                               for tool, n in canvas_launches.items()}},
+                                               for tool, n in canvas_launches.items()},
+                              "soak": soak_launches["yuv_out"]},
          "max_abs_err": k2_err, "storage_16bit": storage["yuv_out"],
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
@@ -4923,7 +5187,8 @@ def main() -> int:
                               "bench": bench_launches["sdf_layers"],
                               "tools": {tool: n["sdf_layers"] for tool, n in tool_launches.items()},
                               "canvas_tools": {tool: n["sdf_layers"]
-                                               for tool, n in canvas_launches.items()}},
+                                               for tool, n in canvas_launches.items()},
+                              "soak": soak_launches["sdf_layers"]},
          "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],

@@ -59,7 +59,8 @@ def _sources():
 def library_path() -> pathlib.Path:
     """Build the kernel library if no library of the current sources exists;
     return its path. nvcc's output (register and spill counts from
-    `-Xptxas -v`) is kept beside it as `build-<hash>.log`."""
+    `-Xptxas -v`) is kept beside it as `build-<hash>.log`, and a failed
+    build's error names that log."""
     srcs, digest = _sources()
     lib = BUILD_DIR / f"libsmelter_kernels-{digest}.so"
     if lib.exists():
@@ -79,12 +80,14 @@ def library_path() -> pathlib.Path:
         link = subprocess.run(cmds[-1], capture_output=True, text=True)
         outs.append(link.stdout + link.stderr)
         codes = [pr.returncode for pr in procs] + [link.returncode]
+        log = BUILD_DIR / f"build-{digest}.log"
+        log.write_text("".join(outs))
         if any(codes):
             failed = next(i for i, c in enumerate(codes) if c)
             raise RuntimeError(
-                f"nvcc failed ({codes[failed]}): {' '.join(cmds[failed])}\n{outs[failed]}"
+                f"nvcc failed ({codes[failed]}): {' '.join(cmds[failed])} (build log: {log})\n"
+                f"{outs[failed]}"
             )
-        (BUILD_DIR / f"build-{digest}.log").write_text("".join(outs))
         os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
     return lib
 

@@ -24,9 +24,11 @@ another device (`device="cpu"`); without a card it raises. After each
 host memory (`output.to_host_async`) and hands the output thread the frame
 with its CUDA event; nothing on the renderer thread waits for the card.
 
-With ``SMELTER_TORCH_PROFILER_DIR`` set, `start()` opens a torch.profiler
-trace (host and CUDA activity) that `close()` writes there as
-``trace.json``.
+With ``SMELTER_TORCH_PROFILER_DIR`` set, or else the reference's
+``SMELTER_JAX_PROFILER_DIR``, `start()` opens a torch.profiler trace (host
+and CUDA activity) that `close()` writes into that directory as
+``trace.json``, once the renderer thread has stopped launching: stopping
+the profiler while another thread replays a CUDA graph can deadlock.
 """
 
 from __future__ import annotations
@@ -506,7 +508,8 @@ class Pipeline:
                 build.library()
             # tracing subsystem (reference uses `tracing` spans; here the
             # device-side story is a torch.profiler trace, env-gated)
-            trace_dir = os.environ.get("SMELTER_TORCH_PROFILER_DIR")
+            trace_dir = (os.environ.get("SMELTER_TORCH_PROFILER_DIR")
+                         or os.environ.get("SMELTER_JAX_PROFILER_DIR"))
             if trace_dir:
                 from torch.profiler import ProfilerActivity, profile
 
@@ -529,11 +532,6 @@ class Pipeline:
             self._threads += [rt, at]
 
     def close(self) -> None:
-        if self._profiler is not None:
-            self._profiler.stop()
-            os.makedirs(self._trace_dir, exist_ok=True)
-            self._profiler.export_chrome_trace(os.path.join(self._trace_dir, "trace.json"))
-            self._profiler = None
         self._closed.set()
         # close the render/mixer channels BEFORE joining the queue thread:
         # in AOT mode the queue sends without a deadline, so a stopped
@@ -566,6 +564,13 @@ class Pipeline:
             t.join(timeout=5.0)
         self._threads.clear()
         self.renderer.close()
+        # only now: the renderer thread and the background captures have
+        # stopped launching
+        if self._profiler is not None:
+            self._profiler.stop()
+            os.makedirs(self._trace_dir, exist_ok=True)
+            self._profiler.export_chrome_trace(os.path.join(self._trace_dir, "trace.json"))
+            self._profiler = None
 
     def wait_for_outputs_done(self, timeout: Optional[float] = None) -> None:
         with self._lock:

@@ -215,15 +215,18 @@ print(" ".join(names), sorted({m.split(".")[0] for m in sys.modules} & {"jax", "
 
 
 def test_tools_import_without_jax():
-    """Every module of `smelter_tpu_torch.tools` (the measurement tools)
-    loads neither JAX nor any module of the reference package."""
+    """Every module of `smelter_tpu_torch.tools` (the measurement tools and
+    the rest of the reference's `tools/`) loads neither JAX nor any module
+    of the reference package."""
     out = subprocess.run([sys.executable, "-c", _TOOLS], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == (
         "_ab _inputs _profile bench_align_ab bench_animations bench_assembly_ab "
         "bench_canvas_ab bench_flagship_ops bench_latency bench_offline "
-        "bench_overlap bench_scenes bench_streams []")
+        "bench_overlap bench_scenes bench_streams dependency_check docs_examples "
+        "frame_inspector generate_schemas generate_ts_types release soak_live soak_web "
+        "waveform_inspector []")
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu():

@@ -9,7 +9,9 @@ on the CPU at out 192x108, in 96x54, 4 frames a box animation:
     the reference's keys plus "card";
   - every render of the port's run (the Tiles re-layout's 23, each box
     animation's 2 + 4) is within 1 u8 LSB of the reference `Renderer` on
-    the same calls, with the harness's inputs.
+    the same calls, with the harness's inputs;
+  - over slide, spin and zoom, the port's program cache holds as many
+    structure keys as the reference's jit cache, frame for frame.
 """
 
 from __future__ import annotations
@@ -210,3 +212,35 @@ def _reference_tree(node):
         return target[node.name]
     fields = dataclasses.fields(node)
     return target(**{f.name: _reference_tree(getattr(node, f.name)) for f in fields if f.init})
+
+
+@pytest.mark.parametrize("name", ["slide_position", "spin_rotation", "zoom_size"])
+def test_structure_keys_grow_as_the_reference(name):
+    """A fault both packages share (ROADMAP Queue 3): the first frame of a
+    transition still builds a static structure and the next frame the
+    animating one. Frame for frame, the port's program cache holds as many
+    structures as the reference's jit cache."""
+    out = OUT
+    pos0, pos1 = (bench_animations.scaled(p, out) for p in bench_animations.ANIMATIONS[name])
+    steps = [(bench_animations.box_scene(pos0), 0.0),
+             (bench_animations.box_scene(pos1, bench_animations.Transition(duration=4.0)), 0.2),
+             (None, 0.3), (None, 0.4)]
+    r, jr = bench_animations.Renderer(device="cpu"), jrenderer.Renderer()
+    mine, ref = [], []
+    try:
+        r.register_input("cam")
+        jr.register_input("cam")
+        for scene, pts in steps:
+            if scene is not None:
+                r.update_scene("out", scene, out, bench_animations.PixelFormat.RGBA)
+                jr.update_scene("out", _reference_tree(scene), jt.Resolution(out.width, out.height),
+                                jt.PixelFormat.RGBA)
+            r.render(bench_animations.FrameSet(
+                pts=pts, frames={"cam": _inputs.make_test_input(0, IN, pts)}))
+            jr.render(jt.FrameSet(pts=pts, frames={"cam": harness.make_test_input(0, REF_IN, pts)}))
+            mine.append(len(r._programs["out"]._build_cache))
+            ref.append(len(jr._programs["out"]._jit_cache))
+    finally:
+        r.close()
+        jr.close()
+    assert mine == ref == [1, 1, 2, 2]
