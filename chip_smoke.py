@@ -32,8 +32,11 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      (`render.capture.capture`, as the reference jits them) and replayed;
      checks shapes and dtypes, that a general_4k replay launched K1 and K2
      once each, that each replay equals the eager function bit for bit, and
-     that the card's frames match the port run on the CPU; times both
-     eager and replayed;
+     that the card's frames match the port run on the CPU; that one replay
+     of each ran its resize GEMMs (`ops/resample.gemm`) with bf16 operands
+     on the tensor cores and none in f32 (cuBLAS's kernel names in
+     torch.profiler), as many as an eager frame counts
+     (`resample.LAUNCHES`); times both eager and replayed;
   6. drives the renderer (`smelter_tpu_torch.render.renderer.Renderer`), the
      entry point a pipeline calls, on 16 host YUV420 inputs at 1080p into a
      4K YUV420 output: a Tiles grid under a highlight frame and a lower-third
@@ -92,7 +95,15 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      their bounds (bytes and operations at the H100 SXM's peaks), the whole
      frames, the host time of the renderer's per-frame planning, and the
      animated-texture frames (animating and stable, plan(), and a
-     torch.profiler breakdown of one animating frame);
+     torch.profiler breakdown of one animating frame), and the resize
+     GEMMs: the two most called shapes of each resize site of the grid,
+     general_4k and the animated textures (`GemmSites`, recorded in phases
+     5 and 7) on both routes (bf16 on the tensor cores; the plain route's f32
+     GEMMs on the same values), with the cuBLAS kernels each ran, gated as
+     in phase 5 (and no replay of phase 5 ran a kernel of the plain route),
+     the output dtype (bf16 where the reference casts, f32 where it keeps)
+     and the bound (bytes at 3.35 TB/s, or operations at the bf16 tensor
+     cores' 989 TFLOP/s), printed as `{"resize_gemms": [...]}`;
   11. drives the live pipeline (so the renderer's background capture),
      16 x 1080p -> 4K, `renderer_scene` replaced mid-stream by a scene of
      another structure (`marked_scene`, a green bar over the grid): checks
@@ -234,7 +245,8 @@ JSON line of the kernels (`launches` from the pipeline's offline 4K run,
 each path's counts under `launches_by_path`, the nodes, multichip,
 bench, tools and soak phases' included, the tools' and the A/B tools' per tool;
 K1's and K2's 16-bit times, bounds and launches per replay under
-`storage_16bit`), the nvidia-smi line, and
+`storage_16bit`), after a JSON line of the resize GEMMs' sites
+(`{"resize_gemms": [...]}`), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -245,6 +257,7 @@ import contextlib
 import faulthandler
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -269,7 +282,18 @@ WATCHDOG_S = 840
 # and f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # the tensor cores, dense
 BLEND_OPS = 9  # f32 operations of one premultiplied OVER of one pixel
+# cuBLAS's GEMM mainloops by kernel name (its split-K reductions are not),
+# those that take bf16 operands on the tensor cores ("bf16" in a CUTLASS or
+# xmma name, "nvjet_t*" for bf16 inputs to cuBLAS's nvjet kernels), and
+# those that run f32 on the CUDA cores (FFMA)
+GEMM_RE = re.compile(r"gemm|nvjet")
+BF16_GEMM_RE = re.compile(r"bf16|nvjet_t")
+F32_GEMM_RE = re.compile(r"ffma|sgemm|f32f32_f32f32|nvjet_s")
+RESIZE_SHAPES_PER_SITE = 2  # shapes of a resize site timed in phase 9, most called first
+PAD_LAUNCHES = 64  # spin kernels that open each trace of `profiled_kernels`
+TRACE_LOSSES = []  # opening records each trace of `profiled_kernels` lost
 
 
 class SmokeFailure(Exception):
@@ -336,21 +360,79 @@ def kernel_ms(fn, n: int = B2B_LAUNCHES, reps: int = 5, warmup: int = WARMUP) ->
 
 def device_ms(fn, kernel: str, n: int = B2B_LAUNCHES):
     """Mean device time in ms of the CUDA kernel whose name holds `kernel`,
-    over `n` calls of `fn`, from torch.profiler's CUDA trace (no host work
-    counts); None when the trace holds no such kernel."""
+    over `n` calls of `fn`, from torch.profiler's CUDA trace
+    (`profiled_kernels`; no host work counts); None when the trace holds no
+    such kernel."""
+    rows = [(c, t) for k, (c, t) in profiled_kernels(fn, n).items() if kernel in k]
+    if not rows:
+        return None
+    return sum(c * t for c, t in rows) / sum(c for c, _ in rows)
+
+
+def profiled_kernels(fn, n: int = 1, tries: int = 3):
+    """{kernel name: (launches a call, mean device ms a launch)} of the CUDA
+    kernels `n` calls of `fn` run, from torch.profiler. As in
+    `tools/_profile.FrameProfile`, the trace stays open and idle for
+    `QUIET_S` before the calls and after them (the profiler keeps only the
+    device records inside its window on the host's clock). Late in this
+    script, on an H100, most traces lost their first device records (18
+    and more: a trace of one short call came back empty), so
+    `PAD_LAUNCHES` one-cycle spin kernels open each trace and are left out;
+    a trace that kept none of them may have lost more, and is printed and
+    taken again, up to `tries` traces. Each trace's lost opening records
+    go to `TRACE_LOSSES`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from smelter_tpu_torch.tools._profile import QUIET_S
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key and e.count]
-    if not rows:
-        return None
-    return sum(e.device_time_total for e in rows) / sum(e.count for e in rows) / 1e3
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(QUIET_S)
+            for _ in range(PAD_LAUNCHES):
+                torch.cuda._sleep(1)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(QUIET_S)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+        spin = sum(e.count for e in rows if "spin_kernel" in e.key)
+        TRACE_LOSSES.append(PAD_LAUNCHES - spin)
+        if spin:
+            return {e.key: (e.count / n, e.device_time_total / e.count / 1e3) for e in rows
+                    if "spin_kernel" not in e.key}
+        print(f"profiler trace {attempt + 1} of {tries} kept none of its {PAD_LAUNCHES} "
+              f"opening records: {[e.key for e in prof.key_averages()]}")
+    raise SmokeFailure(f"{tries} profiler traces lost their opening records")
+
+
+def gemm_mainloops(kernels):
+    """The GEMM mainloops among kernel names (a dict or a list)."""
+    return [n for n in kernels if GEMM_RE.search(n)]
+
+
+def check_bf16_gemms(label, fn, launches, tries: int = 3):
+    """Gate: a torch.profiler trace of one call of `fn` (`profiled_kernels`)
+    that holds all of its `launches` GEMMs (as many as `resample.LAUNCHES`
+    counts: a trace that lost some is printed and taken again, up to
+    `tries` traces) holds only GEMMs with bf16 operands on the tensor cores,
+    none in f32. Returns the GEMMs' {name: (launches a call, ms a launch)}."""
+    for _ in range(tries):
+        kernels = profiled_kernels(fn)
+        mains = {k: kernels[k] for k in gemm_mainloops(kernels)}
+        print(f"{label}: GEMM kernels " + ", ".join(f"{k[:90]} x{c:g} {t:.4f} ms"
+                                                    for k, (c, t) in mains.items()))
+        n = sum(c for c, _ in mains.values())
+        if n == launches:
+            break
+        print(f"{label}: {n:g} GEMM kernels in the trace, {launches} counted")
+    check(n == launches, f"{label}: no trace of {tries} held the {launches} GEMMs counted")
+    f32 = [k for k in mains if F32_GEMM_RE.search(k) or not BF16_GEMM_RE.search(k)]
+    check(not f32, f"{label}: GEMMs not in bf16 on the tensor cores: {f32}")
+    return mains
 
 
 def bound_ms(n_bytes: float, n_ops: float = 0.0):
@@ -818,12 +900,142 @@ class RouteCounter:
         return False
 
 
+def _site_arg(a):
+    """What a resize site's argument adds to its signature: a tensor's
+    shape and dtype, nothing of a number that lives on the device (a traced
+    size or crop changes per frame), other values as they are."""
+    import torch
+
+    if torch.is_tensor(a):
+        return (tuple(a.shape), str(a.dtype).replace("torch.", "")) if a.dim() else "scalar"
+    if isinstance(a, tuple) and a and all(torch.is_tensor(x) and not x.dim() for x in a):
+        return "scalars"
+    return a
+
+
+class GemmSites:
+    """While installed (a `with` block), records every call of the resize
+    functions' bodies (`resample._resize_matmul`, `_resize_matmul_traced`,
+    `color_convert._rs`) by site: the function, the compose route that
+    called it and its arguments' shapes and dtypes. Counts the calls of each
+    site and keeps the arguments of its first, so that phase 9 can time the
+    site on both GEMM routes. With `eager_only`, only the calls of
+    `EagerCheck`'s eager runs count (one run per render, none of a capture's
+    warm-up)."""
+
+    def __init__(self, eager_only=False):
+        self.eager_only = eager_only
+        self.calls = {}
+        self.args = {}
+
+    def __enter__(self):
+        from smelter_tpu_torch.ops import color_convert, resample
+
+        self._saved = [(m, name, getattr(m, name)) for m, name in (
+            (resample, "_resize_matmul"), (resample, "_resize_matmul_traced"),
+            (color_convert, "_rs"))]
+        for mod, name, orig in self._saved:
+            def recorded(*args, _orig=orig, _name=name):
+                if not self.eager_only or EagerCheck.running:
+                    route = sys._getframe(2).f_code.co_name
+                    sig = (f"{_name} <- {route}",) + tuple(_site_arg(a) for a in args[:-1])
+                    self.calls[sig] = self.calls.get(sig, 0) + 1
+                    self.args.setdefault(sig, (_orig, args[:-1]))
+                return _orig(*args)
+
+            setattr(mod, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+        return False
+
+
+def gemm_work(call):
+    """(GEMMs, operations, output) of one `call` of a resize site on the
+    card's route: each GEMM's 2 * m * k * n, read from `resample.gemm`'s
+    arguments."""
+    from smelter_tpu_torch.ops import color_convert, resample
+
+    orig, seen = resample.gemm, []
+
+    def counted(w, x, dim, out_dtype, card):
+        seen.append(2 * w.shape[0] * x.numel())
+        return orig(w, x, dim, out_dtype, card)
+
+    resample.gemm = color_convert.gemm = counted
+    try:
+        out = call()
+    finally:
+        resample.gemm = color_convert.gemm = orig
+    return len(seen), sum(seen), out
+
+
+def resize_gemm_rows(site_logs, renders, launches, stamp):
+    """Phase 9's resize GEMMs: the two most called shapes of each resize
+    site (function and compose route) of each path (`GemmSites`), timed on
+    the card's route (bf16 operands on the tensor cores) and on the plain
+    route (f32 GEMMs on the same values, the CPU's route run on the card),
+    with the cuBLAS kernels each runs,
+    the operations and bytes of one call and its bound (bytes at 3.35 TB/s
+    or operations at the bf16 tensor cores' 989 TFLOP/s, whichever is
+    larger). `renders`: the frames each path's log saw; `launches`: the
+    GEMMs the path's main run counted. Gates: the card's route runs only
+    bf16 tensor-core GEMMs and writes bf16 where the reference casts (a
+    static resize) and f32 where it keeps (`_rs`, a traced resize); the
+    plain route runs f32 ones. Returns the rows and the plain route's GEMM
+    kernel names."""
+    import torch
+
+    rows, f32_names = [], set()
+    for path, log in site_logs.items():
+        by_site = {}
+        for sig, n in sorted(log.calls.items(), key=lambda kv: -kv[1]):
+            by_site.setdefault(sig[0], []).append((sig, n))
+        for sig, n in [sn for shapes in by_site.values() for sn in shapes[:RESIZE_SHAPES_PER_SITE]]:
+            body, args = log.args[sig]
+            card = lambda body=body, args=args: body(*args, True)  # noqa: E731
+            plain = lambda body=body, args=args: body(*args, False)  # noqa: E731
+            n_gemms, ops, out = gemm_work(card)
+            want = torch.float32 if sig[0].startswith(("_rs", "_resize_matmul_traced")) \
+                else torch.bfloat16
+            check(out.dtype == want, f"resize {sig[0]}: the card wrote {out.dtype}, not {want}")
+            n_bytes = sum(a.numel() * a.element_size() for a in args
+                          if torch.is_tensor(a) and a.dim()) + out.numel() * out.element_size()
+            t_ops, t_bytes = ops / BF16_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+            label = f"resize {path} {sig[0]} {sig[1]}"
+            kernels = check_bf16_gemms(f"{label}, card route", card, n_gemms)
+            plain_kernels = profiled_kernels(plain)
+            f32 = {k: plain_kernels[k] for k in gemm_mainloops(plain_kernels)}
+            check(f32 and all(F32_GEMM_RE.search(k) for k in f32),
+                  f"{label}: the plain route's GEMMs are not all f32 ones: {list(f32)}")
+            f32_names.update(f32)
+            t, t_plain = kernel_ms(card), kernel_ms(plain)
+            row = dict(path=path, site=sig[0], args=[a for a in sig[1:]],
+                       output=[list(out.shape), str(out.dtype).replace("torch.", "")],
+                       calls_per_frame=n / renders[path],
+                       gemms_per_frame=n * n_gemms / renders[path],
+                       gflop_per_frame=n * ops / renders[path] / 1e9, gflop_per_call=ops / 1e9,
+                       bytes_per_call=n_bytes, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       bound_ops_ms=t_ops, bound_bytes_ms=t_bytes, ms=t, plain_ms=t_plain,
+                       path_launches=launches[path], kernels=kernels, plain_kernels=f32)
+            rows.append(row)
+            print(f"time {label}: {n / renders[path]:g} calls a frame of {n_gemms} GEMMs, "
+                  f"{ops / 1e9:.3f} GFLOP and {n_bytes} B a call; bf16 route {t:.4f} ms, "
+                  f"f32 plain route {t_plain:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']} ({t_ops:.4f} ops, {t_bytes:.4f} bytes), "
+                  f"{row['bound_ms'] / t:.0%} of bound {stamp}")
+    return rows, f32_names
+
+
 class EagerCheck:
     """While installed (a `with` block), every render of an `OutputProgram`
     is held bit for bit to the closure of its frame's structure run eagerly
     on the same frame's arguments, on the card (`prog._build(key,
-    frames)` on `prog._args(plan)`). The eager run is out of every count: the kernels' launch
-    counters are restored after it and their per-thread tally skips it
+    frames)` on `prog._args(plan)`). The eager run is out of every count: the kernels' and
+    the resize GEMMs' launch counters are restored after it and their per-thread tally skips it
     (`tally_launches_by_thread`), `RouteCounter` pauses, and the sync
     debug mode is off during it. Records per render whether it replayed a
     captured graph, and every program captured (its structure key, capture
@@ -881,10 +1093,11 @@ class EagerCheck:
     def _compare(self, prog, pts, input_frames, key, frame_plan, out):
         import torch
 
+        from smelter_tpu_torch.ops import resample
         from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
         from smelter_tpu_torch.render.capture import _map_tensors
 
-        mods = (scene_assembly, sdf_layers, yuv_out)
+        mods = (scene_assembly, sdf_layers, yuv_out, resample)
         counts = [m.LAUNCHES for m in mods]
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("default")
@@ -1063,6 +1276,7 @@ def animated_phase(dev, frames):
     import torch
 
     from smelter_tpu_torch import interop
+    from smelter_tpu_torch.ops import resample
     from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
 
     per_frame = []  # (k, route calls, K1, K2, syncs) after frame k
@@ -1075,6 +1289,7 @@ def animated_phase(dev, frames):
     scene_assembly.LAUNCHES = 0
     yuv_out.LAUNCHES = 0
     sdf_layers.LAUNCHES = 0
+    resample.LAUNCHES = 0
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs, counter, \
             EagerCheck("animated textures") as eager:
@@ -1087,7 +1302,8 @@ def animated_phase(dev, frames):
     print(f"animated textures: frames captured "
           f"{[k for k, c in enumerate(kinds) if c == 'capture']}, the rest replayed")
     launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                "sdf_layers": sdf_layers.LAUNCHES}
+                "sdf_layers": sdf_layers.LAUNCHES, "resize_gemms": resample.LAUNCHES}
+    check(launches["resize_gemms"] > 0, "animated textures: no resize GEMM on the card's route")
     route_frames = {route: [] for route in ANIM_ROUTES}
     k1_frames, k2_frames, sync_by_frame = [], [], {}
     prev = (dict.fromkeys(ANIM_ROUTES, 0), 0, 0, 0)
@@ -1181,6 +1397,10 @@ def animated_timings(dev, frames, stamp):
           f"{frame_device_ms / prof_wall:.0%} {stamp}")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
         print(f"  device {e.device_time_total / 1e3:.4f} ms x{e.count}: {e.key[:100]}")
+    gemms = {e.key: e.device_time_total / 1e3 for e in rows if GEMM_RE.search(e.key)}
+    f32_gemms = [k for k in gemms if F32_GEMM_RE.search(k) or not BF16_GEMM_RE.search(k)]
+    print(f"profile animated textures frame {prof_k}: resize GEMMs {sum(gemms.values()):.4f} ms "
+          f"in {len(gemms)} kernels, {len(f32_gemms)} of them not bf16 {f32_gemms} {stamp}")
     r, _ = start_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, frames, animated_scene)
     prog = r._programs["out"]
     plan_ms = []
@@ -1192,7 +1412,8 @@ def animated_timings(dev, frames, stamp):
     print(f"time animated textures plan() on the host, animating frames: median "
           f"{t_plan:.4f} ms {stamp}")
     return dict(anim_ms=t_anim, stable_ms=t_stable, plan_ms=t_plan, device_ms=frame_device_ms,
-                launches=n_launch, profiled_frame=prof_k, busy=frame_device_ms / prof_wall,
+                gemm_ms=sum(gemms.values()), gemm_kernels=gemms, launches=n_launch,
+                profiled_frame=prof_k, busy=frame_device_ms / prof_wall,
                 capture_frames=sorted(captured), capture_frame_ms=capture_frames)
 
 
@@ -4732,6 +4953,7 @@ def main() -> int:
 
     from smelter_tpu_torch.core.types import FrameSet, Resolution
     from smelter_tpu_torch import interop
+    from smelter_tpu_torch.ops import resample
     from smelter_tpu_torch.ops.hopper import build, scene_assembly, sdf_layers, tile_class, yuv_out
     from smelter_tpu_torch.ops.hopper.scene_assembly import MemberSpec
     from smelter_tpu_torch.parallel.flagship import (
@@ -4815,20 +5037,38 @@ def main() -> int:
     scene_assembly.LAUNCHES = 0
     yuv_out.LAUNCHES = 0
     sdf_layers.LAUNCHES = 0
+    resample.LAUNCHES = 0
     grid_out = interop.planes_to_host(grid_prog(*dev_frames))
     check(scene_assembly.LAUNCHES == 0 and yuv_out.LAUNCHES == 0,
           "the grid scene runs no kernel")
+    gemm_launches = {"grid": resample.LAUNCHES}
+    resample.LAUNCHES = 0
     gen_out = interop.planes_to_host(gen_prog(*dev_frames))
+    gemm_launches["general_4k"] = resample.LAUNCHES
     launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
                 "sdf_layers": sdf_layers.LAUNCHES}
-    print(f"flagship path launches during one general_4k replay: {launches}")
+    print(f"flagship path launches during one general_4k replay: {launches}; resize GEMMs "
+          f"in one replay: {gemm_launches}")
     check(launches["scene_assembly"] == 1, "a general_4k replay did not launch K1 once")
     check(launches["yuv_out"] == 1, "a general_4k replay did not launch K2 once")
+    # the resize GEMMs of one replay of each: bf16 on the tensor cores, none in f32
+    replay_gemms = {}
+    for label, prog in (("grid", grid_prog), ("general_4k", gen_prog)):
+        check(gemm_launches[label] > 0, f"a {label} replay ran no resize GEMM")
+        replay_gemms[label] = check_bf16_gemms(
+            f"one {label} replay", lambda prog=prog: prog(*dev_frames), gemm_launches[label])
     for label, planes in (("grid", grid_out), ("general_4k", gen_out)):
         check_planes(label, planes, OUT_W, OUT_H)
+    site_logs = {}
     for label, fn, prog, replayed in (("grid", grid_fn, grid_prog, grid_out),
                                       ("general_4k", gen_fn, gen_prog, gen_out)):
-        eager = interop.planes_to_host(fn(*dev_frames))
+        n0 = resample.LAUNCHES
+        with GemmSites() as site_logs[label]:
+            eager = interop.planes_to_host(fn(*dev_frames))
+        print(f"{label}: resize sites of one eager frame: {site_logs[label].calls}")
+        check(resample.LAUNCHES - n0 == gemm_launches[label],
+              f"{label}: {gemm_launches[label]} resize GEMMs in a replay, "
+              f"{resample.LAUNCHES - n0} in an eager frame")
         mx = lsb_stats(eager, replayed)[0]
         t_eager, t_replay = cuda_ms(lambda: fn(*dev_frames)), cuda_ms(lambda: prog(*dev_frames))
         builder_stats[label] = dict(eager_ms=t_eager, replay_ms=t_replay,
@@ -4906,7 +5146,10 @@ def main() -> int:
     # phase 7: animated textures, 16 x 1080p (one NV12, one RGBA) -> 4K
     anim_frames = animated_inputs(N_INPUTS, IN_W, IN_H, seed=5)
     t_phase = time.perf_counter()
-    anim_launches, capture_stats["animated textures"] = animated_phase(dev, anim_frames)
+    with GemmSites(eager_only=True) as site_logs["animated"]:
+        anim_launches, capture_stats["animated textures"] = animated_phase(dev, anim_frames)
+    gemm_launches["animated"] = anim_launches.pop("resize_gemms")
+    print(f"animated textures: resize sites of the eager runs: {site_logs['animated'].calls}")
     print(f"animated textures phase: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 8: the pipeline, offline (checked) and in real time (measured)
@@ -5066,6 +5309,14 @@ def main() -> int:
               f"{bound / t:.0%} of bound; full-canvas bound "
               f"{bound_ms(2 * canvas_bytes)[0]:.4f} ms {stamp}")
     k3_main = k3["renderer overlays over general_4k"]
+    # the resize GEMMs at the main path's shapes, both routes; no f32 GEMM in
+    # the replays' profiles (phase 5)
+    renders = {"grid": 1, "general_4k": 1,
+               "animated": capture_stats["animated textures"]["eager_compared"]}
+    resize_rows, f32_names = resize_gemm_rows(site_logs, renders, gemm_launches, stamp)
+    for label, kernels in replay_gemms.items():
+        check(not f32_names & set(kernels),
+              f"one {label} replay ran the plain route's f32 GEMMs {f32_names & set(kernels)}")
     t_grid = cuda_ms(lambda: grid_fn(*dev_frames))
     t_gen = cuda_ms(lambda: gen_fn(*dev_frames))
     print(f"time frame compute only, grid 16x1080p->4K: {t_grid:.4f} ms {stamp}")
@@ -5196,6 +5447,10 @@ def main() -> int:
          "device_ms": k3_main["device_ms"], "bytes": k3_main["bytes"],
          "footprint_px": k3_main["footprint_px"]},
     ]
+    lossy = [k for k in TRACE_LOSSES if k]
+    print(f"profiler traces of phases 5 and 9: {len(TRACE_LOSSES)}, of which {len(lossy)} lost "
+          f"opening records ({sorted(set(lossy))} of {PAD_LAUNCHES}) {stamp}")
+    print(json.dumps({"resize_gemms": resize_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ from smelter_tpu_torch.ops.resample import (
     _dense_axis_weights,
     build_mips,
     device_weights,
-    to_bf16_values,
+    gemm,
+    operand,
 )
 
 # Limited-range footroom/scale: Y in [16, 235], UV in [16, 240] (8-bit).
@@ -153,8 +154,8 @@ def tile_weights(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(Wh, Ww, Wch, Wcw) for `yuv_tile_rgba_cm`: the luma resize matrices and
     the chroma ones composed with the bilinear upsample, rows sliced by the
-    luma crop. Built once per (shapes, crop, size, device) as bf16-rounded
-    f32 device tensors; the Python row loops never run per frame."""
+    luma crop. Built once per (shapes, crop, size, device) as bf16 device
+    tensors; the Python row loops never run per frame."""
     ct, cl, chh, cww = crop
     Wh = _dense_axis_weights(chh, out_h, kind)
     Ww = _dense_axis_weights(cww, out_w, kind)
@@ -165,11 +166,12 @@ def tile_weights(
     return tuple(device_weights(m, device) for m in (Wh, Ww, Wch, Wcw))
 
 
-def _rs(img: torch.Tensor, wr: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+def _rs(img: torch.Tensor, wr: torch.Tensor, wc: torch.Tensor, card: bool) -> torch.Tensor:
     # rows, rounded to bf16 between the axes; columns, kept f32 (the
-    # reference casts the first product only)
-    x = to_bf16_values(torch.matmul(wr, img.to(torch.float32)))
-    return torch.matmul(x, wc.t())
+    # reference casts the first product only); `card`: the GEMM route
+    # (`resample.gemm`), an f32 result on both
+    x = gemm(operand(wr, card), operand(img, card), -2, torch.bfloat16, card)
+    return gemm(operand(wc, card), x, -1, torch.float32, card)
 
 
 def yuv_tile_rgba_cm(
@@ -195,9 +197,10 @@ def yuv_tile_rgba_cm(
     Wh, Ww, Wch, Wcw = tile_weights(
         tuple(y.shape), tuple(u.shape), tuple(crop), out_h, out_w, kind, y.device
     )
-    yt = _rs(y[ct : ct + chh, cl : cl + cww], Wh, Ww) * (1.0 / 255.0)
-    ut = _rs(u, Wch, Wcw) * (1.0 / 255.0)
-    vt = _rs(v, Wch, Wcw) * (1.0 / 255.0)
+    card = y.is_cuda
+    yt = _rs(y[ct : ct + chh, cl : cl + cww], Wh, Ww, card) * (1.0 / 255.0)
+    ut = _rs(u, Wch, Wcw, card) * (1.0 / 255.0)
+    vt = _rs(v, Wch, Wcw, card) * (1.0 / 255.0)
     if not full_range:
         yt = (yt - _FOOTROOM) * (1.0 / _Y_SCALE)
         ut = (ut - _FOOTROOM) * (1.0 / _UV_SCALE)

@@ -194,7 +194,7 @@ def _src_tile_cm(src, crop, out_h: int, out_w: int) -> torch.Tensor:
     img = src[0] if isinstance(src, (list, tuple)) else src
     ct, cl, chh, cww = crop
     patch = img[ct : ct + chh, cl : cl + cww]
-    return resize_matmul(patch.permute(2, 0, 1), out_h, out_w)
+    return resize_matmul(patch.permute(2, 0, 1), out_h, out_w).to(torch.float32)
 
 
 def render_single_layout(

@@ -7,15 +7,25 @@ Port of `smelter_tpu/ops/resample.py` but `resize_lanczos3` and
 of the frame), `box_downsample_2x`, `build_mips`, `resize_bilinear`,
 `sample_bilinear` and `sample_bilinear_mip`. The static
 weight matrices are numpy, copied from the reference line for line so both
-packages build identical matrices; a resize is two `torch.matmul` calls.
+packages build identical matrices; a resize is two GEMMs (`gemm`).
 
-GEMM precision (the reference contract: bf16 operands, f32 accumulation, an
-f32 product, then a bf16 rounding of each axis's result): the operands are
-rounded to bf16 and the product is computed by an f32 GEMM. A bf16 x bf16
-product is exact in f32, so this is the reference contract exactly, on any
-device. `allow_tf32 = False` keeps the f32 GEMM in full f32 on the card, and
-`allow_bf16_reduced_precision_reduction = False` keeps any bf16 GEMM from
-reducing in bf16.
+GEMM precision is the reference's: bf16 operands, f32 accumulation, and
+each product either rounded to bf16 (where the reference casts it) or kept
+in f32. The weight matrices are stored as bf16 tensors. The tensor's
+device picks one of two routes, and nothing else does:
+  - the card (a CUDA tensor): the operands are bf16 tensors (u8 planes
+    convert exactly, f32 textures round to nearest even) and each product
+    is one cuBLAS GEMM on the tensor cores, accumulating in f32, written as
+    bf16 (one round to nearest even of the f32 sum) or, through
+    `aten::mm.dtype`, as f32. `allow_bf16_reduced_precision_reduction =
+    False` keeps split-K partial sums in f32 too. A CUDA tensor takes this
+    route or raises; each GEMM counts one in `LAUNCHES`;
+  - plain (a CPU tensor): the same bf16 values held in f32, each product an
+    f32 GEMM, rounded to bf16 values where the reference casts it.
+    `allow_tf32 = False` keeps an f32 GEMM in full f32 on the card, where
+    `chip_smoke.py` times this route beside the card's.
+A bf16 x bf16 product is exact in f32, so the two routes differ only in
+the order of the f32 sums.
 """
 
 from __future__ import annotations
@@ -27,10 +37,20 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from smelter_tpu_torch.render.capture import device_constant
+from smelter_tpu_torch.render.capture import device_constant, each_run
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+# GEMMs the card route launched since the last reset (the main path's proof
+# that its resizes ran in bf16); a CUDA graph's replays count the GEMMs
+# captured in it
+LAUNCHES = 0
+
+
+def _count() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
 
 
 def _axis_positions(out_size: int, in_size: int) -> np.ndarray:
@@ -111,20 +131,56 @@ def to_bf16_values(x: torch.Tensor) -> torch.Tensor:
 
 
 def device_weights(w: np.ndarray, device) -> torch.Tensor:
-    """A host weight matrix as a bf16-rounded f32 tensor on `device`,
-    uploaded without waiting (`interop.upload`)."""
+    """A host weight matrix as a bf16 tensor (rounded to nearest even) on
+    `device`, uploaded without waiting (`interop.upload`)."""
     from smelter_tpu_torch.interop import upload
 
-    return upload(to_bf16_values(torch.from_numpy(np.ascontiguousarray(w))), device)
+    return upload(torch.from_numpy(np.ascontiguousarray(w)).to(torch.bfloat16), device)
 
 
 @device_constant(maxsize=256)
 def axis_weights(in_size: int, out_size: int, kind: str,
                  device: torch.device) -> torch.Tensor:
-    """`_dense_axis_weights` as a bf16-rounded f32 tensor on `device`, built
-    once per (sizes, kind, device): eager frames must not rerun the Python
-    row loop."""
+    """`_dense_axis_weights` as a bf16 tensor on `device`, built once per
+    (sizes, kind, device): eager frames must not rerun the Python row
+    loop."""
     return device_weights(_dense_axis_weights(in_size, out_size, kind), device)
+
+
+def operand(x: torch.Tensor, card: bool) -> torch.Tensor:
+    """`x` as a GEMM operand of one route: on the card a contiguous bf16
+    tensor (u8 exact, f32 rounded to nearest even), on the plain route the
+    same values held in f32."""
+    if card:
+        return x.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    return to_bf16_values(x.to(torch.float32))
+
+
+def gemm(w: torch.Tensor, x: torch.Tensor, dim: int, out_dtype: torch.dtype,
+         card: bool) -> torch.Tensor:
+    """One axis of a separable resize: the (out, in) weights `w` applied
+    along dim -2 of `x` (the rows: (..., in, W) -> (..., out, W)) or dim -1
+    (the columns: (..., h, in) -> (..., h, out)), both from `operand` of the
+    same route. `out_dtype` is bf16 where the reference casts the product
+    and f32 where it keeps it (only a column product, as the reference
+    keeps only its second). The card writes `out_dtype`; the plain route
+    writes f32, rounded to bf16 values for a bf16 product. A batch is one
+    GEMM: the rows' weights broadcast over it (a batched GEMM), the columns
+    fold it into their rows."""
+    if not card:
+        y = torch.matmul(w, x) if dim == -2 else torch.matmul(x, w.t())
+        return to_bf16_values(y) if out_dtype == torch.bfloat16 else y
+    if w.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+        raise TypeError(f"the card's resize GEMM takes bf16 operands, got {w.dtype} "
+                        f"and {x.dtype}")
+    if out_dtype != torch.bfloat16 and (dim != -1 or out_dtype != torch.float32):
+        raise ValueError(f"a {out_dtype} product along dim {dim}: only a column "
+                         f"product is kept in f32")
+    each_run(_count)
+    if out_dtype == torch.bfloat16:
+        return torch.matmul(w, x) if dim == -2 else torch.matmul(x, w.t())
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 def resize_matmul(
@@ -133,17 +189,22 @@ def resize_matmul(
     """Separable resize as two GEMMs. ``img``: (..., H, W) — leading batch
     dims allowed; resizes the last two axes. u8 inputs are exact in bf16;
     accumulation is f32, and each axis's result rounds to bf16 (the
-    intermediate between the axes included). Returns bf16-valued f32."""
+    intermediate between the axes included). Returns bf16 on the card and
+    bf16-valued f32 on the CPU."""
+    return _resize_matmul(img, out_h, out_w, kind, img.is_cuda)
+
+
+def _resize_matmul(img, out_h: int, out_w: int, kind: str, card: bool) -> torch.Tensor:
     in_h, in_w = img.shape[-2], img.shape[-1]
-    x = to_bf16_values(img.to(torch.float32))
+    x = operand(img, card)
     if in_h != out_h:
-        wh = axis_weights(in_h, out_h, kind, img.device)
+        wh = operand(axis_weights(in_h, out_h, kind, img.device), card)
         # (out_h, H) x (..., H, W) -> (..., out_h, W)
-        x = to_bf16_values(torch.matmul(wh, x))
+        x = gemm(wh, x, -2, torch.bfloat16, card)
     if in_w != out_w:
-        ww = axis_weights(in_w, out_w, kind, img.device)
+        ww = operand(axis_weights(in_w, out_w, kind, img.device), card)
         # (..., h, W) x (W, out_w) -> (..., h, out_w)
-        x = to_bf16_values(torch.matmul(x, ww.t()))
+        x = gemm(ww, x, -1, torch.bfloat16, card)
     return x
 
 
@@ -151,7 +212,7 @@ def _traced_axis_weights(in_size: int, buf: int, out_sz: torch.Tensor, c0, c_len
                          centered: bool) -> torch.Tensor:
     """(buf, in_size) triangle-kernel weights of one axis, from the size and
     crop of this frame (0-d f32 tensors, or Python numbers for the crop),
-    on the device; bf16-rounded f32."""
+    built in f32 on the device and rounded to bf16."""
     dev = out_sz.device
     out_sz = torch.clamp(out_sz.to(torch.float32), min=1.0)
     o = (torch.arange(buf, dtype=torch.float32, device=dev) + 0.5)[:, None]
@@ -163,7 +224,7 @@ def _traced_axis_weights(in_size: int, buf: int, out_sz: torch.Tensor, c0, c_len
     wgt = torch.clamp(1.0 - torch.abs(pos - i) / width, min=0.0)
     wgt = wgt * ((o - 0.5 >= off) & (o - 0.5 < off + out_sz))
     norm = torch.clamp(wgt.sum(dim=1, keepdim=True), min=1e-6)
-    return to_bf16_values(wgt / norm)
+    return (wgt / norm).to(torch.bfloat16)
 
 
 def resize_matmul_traced(
@@ -187,17 +248,23 @@ def resize_matmul_traced(
     into the weights. ``centered=True`` writes the content centered in the
     buffer instead of top-left (a rotation about the buffer center
     follows). Rounding as the reference: bf16 weights and input, the first
-    product rounded to bf16, the second kept f32."""
+    product rounded to bf16, the second kept f32 (an f32 result on both
+    routes)."""
+    return _resize_matmul_traced(img, buf_h, buf_w, out_h, out_w, crop, centered,
+                                 img.is_cuda)
+
+
+def _resize_matmul_traced(img, buf_h: int, buf_w: int, out_h, out_w, crop, centered: bool,
+                          card: bool) -> torch.Tensor:
     in_h, in_w = img.shape[-2], img.shape[-1]
     if crop is None:
         ct, cl, cw, chh = 0.0, 0.0, float(in_w), float(in_h)
     else:
         ct, cl, cw, chh = crop
-    wh = _traced_axis_weights(in_h, buf_h, out_h, ct, chh, centered)
-    ww = _traced_axis_weights(in_w, buf_w, out_w, cl, cw, centered)
-    x = to_bf16_values(img.to(torch.float32))
-    x = to_bf16_values(torch.matmul(wh, x))
-    return torch.matmul(x, ww.t())
+    wh = operand(_traced_axis_weights(in_h, buf_h, out_h, ct, chh, centered), card)
+    ww = operand(_traced_axis_weights(in_w, buf_w, out_w, cl, cw, centered), card)
+    x = gemm(wh, operand(img, card), -2, torch.bfloat16, card)
+    return gemm(ww, x, -1, torch.float32, card)
 
 
 @device_constant(maxsize=64)

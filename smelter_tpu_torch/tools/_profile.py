@@ -40,13 +40,17 @@ with or without the margin).
 On the CPU (`device="cpu"`) the device is the CPU: a frame's activity is
 the top-level operators its call ran, and their names stand for kernels.
 A trace that holds no device activity for a frame raises: there is no
-switch to wall time.
+switch to wall time. On a CUDA device it first prints to stderr the
+trace's records around that frame (`records_around`): the markers of the
+frames beside it, on the host and on the card, and the card's records
+between them, so that a run where it happens leaves the evidence.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import sys
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -116,12 +120,15 @@ class FrameProfile:
             time.sleep(QUIET_S)
         self._prof.__exit__(*exc)
         if exc[0] is None:
+            raw = self._prof.profiler.kineto_results.events() if self._cuda else None
             if self._cuda:
-                self._frames = device_activity_by_frame(self._prof.profiler.kineto_results.events())
+                self._frames = device_activity_by_frame(raw)
             else:
                 self._frames = self._read_cpu(self._prof.events())
             for k, acts in enumerate(self._frames):
                 if not acts:
+                    if self._cuda:
+                        print(records_around(raw, k), file=sys.stderr)
                     raise RuntimeError(f"the profiler trace holds no activity on {self.device} "
                                        f"for frame {k} of {len(self._frames)}")
         return False
@@ -210,3 +217,41 @@ def device_activity_by_frame(raw) -> List[List[tuple]]:
         if i >= 0 and r.end_ns() <= order[i][1]:
             frames[order[i][2]].append((r.name(), r.start_ns() / 1e3, r.end_ns() / 1e3))
     return frames
+
+
+def records_around(raw, k: int, limit: int = 80) -> str:
+    """The records of a CUDA trace's raw events around frame `k` (in the
+    order of the frame markers), as text: the host marker and the card's
+    ranges of frames k - 1 to k + 1, then every record on the card (host
+    copies and markers' ranges included) that starts between the first of
+    those times and the last, at most `limit` (the first and last halves).
+    Times are ns from the host marker of frame k."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    markers = sorted((r for r in raw if r.name() == FRAME and r.device_type() == cpu),
+                     key=lambda r: r.start_ns())
+    near = {m.correlation_id(): j for j, m in enumerate(markers) if abs(j - k) <= 1}
+    t0 = markers[k].start_ns()
+    lines = [f"profiler trace around frame {k} of {len(markers)} (ns from its host marker):"]
+    times = []
+    for j in sorted(set(near.values())):
+        m = markers[j]
+        card = sorted((r.start_ns(), r.end_ns()) for r in raw
+                      if r.name() == FRAME and r.device_type() == cuda
+                      and r.correlation_id() == m.correlation_id())
+        times += [m.start_ns(), m.end_ns()] + [t for se in card for t in se]
+        lines.append(f"  frame {j}: host {m.start_ns() - t0}..{m.end_ns() - t0}, card "
+                     + (", ".join(f"{s - t0}..{e - t0}" for s, e in card) or "none"))
+    lo, hi = min(times), max(times)
+    recs = sorted((r for r in raw if r.device_type() == cuda and lo <= r.start_ns() <= hi),
+                  key=lambda r: r.start_ns())
+    lines.append(f"  {len(recs)} records on the card from {lo - t0} to {hi - t0}:")
+    shown = recs if len(recs) <= limit else recs[:limit // 2] + [None] + recs[-(limit // 2):]
+    for r in shown:
+        if r is None:
+            lines.append(f"    ... {len(recs) - 2 * (limit // 2)} more")
+            continue
+        frame = near.get(r.correlation_id())
+        lines.append(f"    {r.start_ns() - t0}..{r.end_ns() - t0} {r.name()} "
+                     f"(correlation {r.correlation_id()}"
+                     + (f", marker of frame {frame})" if frame is not None else ")"))
+    return "\n".join(lines)

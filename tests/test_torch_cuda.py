@@ -587,3 +587,126 @@ def test_grid_step_on_a_1x1_nccl_mesh(cuda):
     ref = fn(*(torch.from_numpy(p).to(cuda) for p in inputs))
     for name, a, b in zip("yuv", ref, got):
         assert torch.equal(a, b), name
+
+
+# ------------------------------------------------------------- resize GEMMs
+# Each resize site's card route (bf16 operands on the tensor cores, f32
+# accumulation, `resample.gemm`) against its plain route (f32 GEMMs on the
+# same bf16 values) on the card, within `chip_smoke.parity_vs_cpu`'s gate:
+# <= 2 u8 LSB, and fewer than 0.01% of the values at 2 (a sum of another
+# order can land on the other side of a bf16 tie between the axes). Sizes
+# odd and cropped as well as the main path's.
+
+
+def _resize_sites(dev):
+    """name -> (card route's call, plain route's call, dtype the card
+    returns, GEMMs a call, the site's own u8 rounding)."""
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops import resample as rs
+    from smelter_tpu_torch.parallel.flagship import _round_u8
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    def f32(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def tile(y, u, v, crop, oh, ow):
+        # what `yuv_tile_rgba_cm` runs: its weights, its three `_rs` calls
+        w = cc.tile_weights(tuple(y.shape), tuple(u.shape), crop, oh, ow, "lanczos3", dev)
+        ct, cl, chh, cww = crop
+
+        def run(card):
+            return torch.stack([cc._rs(y[ct:ct + chh, cl:cl + cww], w[0], w[1], card),
+                                cc._rs(u, w[2], w[3], card), cc._rs(v, w[2], w[3], card)])
+        return run
+
+    def traced(img, bh, bw, oh, ow, crop, centered):
+        args = (img, bh, bw, torch.tensor(oh, device=dev), torch.tensor(ow, device=dev),
+                tuple(torch.tensor(c, device=dev) for c in crop), centered)
+        return lambda card: rs._resize_matmul_traced(*args, card)
+
+    def static(img, oh, ow):
+        return lambda card: rs._resize_matmul(img, oh, ow, "lanczos3", card)
+
+    patch = f32(270, 511, 4)[7:207, 13:313].permute(2, 0, 1)  # compose._src_tile_cm
+    as_u8 = lambda x: cc.f32_to_u8(x.to(torch.float32))  # noqa: E731
+    sites = {
+        "grid luma 4x1080x1920->540x960": (static(u8(4, 1080, 1920), 540, 960),
+                                           torch.bfloat16, 2, _round_u8),
+        "grid chroma 4x540x960->270x480": (static(u8(4, 540, 960), 270, 480),
+                                           torch.bfloat16, 2, _round_u8),
+        "grid odd 3x270x511->135x255": (static(u8(3, 270, 511), 135, 255),
+                                        torch.bfloat16, 2, _round_u8),
+        "patch 4x200x300->150x221": (static(patch, 150, 221), torch.bfloat16, 2, as_u8),
+        "tile cropped 270x510->156x277": (
+            tile(u8(270, 510), u8(135, 255), u8(135, 255), (3, 5, 250, 480), 156, 277),
+            torch.float32, 6, _round_u8),
+        "tile 1080x1920->540x960": (
+            tile(u8(1080, 1920), u8(540, 960), u8(540, 960), (0, 0, 1080, 1920), 540, 960),
+            torch.float32, 6, _round_u8),
+        "traced 4x270x511->192x320": (
+            traced(f32(4, 270, 511), 192, 320, 150.3, 290.7, (3.5, 7.25, 480.0, 250.0), False),
+            torch.float32, 2, as_u8),
+        "traced centered 4x270x511->192x320": (
+            traced(f32(4, 270, 511), 192, 320, 101.0, 170.4, (0.0, 0.0, 511.0, 270.0), True),
+            torch.float32, 2, as_u8),
+    }
+    return {name: (lambda f=f: f(True), lambda f=f: f(False), dt, n, rnd)
+            for name, (f, dt, n, rnd) in sites.items()}
+
+
+SITE_NAMES = ["grid luma 4x1080x1920->540x960", "grid chroma 4x540x960->270x480",
+              "grid odd 3x270x511->135x255", "patch 4x200x300->150x221",
+              "tile cropped 270x510->156x277", "tile 1080x1920->540x960",
+              "traced 4x270x511->192x320", "traced centered 4x270x511->192x320"]
+
+
+@pytest.mark.parametrize("site", SITE_NAMES)
+def test_resize_gemm_card_route_matches_the_plain_route(cuda, site):
+    from smelter_tpu_torch.ops import resample as rs
+
+    card, plain, dtype, n_gemms, to_u8 = _resize_sites(cuda)[site]
+    before = rs.LAUNCHES
+    got = card()
+    assert rs.LAUNCHES == before + n_gemms
+    want = plain()
+    assert rs.LAUNCHES == before + n_gemms  # the plain route counts nothing
+    assert got.dtype == dtype and want.dtype == torch.float32
+    assert got.shape == want.shape
+    d = (to_u8(got).to(torch.int32) - to_u8(want).to(torch.int32)).abs()
+    mx, n_gt1 = int(d.max()), int((d > 1).sum())
+    print(f"{site}: max {mx} LSB, {int((d > 0).sum())} of {d.numel()} values differ, "
+          f"{n_gt1} by 2+")
+    assert mx <= 2 and n_gt1 * 10000 < d.numel()
+
+
+def test_resize_gemms_replay_bit_equal_in_a_graph(cuda):
+    """Every site's card route captured in one CUDA graph and replayed:
+    bit-equal to the same calls run eagerly, and counted on each replay."""
+    from smelter_tpu_torch.ops import resample as rs
+    from smelter_tpu_torch.render.capture import capture
+
+    sites = _resize_sites(cuda)
+    calls = [sites[name][0] for name in SITE_NAMES]
+
+    def fn(x):
+        return [call() + x for call in calls]
+
+    prog, _ = capture(fn, (torch.zeros((), device=cuda),), cuda)
+    before = rs.LAUNCHES
+    got = prog(torch.zeros((), device=cuda))
+    assert rs.LAUNCHES == before + sum(sites[name][3] for name in SITE_NAMES)
+    want = fn(torch.zeros((), device=cuda))
+    for name, a, b in zip(SITE_NAMES, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def test_the_card_route_raises_on_f32_operands(cuda):
+    from smelter_tpu_torch.ops import resample as rs
+
+    w = torch.ones((3, 5), device=cuda)
+    with pytest.raises(TypeError, match="bf16 operands"):
+        rs.gemm(w, torch.ones((5, 4), device=cuda), -2, torch.bfloat16, True)

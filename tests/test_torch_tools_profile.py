@@ -104,3 +104,44 @@ def test_a_frame_with_no_device_activity_raises(monkeypatch):
         fp.__exit__(None, None, None)
     # the card is idle for QUIET_S before the trace stops
     assert waits == ["sync", _profile.QUIET_S]
+
+
+def test_an_empty_frame_prints_the_records_around_it(monkeypatch, capsys):
+    """Before it raises, the reader prints the markers of frames 0-2 on the
+    host and the card and the card's records between them: the kernels the
+    other frames hold, the one between two frames and the host copy of the
+    empty frame."""
+    raw = [r for r in trace() if r.name() != "kernel_1"]
+
+    class Prof:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return raw
+
+        @staticmethod
+        def __exit__(*exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device: None)
+    monkeypatch.setattr(_profile.time, "sleep", lambda s: None)
+    fp = FrameProfile("cpu")
+    fp._cuda, fp._prof = True, Prof()
+    with pytest.raises(RuntimeError, match="no activity on cpu for frame 1 of 3"):
+        fp.__exit__(None, None, None)
+    err = capsys.readouterr().err
+    assert "profiler trace around frame 1 of 3" in err
+    assert "frame 0: host -10000..-1000, card -8000..-5000" in err
+    assert "frame 1: host 0..9000, card 2000..2800, 3000..5000" in err
+    for name in ("kernel_0", "kernel_between", "kernel_2", "Memcpy HtoD"):
+        assert name in err
+    assert "(correlation 11, marker of frame 1)" in err
+
+
+def test_records_around_keeps_the_first_and_last_records():
+    text = _profile.records_around(trace(), 1, limit=4)
+    lines = text.splitlines()
+    assert "    ... 7 more" in lines
+    assert lines[1] == "  frame 0: host -10000..-1000, card -8000..-5000"
+    assert lines[-1] == "    13000..15000 kernel_2 (correlation 902)"
