@@ -27,11 +27,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      layers all off the canvas (which must stay bit-identical): max abs err
      0 on the f32 canvas (both kernels repeat their plain version's
      operations);
+  4b. holds kernel K4 (group blend) and kernel K5 (row shear) against their
+     plain versions on the card, bit for bit (`group_kernel_phase`): every
+     group and shear of one eager general_4k frame at 16 x 1080p -> 4K, each
+     group on the f32, u16, f16 and bf16 canvas; the groups and shears of a
+     renderer frame of the 4K golden `res4k_general_rotated` (its bordered
+     tile rotated -15 degrees); the edge cases at 511 x 257 (every member
+     kind under masks, a union clipped at the canvas edge, a tile partly off
+     its union, all in one group, 33 members split over two launches on f32
+     and refused on u16) and K5 at 30, -15, 45 and 120 degrees, on strided
+     inputs, and the shears that need no pass; 30 s budget, recorded;
   5. drives the flagship builders, 16 x 1080p YUV420 -> one 4K YUV420 frame
      (the Tiles grid, then general_4k), each captured into a CUDA graph
      (`render.capture.capture`, as the reference jits them) and replayed;
      checks shapes and dtypes, that a general_4k replay launched K1 and K2
-     once each, that each replay equals the eager function bit for bit, and
+     once each, K4 once per group and K5 six times (the grid none), that
+     each replay equals the eager function bit for bit, and
      that the card's frames match the port run on the CPU; that one replay
      of each ran its resize GEMMs (`ops/resample.gemm`) with bf16 operands
      on the tensor cores and none in f32 (cuBLAS's kernel names in
@@ -103,7 +114,10 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      in phase 5 (and no replay of phase 5 ran a kernel of the plain route),
      the output dtype (bf16 where the reference casts, f32 where it keeps)
      and the bound (bytes at 3.35 TB/s, or operations at the bf16 tensor
-     cores' 989 TFLOP/s), printed as `{"resize_gemms": [...]}`;
+     cores' 989 TFLOP/s), printed as `{"resize_gemms": [...]}`; and K4 and K5
+     on phase 4b's general_4k frame (all of its launches back to back, the
+     device time a launch, the plain versions, the bounds from this run's
+     bytes; K4 on each 16-bit canvas too);
   11. drives the live pipeline (so the renderer's background capture),
      16 x 1080p -> 4K, `renderer_scene` replaced mid-stream by a scene of
      another structure (`marked_scene`, a green bar over the grid): checks
@@ -241,7 +255,8 @@ animated-texture numbers, a JSON line of the pipeline's numbers
 phase (`{"nodes": ...}`), a JSON line of the captured programs of every
 phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
-JSON line of the kernels (`launches` from the pipeline's offline 4K run,
+JSON line of the kernels (K1-K5; `launches` from the pipeline's offline
+4K run for K1-K3 and from one general_4k replay for K4 and K5,
 each path's counts under `launches_by_path`, the nodes, multichip,
 bench, tools and soak phases' included, the tools' and the A/B tools' per tool;
 K1's and K2's 16-bit times, bounds and launches per replay under
@@ -303,6 +318,35 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+KERNEL_NAMES = ("scene_assembly", "yuv_out", "sdf_layers", "group_blend", "row_shear")
+
+
+def kernel_modules():
+    """{name: wrapper module} of the port's kernels, K1-K5, each with its
+    `LAUNCHES` count."""
+    from smelter_tpu_torch.ops.hopper import (
+        group_blend,
+        row_shear,
+        scene_assembly,
+        sdf_layers,
+        yuv_out,
+    )
+
+    mods = (scene_assembly, yuv_out, sdf_layers, group_blend, row_shear)
+    return dict(zip(KERNEL_NAMES, mods))
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for mod in kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    """{kernel: launches counted since the last `zero_launches`}."""
+    return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
 
 
 def nvidia_smi() -> str:
@@ -681,6 +725,274 @@ def k1_checks(sa, cases):
         check(err == 0.0, f"K1 {name}: f32 canvas off by {err}")
         worst = max(worst, err)
     return worst
+
+
+# kernels K4 (group_blend) and K5 (row_shear) against their plain versions
+# on the card (phase 4b): the groups and shears of one general_4k frame and
+# of a renderer frame, and the edge cases; 30 s budget, recorded
+GROUP_BUDGET_S = 30.0
+GROUP_CEILING_S = 120.0  # the run fails past it
+GROUP_STORAGE = ("float32", "uint16", "float16", "bfloat16")
+# general_4k at 16 x 1080p -> 4K: its texture groups (one K4 launch each) and
+# the shears of its two statically rotated tiles (three K5 launches each)
+GENERAL_GROUPS = 16
+GENERAL_SHEARS = 6
+
+
+class GroupLog:
+    """While installed (a `with` block), records what K4's and K5's wrappers
+    (`group_blend.blend_group`, `row_shear.shear`) are handed outside a CUDA
+    graph's capture: per group a copy of the canvas before it, its members,
+    union and canvas size; per shear its input, k and axis."""
+
+    def __init__(self):
+        self.groups, self.shears = [], []
+
+    def __enter__(self):
+        import torch
+
+        from smelter_tpu_torch.ops.hopper import group_blend, row_shear
+
+        self._orig = blend, shear = group_blend.blend_group, row_shear.shear
+
+        def logged_blend(canvas, members, union, h, w):
+            if not torch.cuda.is_current_stream_capturing():
+                self.groups.append((canvas.clone(), list(members), union, h, w))
+            return blend(canvas, members, union, h, w)
+
+        def logged_shear(img, k, axis):
+            if not torch.cuda.is_current_stream_capturing():
+                self.shears.append((img, k, axis))
+            return shear(img, k, axis)
+
+        group_blend.blend_group, row_shear.shear = logged_blend, logged_shear
+        return self
+
+    def __exit__(self, *exc):
+        from smelter_tpu_torch.ops.hopper import group_blend, row_shear
+
+        group_blend.blend_group, row_shear.shear = self._orig
+        return False
+
+
+def _f32_err(got, want) -> float:
+    """max |got - want| of two f32 tensors, NaN against NaN counting 0."""
+    import torch
+
+    d = (got - want).abs()
+    d = torch.where(torch.isnan(got) & torch.isnan(want), 0.0, d)
+    return float(torch.nan_to_num(d, nan=float("inf")).max()) if d.numel() else 0.0
+
+
+def k4_checks(label, groups, storages=GROUP_STORAGE):
+    """K4 against its plain version on the card: each recorded group's canvas
+    (decoded, then stored in each storage) blended by the kernel (in place)
+    and by the plain version must hold the same bits, a NaN matching any
+    NaN. Returns the max abs err on the f32 canvas."""
+    import torch
+
+    from smelter_tpu_torch.ops.color_convert import canvas_decode
+    from smelter_tpu_torch.ops.compose import _canvas_encode
+    from smelter_tpu_torch.ops.hopper import group_blend
+
+    worst = 0.0
+    for name in storages:
+        dt = _storage_dtype(name)
+        differ, values = 0, 0
+        for canvas, members, union, h, w in groups:
+            base = _canvas_encode(canvas_decode(canvas), dt)
+            got = group_blend._launch(base.clone(), members, union)
+            want = group_blend.blend_group_plain(base.clone(), members, union, h, w)
+            torch.cuda.synchronize()
+            differ += _bits_differ(got, want)
+            values += got.numel()
+            if dt == torch.float32:
+                worst = max(worst, _f32_err(got, want))
+        print(f"K4 vs plain, {label}, {name} canvas ({len(groups)} groups, "
+              f"{sum(len(g[1]) for g in groups)} members): {differ} of {values} values differ")
+        check(differ == 0, f"K4 {label} {name}: {differ} values differ from the plain version")
+    return worst
+
+
+def k5_checks(label, shears):
+    """K5 against its plain version (the barrel shifter) on the card, per
+    recorded shear: bit-equal. Returns the max abs err."""
+    import torch
+
+    from smelter_tpu_torch.ops.hopper import row_shear
+
+    worst, differ = 0.0, 0
+    for img, k, axis in shears:
+        got = row_shear._launch(img, k, axis)
+        want = row_shear.shear_plain(img, k, axis).contiguous()
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"K5 {label}: shape {tuple(got.shape)} != "
+                                       f"{tuple(want.shape)}")
+        differ += _bits_differ(got, want)
+        worst = max(worst, _f32_err(got, want))
+    print(f"K5 vs plain, {label}: {len(shears)} shears "
+          f"{[(tuple(i.shape), round(k, 4), a) for i, k, a in shears][:8]}, {differ} values "
+          f"differ")
+    check(differ == 0, f"K5 {label}: {differ} values differ from the plain version")
+    return worst
+
+
+def k4_edge_groups(dev):
+    """The edge cases of K4 at 511 x 257, each a group built through
+    `compose._group_member` from sources on the card: a bordered YUV tile
+    under two masks (the second rotated), an RGBA tile under one, a bordered
+    tile rotated 30 degrees under two masks (K5), colour and box-shadow
+    layers with masks, a tile clipped at the canvas edge, a tile partly off
+    its union, and all of them in one group. Returns ([(canvas, members,
+    union, h, w)], a group of 33 members)."""
+    import torch
+
+    from smelter_tpu_torch import interop
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops import compose
+
+    h, w = 257, 511
+    gen = torch.Generator(device=dev).manual_seed(44)
+    y = torch.randint(0, 256, (270, 480), generator=gen, device=dev, dtype=torch.uint8)
+    u = torch.randint(0, 256, (135, 240), generator=gen, device=dev, dtype=torch.uint8)
+    v = torch.randint(0, 256, (135, 240), generator=gen, device=dev, dtype=torch.uint8)
+    rgba = torch.rand((200, 300, 4), generator=gen, device=dev)
+    sources = [cc.DeferredYuvSource(y, u, v), [rgba]]
+    masks2 = [[8, 8, 8, 8, 12, 24, 400, 160, 0.0], [14, 14, 14, 14, 30, 100, 300, 150, 0.4]]
+
+    def member(content, rect, src=0, crop=(0, 0, 270, 480), masks=(), border=False,
+               rotation=None, blur=0.0, color=(0, 0, 0, 0)):
+        top, left, hh, ww = rect
+        st = compose.LayoutStatic(
+            content=content, source_index=src if content == "texture" else -1,
+            n_masks=len(masks), rotated_masks=tuple(i == 1 for i in range(len(masks))),
+            has_rotation=rotation is not None, has_border=border, static_rect=rect,
+            static_crop=crop if content == "texture" else None, static_blur=blur,
+            static_rotation=rotation)
+        p = interop.layout_params(dict(
+            top=top, left=left, width=ww, height=hh, rotation_degrees=rotation or 0.0,
+            border_radius=(10, 14, 6, 12), border_width=3.5 if border else 0.0,
+            border_color=(1.0, 0.9, 0.7, 0.85), color=color, crop=(0, 0, 0, 0),
+            blur_radius=blur, masks=list(masks) or [[0.0] * 9]), dev)
+        return st, p
+
+    named = {
+        "yuv tile, border, two masks": member("texture", (20, 30, 120, 200), masks=masks2,
+                                              border=True),
+        "rgba tile, one mask": member("texture", (60, 250, 150, 220), src=1,
+                                      crop=(10, 20, 180, 260), masks=masks2[:1]),
+        "rotated 30, border, two masks": member("texture", (70, 120, 100, 180), masks=masks2,
+                                               border=True, rotation=30.0),
+        "colour, masks": member("color", (10, 300, 80, 150), masks=masks2, border=True,
+                                rotation=12.0, color=(0.8, 0.3, 0.2, 0.9)),
+        "shadow, masks": member("box_shadow", (100, 40, 90, 160), masks=masks2, blur=14.0,
+                                color=(0, 0, 0, 0.6)),
+        "clipped at the canvas edge": member("texture", (200, 420, 120, 200), border=True),
+        "partly off its union": member("texture", (20, 30, 120, 200), border=True),
+    }
+    unions = {"clipped at the canvas edge": (192, 384, 65, 127),
+              "partly off its union": (40, 0, 40, 256)}
+    canvas = torch.rand((4, h, w), generator=gen, device=dev)
+    canvas[:3] *= canvas[3:4]
+    groups = []
+    for name, (st, p) in named.items():
+        union = unions.get(name, (0, 0, h, w))
+        members = [compose._group_member(st, p, sources, union)]
+        groups.append((canvas.clone(), members, union, h, w))
+    all_members = [compose._group_member(st, p, sources, (0, 0, h, w))
+                   for st, p in named.values()]
+    groups.append((canvas.clone(), all_members, (0, 0, h, w), h, w))
+    many = (canvas.clone(), (all_members * 5)[:33], (0, 0, h, w), h, w)
+    return groups, many
+
+
+def group_kernel_phase(dev, gen_fn, dev_frames, stamp):
+    """Phase 4b: K4 and K5 bit-equal to their plain versions on the card, on
+    every group and shear of one eager general_4k frame at 16 x 1080p -> 4K
+    (each group on the f32, u16, f16 and bf16 canvas), on the groups and
+    shears of a renderer frame of the 4K golden `res4k_general_rotated`
+    (its bordered tile rotated -15 degrees), and on the edge cases
+    (`k4_edge_groups`: f32 and each 16-bit canvas; a group of 33 members
+    split across launches on f32 and refused on u16; K5 on shears at 30,
+    -15, 45 and 120 degrees of a 480 x 853 tile, a transposed (strided)
+    input, one too small to matter and one that moves every row out).
+    Returns (groups and shears of one general_4k frame, numbers)."""
+    import torch
+
+    from smelter_tpu_torch.core.types import FrameSet, PixelFormat, Resolution
+    from smelter_tpu_torch.ops import rotate
+    from smelter_tpu_torch.ops.hopper import group_blend, row_shear
+    from smelter_tpu_torch.render.renderer import Renderer
+
+    t_phase = time.perf_counter()
+    with GroupLog() as gen_log:
+        gen_fn(*dev_frames)
+    torch.cuda.synchronize()
+    n_groups, n_shears = len(gen_log.groups), len(gen_log.shears)
+    kinds = [[m.kind for m in g[1]] for g in gen_log.groups]
+    print(f"general_4k eager frame: {n_groups} groups {kinds}, {n_shears} shears")
+    check(n_groups == GENERAL_GROUPS and n_shears == GENERAL_SHEARS,
+          f"general_4k: {n_groups} groups and {n_shears} shears, not {GENERAL_GROUPS} and "
+          f"{GENERAL_SHEARS}")
+    err4 = k4_checks("general_4k frame", gen_log.groups)
+    err5 = k5_checks("general_4k frame", gen_log.shears)
+
+    # a renderer frame with a bordered rotated tile (captured: its warm-up
+    # runs the groups eagerly)
+    n, scene = golden_scene("res4k_general_rotated")
+    r = Renderer(device=dev)
+    try:
+        for i in range(n):
+            r.register_input(f"input_{i}")
+        r.update_scene("out", scene, Resolution(OUT_W, OUT_H), PixelFormat.PLANAR_YUV420)
+        frames = {f"input_{i}": golden_input(i) for i in range(n)}
+        with GroupLog() as render_log:
+            r.render(FrameSet(pts=0.0, frames=frames))
+    finally:
+        r.close()
+    bordered_rotated = [m for g in render_log.groups for m in g[1]
+                        if m.kind == "placed" and m.static.has_border
+                        and m.static.static_rotation]
+    check(bordered_rotated and render_log.shears,
+          "the renderer frame of res4k_general_rotated blended no bordered rotated tile")
+    err4 = max(err4, k4_checks("renderer frame (res4k_general_rotated)", render_log.groups))
+    err5 = max(err5, k5_checks("renderer frame (res4k_general_rotated)", render_log.shears))
+    del render_log
+
+    groups, many = k4_edge_groups(dev)
+    err4 = max(err4, k4_checks("edge cases 511x257", groups))
+    err4 = max(err4, k4_checks("33 members on f32 (two launches)", [many], ("float32",)))
+    before = group_blend.LAUNCHES
+    canvas, members, union, _, _ = many
+    group_blend._launch(canvas.clone(), members, union)
+    check(group_blend.LAUNCHES == before + 2, "33 members on f32 did not take two launches")
+    try:
+        group_blend._launch(canvas.to(torch.uint16), members, union)
+    except ValueError as exc:
+        print(f"K4 refuses 33 members on a u16 canvas: {exc}")
+    else:
+        check(False, "K4 split a group of 33 members on a u16 canvas")
+
+    gen = torch.Generator(device=dev).manual_seed(55)
+    tile = torch.rand((4, 480, 853), generator=gen, device=dev)
+    with GroupLog() as rot_log:
+        for theta in (30.0, -15.0, 45.0, 120.0):
+            bh, bw = rotate.rotated_bbox(theta, 480, 853)
+            rotate.rotate_static_cm(tile, theta, bh, bw)
+    shears = rot_log.shears + [(tile.transpose(-2, -1), 0.3, -1), (tile[:, ::2], -0.2, -2)]
+    err5 = max(err5, k5_checks("rotations 30, -15, 45, 120 and strided inputs", shears))
+    before = row_shear.LAUNCHES
+    small = torch.rand((4, 40, 6), generator=gen, device=dev)
+    check(row_shear.shear(small, 1e-13, -1) is small, "K5: a shear of 1e-13 is not the input")
+    check(not bool(row_shear.shear(small, 0.9, -1).any()),
+          "K5: a shear moving every row out is not zero")
+    check(row_shear.LAUNCHES == before, "K5 launched for a shear that needs no pass")
+    seconds = time.perf_counter() - t_phase
+    print(f"K4/K5 checks: {seconds:.1f} s (budget {GROUP_BUDGET_S:.0f} s) {stamp}")
+    check(seconds < GROUP_CEILING_S, f"K4/K5 checks took {seconds:.1f} s, past "
+                                     f"{GROUP_CEILING_S:.0f} s")
+    return gen_log, dict(k4_max_abs_err=err4, k5_max_abs_err=err5, groups=n_groups,
+                         shears=n_shears, seconds=seconds)
 
 
 def host_frames(n, in_w, in_h, seed=0):
@@ -1097,7 +1409,7 @@ class EagerCheck:
         from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
         from smelter_tpu_torch.render.capture import _map_tensors
 
-        mods = (scene_assembly, sdf_layers, yuv_out, resample)
+        mods = (*kernel_modules().values(), resample)
         counts = [m.LAUNCHES for m in mods]
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("default")
@@ -1286,9 +1598,7 @@ def animated_phase(dev, frames):
         per_frame.append((k, dict(counter.calls), scene_assembly.LAUNCHES,
                           yuv_out.LAUNCHES, len(syncs)))
 
-    scene_assembly.LAUNCHES = 0
-    yuv_out.LAUNCHES = 0
-    sdf_layers.LAUNCHES = 0
+    zero_launches()
     resample.LAUNCHES = 0
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs, counter, \
@@ -1301,8 +1611,7 @@ def animated_phase(dev, frames):
     kinds = [kind for _, _, kind in eager.renders]
     print(f"animated textures: frames captured "
           f"{[k for k, c in enumerate(kinds) if c == 'capture']}, the rest replayed")
-    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                "sdf_layers": sdf_layers.LAUNCHES, "resize_gemms": resample.LAUNCHES}
+    launches = {**launch_counts(), "resize_gemms": resample.LAUNCHES}
     check(launches["resize_gemms"] > 0, "animated textures: no resize GEMM on the card's route")
     route_frames = {route: [] for route in ANIM_ROUTES}
     k1_frames, k2_frames, sync_by_frame = [], [], {}
@@ -1727,14 +2036,13 @@ def pipeline_phase(dev):
 
     from smelter_tpu_torch.ops.hopper import scene_assembly, sdf_layers, yuv_out
 
-    scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     with EagerCheck("pipeline offline") as eager:
         run = pipeline_offline(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, capture_syncs=True)
     wall = time.perf_counter() - t0
     stats = eager.report()
-    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                "sdf_layers": sdf_layers.LAUNCHES}
+    launches = launch_counts()
     frames, log = run["frames"], run["log"]
     errors = [e for e in run["events"] if e[0] == "OUTPUT_ERROR"]
     print(f"pipeline offline 16x1080p->4K: {len(frames)} frames, {len(run['audio'])} audio "
@@ -2267,7 +2575,7 @@ def nodes_phase(dev, frames, stamp):
         sync_after.append(len(syncs))  # after frame k - 1
         return render()
 
-    scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+    zero_launches()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs, ProgramLaunches() as counted, \
             EagerCheck("nodes") as eager:
@@ -2275,8 +2583,7 @@ def nodes_phase(dev, frames, stamp):
         outs = render_nodes(dev, N_INPUTS, OUT_W, OUT_H, frames, ks, on_frame=counted_syncs)
         sync_after.append(len(syncs))
     torch.cuda.set_sync_debug_mode("default")
-    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                "sdf_layers": sdf_layers.LAUNCHES}
+    launches = launch_counts()
     per_frame_syncs = [sync_after[0]] + [b - a for a, b in zip(sync_after, sync_after[1:])]
     print(f"nodes: launches over {len(outs)} frames x {len(NODE_OUTPUTS)} outputs: {launches}; "
           f"synchronising calls flagged per frame: {per_frame_syncs}")
@@ -3011,7 +3318,7 @@ def edges_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
                       "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
                       "initial": {"root": edge_scene_wire(out_w, out_h, n, 0)}}})
         check((status, reply) == (200, {}), f"edges: output: {status} {reply}")
-        scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+        zero_launches()
         tally0 = dict(_THREAD_LAUNCHES)
         tracing.reset()
         status, reply = server.call("POST", "/api/start", {})
@@ -3039,8 +3346,7 @@ def edges_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
             prof_span = time.perf_counter() - t_prof
             sent = _peer_message(conn, peer, 120, "the senders' end")[1]
             time.sleep(EDGE_TAIL_S)
-        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                    "sdf_layers": sdf_layers.LAUNCHES}
+        launches = launch_counts()
         # the warm-ups of the structures captured on background threads
         capture_launches = sum(v - tally0.get(k, 0) for k, v in _THREAD_LAUNCHES.items()
                                if k[1] not in log.threads)
@@ -3596,7 +3902,7 @@ def moq_media_phase(dev, stamp, n=MOQ_MEDIA_INPUTS, in_w=IN_W, in_h=IN_H, out_w=
                       "encoder": {"type": "ffmpeg_h264", "preset": "ultrafast"},
                       "initial": {"root": edge_scene_wire(out_w, out_h, n, 0)}}})
         check((status, reply) == (200, {}), f"moq: output: {status} {reply}")
-        scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+        zero_launches()
         tracing.reset()
         status, reply = server.call("POST", "/api/start", {})
         check((status, reply) == (200, {}), f"moq: start: {status} {reply}")
@@ -3613,8 +3919,7 @@ def moq_media_phase(dev, stamp, n=MOQ_MEDIA_INPUTS, in_w=IN_W, in_h=IN_H, out_w=
             events_live = [(e.kind, e.entity_id) for e in state.pipeline.events.history()]
             sent = _peer_message(conn, peer, 120, "the publishers' end", "moq")[1]
             time.sleep(EDGE_TAIL_S)
-        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                    "sdf_layers": sdf_layers.LAUNCHES}
+        launches = launch_counts()
         spans = tracing.report()
         status, reply = server.call("POST", "/api/output/out/unregister", {})
         check((status, reply) == (200, {}), f"moq: output unregister: {status} {reply}")
@@ -3921,13 +4226,12 @@ def multichip_phase(dev, stamp):
             out_mesh, MULTICHIP_OUTPUTS, N_INPUTS, in_res, out_res, device=dev)
         perms = out_args[3]
         torch.cuda.synchronize()
-        scene_assembly.LAUNCHES = yuv_out.LAUNCHES = sdf_layers.LAUNCHES = 0
+        zero_launches()
         grid_out = interop.planes_to_host(grid_step(*frames))
         gen_out = interop.planes_to_host(gen_step(*gen_frames))
         outs = out_step(*frames, perms)
         torch.cuda.synchronize()
-        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                    "sdf_layers": sdf_layers.LAUNCHES}
+        launches = launch_counts()
         print(f"multichip path launches (grid, general and outputs-sharded steps): {launches}")
         check(launches["yuv_out"] > 0 and launches["sdf_layers"] > 0,
               f"multichip: the general step did not launch K2 and K3: {launches}")
@@ -4035,7 +4339,7 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
     )
     from smelter_tpu_torch.render.capture import capture
 
-    kernels = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+    kernels = kernel_modules()
 
     def counts():
         return {name: mod.LAUNCHES for name, mod in kernels.items()}
@@ -4059,6 +4363,10 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
           f"bench: K1/K2 launched {launches}, not once per run of the general program "
           f"({general_runs})")
     check(launches["sdf_layers"] == 0, f"bench: K3 launched {launches['sdf_layers']} times")
+    check(launches["group_blend"] == GENERAL_GROUPS * general_runs
+          and launches["row_shear"] == GENERAL_SHEARS * general_runs,
+          f"bench: K4/K5 launched {launches}, not {GENERAL_GROUPS} and {GENERAL_SHEARS} "
+          f"times a run of the general program")
     check(result["card"] == nvidia_smi(), f"bench: card {result['card']!r}")
 
     frames = bench.host_frames(n, in_res)
@@ -4076,7 +4384,8 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
         print(f"bench {label}: replay vs eager max abs err {mx}, one replay launched "
               f"{replay_launches}")
         check(mx == 0, f"bench {label}: the replay differs from the eager function by {mx}")
-        expected = (1, 1, 0) if label == "general_4k" else (0, 0, 0)
+        expected = ((1, 1, 0, GENERAL_GROUPS, GENERAL_SHEARS) if label == "general_4k"
+                    else (0, 0, 0, 0, 0))
         check(tuple(replay_launches.values()) == expected,
               f"bench {label}: one replay launched {replay_launches}")
         if label == "grid":
@@ -4232,7 +4541,7 @@ def tools_phase(dev, stamp, grid_device_p50_ms):
     from smelter_tpu_torch.tools._inputs import seeded_frame_sets
     from smelter_tpu_torch.tools._profile import card
 
-    kernels = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+    kernels = kernel_modules()
     launches, lines, seconds = {}, {}, {}
     card_line = card(dev)
     t_phase = time.perf_counter()
@@ -4493,17 +4802,16 @@ def canvas_builders_phase(dev, stamp):
             eager = interop.planes_to_host(fn(*dev_frames))
         finally:
             cc.planar_rgba_to_yuv420 = convert
-        for mod in (scene_assembly, yuv_out, sdf_layers):
-            mod.LAUNCHES = 0
+        zero_launches()
         replay = interop.planes_to_host(prog(*dev_frames))
-        launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                    "sdf_layers": sdf_layers.LAUNCHES}
+        launches = launch_counts()
         mx = lsb_stats(eager, replay)[0]
         t_replay = cuda_ms(lambda: prog(*dev_frames))
         print(f"canvas {name}: stored {stored}, launches per replay {launches}, replay vs "
               f"eager max {mx}, replay {t_replay:.4f} ms {stamp}")
         check(stored == [_storage_dtype(name)], f"canvas {name}: the canvas was {stored}")
-        check(launches == {"scene_assembly": 1, "yuv_out": 1, "sdf_layers": 0},
+        check(launches == {"scene_assembly": 1, "yuv_out": 1, "sdf_layers": 0,
+                           "group_blend": GENERAL_GROUPS, "row_shear": GENERAL_SHEARS},
               f"canvas {name}: launches per replay {launches}")
         check(mx == 0, f"canvas {name}: the replay differs from the eager function by {mx}")
         check_planes(f"canvas {name}", replay, OUT_W, OUT_H)
@@ -4561,7 +4869,7 @@ def canvas_tools_phase(dev, stamp):
     from smelter_tpu_torch.tools import _ab, bench_align_ab, bench_assembly_ab, bench_canvas_ab
     from smelter_tpu_torch.tools._profile import card
 
-    kernels = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+    kernels = kernel_modules()
     card_line = card(dev)
     launches, lines = {}, {}
     for label, main, argv in (
@@ -4659,7 +4967,7 @@ def soak_run(dev, stamp, label, rounds, seconds, out, in_res):
     from smelter_tpu_torch.tools import soak_live
 
     out, in_res = Resolution(*out), Resolution(*in_res)
-    mods = {"scene_assembly": scene_assembly, "yuv_out": yuv_out, "sdf_layers": sdf_layers}
+    mods = kernel_modules()
     launches = dict.fromkeys(mods, 0)
     rounds_out = []
     for i in range(rounds):
@@ -5026,6 +5334,13 @@ def main() -> int:
     frames = host_frames(N_INPUTS, IN_W, IN_H)
 
     dev_frames = interop.planes_to_device(frames, dev)
+    # phase 4b: K4 and K5 against their plain versions, on general_4k's
+    # groups and shears, a renderer frame's and the edge cases
+    gen_log, group_numbers = group_kernel_phase(dev, gen_fn, dev_frames, stamp)
+    gen_canvas = gen_log.groups[0][0]  # the canvas K1 made, before the first group
+    gen_groups = [(members, union) for _, members, union, _, _ in gen_log.groups]
+    gen_shears = gen_log.shears
+    del gen_log
     # each builder's function captured as the reference jits it, then
     # replayed: bit-equal to the eager function on the same frame
     builder_stats = {}
@@ -5034,23 +5349,25 @@ def main() -> int:
     grid_prog, _ = capture(grid_fn, dev_frames, dev)
     gen_prog, _ = capture(gen_fn, dev_frames, dev)
     torch.cuda.synchronize()
-    scene_assembly.LAUNCHES = 0
-    yuv_out.LAUNCHES = 0
-    sdf_layers.LAUNCHES = 0
+    zero_launches()
     resample.LAUNCHES = 0
     grid_out = interop.planes_to_host(grid_prog(*dev_frames))
-    check(scene_assembly.LAUNCHES == 0 and yuv_out.LAUNCHES == 0,
-          "the grid scene runs no kernel")
+    check(not any(launch_counts().values()), f"the grid scene ran a kernel: {launch_counts()}")
     gemm_launches = {"grid": resample.LAUNCHES}
     resample.LAUNCHES = 0
     gen_out = interop.planes_to_host(gen_prog(*dev_frames))
     gemm_launches["general_4k"] = resample.LAUNCHES
-    launches = {"scene_assembly": scene_assembly.LAUNCHES, "yuv_out": yuv_out.LAUNCHES,
-                "sdf_layers": sdf_layers.LAUNCHES}
+    launches = launch_counts()
     print(f"flagship path launches during one general_4k replay: {launches}; resize GEMMs "
           f"in one replay: {gemm_launches}")
     check(launches["scene_assembly"] == 1, "a general_4k replay did not launch K1 once")
     check(launches["yuv_out"] == 1, "a general_4k replay did not launch K2 once")
+    check(launches["group_blend"] == group_numbers["groups"] == GENERAL_GROUPS,
+          f"a general_4k replay launched K4 {launches['group_blend']} times, not once per "
+          f"group ({group_numbers['groups']}, {GENERAL_GROUPS} expected)")
+    check(launches["row_shear"] == GENERAL_SHEARS,
+          f"a general_4k replay launched K5 {launches['row_shear']} times, not "
+          f"{GENERAL_SHEARS}")
     # the resize GEMMs of one replay of each: bf16 on the tensor cores, none in f32
     replay_gemms = {}
     for label, prog in (("grid", grid_prog), ("general_4k", gen_prog)):
@@ -5101,9 +5418,7 @@ def main() -> int:
     def count_k3(k, _planes):
         k3_frames.append((k, sdf_layers.LAUNCHES, len(syncs)))
 
-    scene_assembly.LAUNCHES = 0
-    yuv_out.LAUNCHES = 0
-    sdf_layers.LAUNCHES = 0
+    zero_launches()
     t_phase = time.perf_counter()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs, EagerCheck("renderer transition") as eager:
@@ -5111,8 +5426,7 @@ def main() -> int:
         outs = render_transition(dev, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H,
                                  render_frames, on_frame=count_k3)
     torch.cuda.set_sync_debug_mode("default")
-    render_launches = {"scene_assembly": scene_assembly.LAUNCHES,
-                       "yuv_out": yuv_out.LAUNCHES, "sdf_layers": sdf_layers.LAUNCHES}
+    render_launches = launch_counts()
     per_frame, sync_frames = [], {}
     prev_n, prev_s = 0, 0
     for k, n, n_sync in k3_frames:
@@ -5309,6 +5623,101 @@ def main() -> int:
               f"{bound / t:.0%} of bound; full-canvas bound "
               f"{bound_ms(2 * canvas_bytes)[0]:.4f} ms {stamp}")
     k3_main = k3["renderer overlays over general_4k"]
+    # K4 and K5 on one general_4k frame (phase 4b's groups and shears): the
+    # frame's launches captured as a frame program captures them and the
+    # replays queued back to back ("ms": K4's with its parameter packing, as
+    # a general_4k replay runs it), the same calls run eagerly back to back
+    # ("eager_ms": the wrappers' host work bounds it), each launch on the
+    # device (torch.profiler), against the plain versions; the bounds from
+    # this run's bytes: each union's canvas values read and written once,
+    # each member's inputs inside its union and its parameter row read once
+    # (K4); each shear's input read and output written once (K5); K4's
+    # operations at least one OVER a member a pixel
+    from smelter_tpu_torch.ops.hopper import group_blend, row_shear
+    from smelter_tpu_torch.render.capture import capture
+
+    def replayed_ms(fn, args):
+        prog, _ = capture(fn, args, dev)
+        t = kernel_ms(prog.run, n=20)
+        del prog
+        return t
+
+    def k4_bytes_ops(elem):
+        n_bytes = n_ops = 0
+        for members, (uy, ux, uh, uw) in gen_groups:
+            n_bytes += 2 * 4 * uh * uw * elem
+            n_ops += BLEND_OPS * uh * uw * len(members)
+            for m in members:
+                (top, left), (mh, mw) = m.origin, m.size
+                rows = max(0, min(top + mh, uy + uh) - max(top, uy))
+                cols = max(0, min(left + mw, ux + uw) - max(left, ux))
+                n_bytes += rows * cols * (12 if m.kind == "yuv" else 16)
+                n_bytes += 4 * (scene_assembly.PARAMS_BASE + scene_assembly.MASK_W * m.n_masks)
+        return n_bytes, n_ops
+
+    def k4_frame(canvas):
+        for members, union in gen_groups:
+            group_blend._launch(canvas, members, union)
+        return canvas
+
+    def k4_plain():
+        c = gen_canvas.clone()
+        for members, union in gen_groups:
+            c = group_blend.blend_group_plain(c, members, union, OUT_H, OUT_W)
+
+    n_k4 = len(gen_groups)
+    k4_work = gen_canvas.clone()
+    k4_bytes, k4_ops = k4_bytes_ops(4)
+    k4_bound, k4_by = bound_ms(k4_bytes, k4_ops)
+    t_k4 = replayed_ms(k4_frame, (k4_work,))
+    t_k4_eager = kernel_ms(lambda: k4_frame(k4_work), n=10)
+    t_k4_dev = device_ms(lambda: k4_frame(k4_work), "group_blend_kernel", n=2)
+    t_k4_plain = cuda_ms(k4_plain, iters=5)
+    k4_main = dict(ms=t_k4, eager_ms=t_k4_eager, device_ms=t_k4_dev and t_k4_dev * n_k4,
+                   device_ms_a_launch=t_k4_dev, plain_ms=t_k4_plain, bound_ms=k4_bound,
+                   bound_by=k4_by, bytes=k4_bytes, launches_a_frame=n_k4)
+    print(f"time K4 group_blend general_4k frame ({n_k4} launches, f32 canvas): replayed "
+          f"{t_k4:.4f} ms, eager {t_k4_eager:.4f} ms, device {t_k4_dev} ms a launch, plain "
+          f"{t_k4_plain:.4f} ms, bound {k4_bound:.4f} ms by {k4_by} ({k4_bytes} B, {k4_ops} "
+          f"ops), {k4_bound / t_k4:.0%} of bound {stamp}")
+    k4_storage = {}
+    for name in CANVAS_STORAGE:
+        work = _canvas_encode(gen_canvas, _storage_dtype(name))
+        n_bytes, n_ops = k4_bytes_ops(2)
+        bound, by = bound_ms(n_bytes, n_ops)
+        t = replayed_ms(k4_frame, (work,))
+        t_dev = device_ms(lambda w=work: k4_frame(w), "group_blend_kernel", n=2)
+        k4_storage[name] = dict(ms=t, device_ms=t_dev and t_dev * n_k4, bound_ms=bound,
+                                bound_by=by, bytes=n_bytes)
+        print(f"time K4 group_blend general_4k frame, {name} canvas: replayed {t:.4f} ms, "
+              f"device {t_dev} ms a launch, bound {bound:.4f} ms by {by} ({n_bytes} B), "
+              f"{bound / t:.0%} of bound {stamp}")
+        del work
+    del k4_work
+
+    def k5_frame(*imgs):
+        return [row_shear._launch(img, k, axis) for img, (_, k, axis) in zip(imgs, gen_shears)]
+
+    k5_imgs = tuple(img for img, _, _ in gen_shears)
+
+    def k5_plain():
+        for img, k, axis in gen_shears:
+            row_shear.shear_plain(img, k, axis)
+
+    k5_bytes = sum(2 * img.numel() * 4 for img, _, _ in gen_shears)
+    k5_bound, k5_by = bound_ms(k5_bytes)
+    t_k5 = replayed_ms(k5_frame, k5_imgs)
+    t_k5_eager = kernel_ms(lambda: k5_frame(*k5_imgs), n=10)
+    t_k5_dev = device_ms(lambda: k5_frame(*k5_imgs), "row_shear_kernel", n=2)
+    t_k5_plain = cuda_ms(k5_plain, iters=5)
+    k5_main = dict(ms=t_k5, eager_ms=t_k5_eager,
+                   device_ms=t_k5_dev and t_k5_dev * len(gen_shears),
+                   device_ms_a_launch=t_k5_dev, plain_ms=t_k5_plain, bound_ms=k5_bound,
+                   bound_by=k5_by, bytes=k5_bytes, launches_a_frame=len(gen_shears))
+    print(f"time K5 row_shear general_4k frame ({len(gen_shears)} launches): replayed "
+          f"{t_k5:.4f} ms, eager {t_k5_eager:.4f} ms, device {t_k5_dev} ms a launch, plain "
+          f"{t_k5_plain:.4f} ms, bound {k5_bound:.4f} ms by {k5_by} ({k5_bytes} B), "
+          f"{k5_bound / t_k5:.0%} of bound {stamp}")
     # the resize GEMMs at the main path's shapes, both routes; no f32 GEMM in
     # the replays' profiles (phase 5)
     renders = {"grid": 1, "general_4k": 1,
@@ -5379,26 +5788,28 @@ def main() -> int:
                                       "card": card}}))
     print(json.dumps({"soak_tools": {**soak_numbers, "card": card}}))
     check("jax" not in sys.modules, "the port imported jax")
-    # "launches": the pipeline's offline run at 16 x 1080p -> 4K, this
-    # slice's main path; no single PyTorch call computes any of the three functions:
-    # library_ms is null
+    # "launches": K1-K3's from the pipeline's offline run at 16 x 1080p -> 4K
+    # (their slices' main path), K4's and K5's from one general_4k replay
+    # (theirs); each path's counts under "launches_by_path". No single
+    # PyTorch call computes any of the five functions: library_ms is null.
+    # K4's and K5's times are those of one general_4k frame's launches, "ms"
+    # replayed from a CUDA graph, "eager_ms" run eagerly.
+    def by_path(name):
+        return {"general_4k": launches[name], "renderer": render_launches[name],
+                "animated": anim_launches[name], "pipeline": pipe_launches[name],
+                "nodes": node_launches[name], "edges": edge_launches and edge_launches[name],
+                "moq": moq_launches and moq_launches[name],
+                "multichip": multichip_launches[name], "bench": bench_launches[name],
+                "tools": {tool: n[name] for tool, n in tool_launches.items()},
+                "canvas_tools": {tool: n[name] for tool, n in canvas_launches.items()},
+                "soak": soak_launches[name]}
+
     kernels = [
         {"name": "scene_assembly", "route": "cuda",
          "source": "smelter_tpu_torch/csrc/scene_assembly.cu",
          "replaces": "smelter_tpu/ops/pallas/scene_assembly.py:194",
          "launches": pipe_launches["scene_assembly"],
-         "launches_by_path": {"renderer": render_launches["scene_assembly"],
-                              "animated": anim_launches["scene_assembly"],
-                              "pipeline": pipe_launches["scene_assembly"],
-                              "nodes": node_launches["scene_assembly"],
-                              "edges": edge_launches and edge_launches["scene_assembly"],
-                              "moq": moq_launches and moq_launches["scene_assembly"],
-                              "multichip": multichip_launches["scene_assembly"],
-                              "bench": bench_launches["scene_assembly"],
-                              "tools": {tool: n["scene_assembly"] for tool, n in tool_launches.items()},
-                              "canvas_tools": {tool: n["scene_assembly"]
-                                               for tool, n in canvas_launches.items()},
-                              "soak": soak_launches["scene_assembly"]},
+         "launches_by_path": by_path("scene_assembly"),
          "max_abs_err": k1_err, "storage_16bit": storage["scene_assembly"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -5408,18 +5819,7 @@ def main() -> int:
          "source": "smelter_tpu_torch/csrc/yuv_out.cu",
          "replaces": "smelter_tpu/ops/pallas/yuv_out.py:82",
          "launches": pipe_launches["yuv_out"],
-         "launches_by_path": {"renderer": render_launches["yuv_out"],
-                              "animated": anim_launches["yuv_out"],
-                              "pipeline": pipe_launches["yuv_out"],
-                              "nodes": node_launches["yuv_out"],
-                              "edges": edge_launches and edge_launches["yuv_out"],
-                              "moq": moq_launches and moq_launches["yuv_out"],
-                              "multichip": multichip_launches["yuv_out"],
-                              "bench": bench_launches["yuv_out"],
-                              "tools": {tool: n["yuv_out"] for tool, n in tool_launches.items()},
-                              "canvas_tools": {tool: n["yuv_out"]
-                                               for tool, n in canvas_launches.items()},
-                              "soak": soak_launches["yuv_out"]},
+         "launches_by_path": by_path("yuv_out"),
          "max_abs_err": k2_err, "storage_16bit": storage["yuv_out"],
          "ms": t_k2, "plain_ms": t_k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "call_ms": t_k2_call, "device_ms": t_k2_dev,
@@ -5428,24 +5828,27 @@ def main() -> int:
          "source": "smelter_tpu_torch/csrc/sdf_layers.cu",
          "replaces": "smelter_tpu/ops/pallas/sdf_layers.py:66",
          "launches": pipe_launches["sdf_layers"],
-         "launches_by_path": {"renderer": render_launches["sdf_layers"],
-                              "animated": anim_launches["sdf_layers"],
-                              "pipeline": pipe_launches["sdf_layers"],
-                              "nodes": node_launches["sdf_layers"],
-                              "edges": edge_launches and edge_launches["sdf_layers"],
-                              "moq": moq_launches and moq_launches["sdf_layers"],
-                              "multichip": multichip_launches["sdf_layers"],
-                              "bench": bench_launches["sdf_layers"],
-                              "tools": {tool: n["sdf_layers"] for tool, n in tool_launches.items()},
-                              "canvas_tools": {tool: n["sdf_layers"]
-                                               for tool, n in canvas_launches.items()},
-                              "soak": soak_launches["sdf_layers"]},
+         "launches_by_path": by_path("sdf_layers"),
          "max_abs_err": k3_err,
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": None, "call_ms": k3_main["call_ms"],
          "device_ms": k3_main["device_ms"], "bytes": k3_main["bytes"],
          "footprint_px": k3_main["footprint_px"]},
+        {"name": "group_blend", "route": "cuda",
+         "source": "smelter_tpu_torch/csrc/group_blend.cu",
+         "replaces": "smelter_tpu/ops/compose.py:636",
+         "launches": launches["group_blend"],
+         "launches_by_path": by_path("group_blend"),
+         "max_abs_err": group_numbers["k4_max_abs_err"], "storage_16bit": k4_storage,
+         "library_ms": None, **k4_main},
+        {"name": "row_shear", "route": "cuda",
+         "source": "smelter_tpu_torch/csrc/row_shear.cu",
+         "replaces": "smelter_tpu/ops/rotate.py:65",
+         "launches": launches["row_shear"],
+         "launches_by_path": by_path("row_shear"),
+         "max_abs_err": group_numbers["k5_max_abs_err"],
+         "library_ms": None, **k5_main},
     ]
     lossy = [k for k in TRACE_LOSSES if k]
     print(f"profiler traces of phases 5 and 9: {len(TRACE_LOSSES)}, of which {len(lossy)} lost "

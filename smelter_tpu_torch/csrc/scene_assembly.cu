@@ -40,12 +40,11 @@
 // rotated-mask bits, region y0, x0, y1, x1 (half-open, clipped to the
 // canvas).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "canvas_codec.cuh"
 #include "sdf_common.cuh"
 
 namespace {
@@ -58,37 +57,11 @@ constexpr int kThreads = kThreadsX * kTile;   // 256
 constexpr int kRowsPerWarp = 32 / kThreadsX;  // 4
 
 // canvas storage, by the code the entry takes (scene_assembly.OUT_DTYPES)
-enum OutKind { kF32 = 0, kU16 = 1, kF16 = 2, kBF16 = 3 };
-// the u16 fixed point of color_convert.canvas_decode: value * 8192 + 16384
-constexpr float kFixedScale = 8192.0f;
-constexpr float kFixedOffset = 16384.0f;
-
-// One f32 value as the bits of its 16-bit storage (compose._canvas_encode).
-template <int kOut>
-__device__ __forceinline__ uint16_t encode16(float x);
-
-template <>
-__device__ __forceinline__ uint16_t encode16<kU16>(float x) {
-  // one cvt.rni.u16.f32: round half to even (as torch.round), clamp to
-  // [0, 65535] and NaN to code 0 (PTX's float-to-integer conversion
-  // saturates and turns NaN into 0), as _canvas_encode pins it; a C++ cast
-  // of NaN or of an out-of-range value would be undefined. The product by
-  // 2^13 is exact, so contraction could not change the sum.
-  const float v = x * kFixedScale + kFixedOffset;
-  unsigned short q;
-  asm("cvt.rni.u16.f32 %0, %1;" : "=h"(q) : "f"(v));
-  return q;
-}
-
-template <>
-__device__ __forceinline__ uint16_t encode16<kF16>(float x) {
-  return __half_as_ushort(__float2half_rn(x));  // nearest even, as torch
-}
-
-template <>
-__device__ __forceinline__ uint16_t encode16<kBF16>(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));  // nearest even, as torch
-}
+using smelter::kF32;
+using smelter::kU16;
+using smelter::kF16;
+using smelter::kBF16;
+using smelter::encode16;
 
 __device__ __forceinline__ void load_spec_member(const int* __restrict__ specs,
                                                  const float* __restrict__ params,
@@ -242,7 +215,7 @@ cudaError_t launch(const int* specs, const float* params, void* out,
 
 }  // namespace
 
-// out_kind: the canvas storage (OutKind). Returns the launch's cudaError_t.
+// out_kind: the canvas storage (smelter::CanvasKind). Returns the launch's cudaError_t.
 extern "C" int smelter_scene_assembly(const void* specs, const void* params,
                                       void* out, int n_members, int spec_w,
                                       int param_w, int h, int w, int out_kind,

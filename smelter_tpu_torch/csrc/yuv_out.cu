@@ -26,9 +26,9 @@
 // last odd row or column feeds Y only.
 
 #include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "canvas_codec.cuh"
 
 namespace {
 
@@ -43,44 +43,14 @@ constexpr float kYr = static_cast<float>(0.2126), kYg = static_cast<float>(0.715
 constexpr float kUr = static_cast<float>(-0.1146), kUg = static_cast<float>(0.3854);
 constexpr float kVg = static_cast<float>(0.4542), kVb = static_cast<float>(0.0458);
 
-// canvas storage, by the code the entry takes (yuv_out.IN_DTYPES)
-enum InKind { kF32 = 0, kU16 = 1, kF16 = 2, kBF16 = 3 };
-// the u16 fixed point: value * 8192 + 16384; decoded exactly in f32
-constexpr float kFixedOffset = 16384.0f;
-constexpr float kFixedStep = 1.0f / 8192.0f;
-
-template <int kIn>
-struct Storage {
-  using T = uint16_t;  // the bits of a 16-bit value
-};
-template <>
-struct Storage<kF32> {
-  using T = float;
-};
-
-// One stored value as f32, as canvas_decode gives it.
-template <int kIn>
-__device__ __forceinline__ float decode(typename Storage<kIn>::T v);
-
-template <>
-__device__ __forceinline__ float decode<kF32>(float v) {
-  return v;
-}
-
-template <>
-__device__ __forceinline__ float decode<kU16>(uint16_t v) {
-  return (static_cast<float>(v) - kFixedOffset) * kFixedStep;
-}
-
-template <>
-__device__ __forceinline__ float decode<kF16>(uint16_t v) {
-  return __half2float(__ushort_as_half(v));
-}
-
-template <>
-__device__ __forceinline__ float decode<kBF16>(uint16_t v) {
-  return __bfloat162float(__ushort_as_bfloat16(v));
-}
+// canvas storage, by the code the entry takes (yuv_out.IN_DTYPES), decoded
+// as canvas_decode decodes it
+using smelter::kF32;
+using smelter::kU16;
+using smelter::kF16;
+using smelter::kBF16;
+using smelter::Storage;
+using smelter::decode;
 
 // NaN passes through, as through torch.clamp and jnp.clip, so that a quad
 // holding NaN gives NaN chroma (then u8 0) as the plain version does;
@@ -239,7 +209,7 @@ cudaError_t launch(const void* rgba, uint8_t* y, uint8_t* u, uint8_t* v,
 
 }  // namespace
 
-// in_kind: the canvas storage (InKind). Returns the launch's cudaError_t.
+// in_kind: the canvas storage (smelter::CanvasKind). Returns the launch's cudaError_t.
 extern "C" int smelter_yuv420_out(const void* rgba, void* y, void* u, void* v,
                                   int h, int w, int full_range, int in_kind,
                                   void* stream) {

@@ -174,6 +174,48 @@ def _rs(img: torch.Tensor, wr: torch.Tensor, wc: torch.Tensor, card: bool) -> to
     return gemm(operand(wc, card), x, -1, torch.float32, card)
 
 
+def yuv_tile_products(
+    y: torch.Tensor,
+    u: torch.Tensor,
+    v: torch.Tensor,
+    crop: Tuple[int, int, int, int],  # (top, left, h, w) in luma pixels
+    out_h: int,
+    out_w: int,
+    kind: str = "lanczos3",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three (out_h, out_w) f32 GEMM products of `yuv_tile_rgba_cm`: the
+    luma crop and the two chroma planes resized (the chroma upsample composed
+    into their weights), still on the u8 scale, before its colour tail
+    (`yuv_products_rgba_cm`)."""
+    ct, cl, chh, cww = crop
+    Wh, Ww, Wch, Wcw = tile_weights(
+        tuple(y.shape), tuple(u.shape), tuple(crop), out_h, out_w, kind, y.device
+    )
+    card = y.is_cuda
+    return (_rs(y[ct : ct + chh, cl : cl + cww], Wh, Ww, card),
+            _rs(u, Wch, Wcw, card), _rs(v, Wch, Wcw, card))
+
+
+def yuv_products_rgba_cm(yt: torch.Tensor, ut: torch.Tensor, vt: torch.Tensor,
+                         full_range: bool = False) -> torch.Tensor:
+    """The colour tail of `yuv_tile_rgba_cm` on its GEMM products
+    (`yuv_tile_products`): u8 scale, range expansion, BT.709 matrix, and an
+    opaque alpha plane; channel-major (4, h, w) f32."""
+    yt = yt * (1.0 / 255.0)
+    ut = ut * (1.0 / 255.0)
+    vt = vt * (1.0 / 255.0)
+    if not full_range:
+        yt = (yt - _FOOTROOM) * (1.0 / _Y_SCALE)
+        ut = (ut - _FOOTROOM) * (1.0 / _UV_SCALE)
+        vt = (vt - _FOOTROOM) * (1.0 / _UV_SCALE)
+    ut = ut - 0.5
+    vt = vt - 0.5
+    r = yt + 1.5748 * vt
+    g = yt - 0.1873 * ut - 0.4681 * vt
+    b = yt + 1.8556 * ut
+    return torch.stack([r, g, b, torch.ones_like(r)], dim=0)
+
+
 def yuv_tile_rgba_cm(
     y: torch.Tensor,
     u: torch.Tensor,
@@ -193,29 +235,14 @@ def yuv_tile_rgba_cm(
     limited-range expansion and the RGB clamps are NOT applied per pixel at
     full resolution first: out-of-range YUV blends linearly, and only the
     end-of-pipe u8 clamp bounds the output."""
-    ct, cl, chh, cww = crop
-    Wh, Ww, Wch, Wcw = tile_weights(
-        tuple(y.shape), tuple(u.shape), tuple(crop), out_h, out_w, kind, y.device
-    )
-    card = y.is_cuda
-    yt = _rs(y[ct : ct + chh, cl : cl + cww], Wh, Ww, card) * (1.0 / 255.0)
-    ut = _rs(u, Wch, Wcw, card) * (1.0 / 255.0)
-    vt = _rs(v, Wch, Wcw, card) * (1.0 / 255.0)
-    if not full_range:
-        yt = (yt - _FOOTROOM) * (1.0 / _Y_SCALE)
-        ut = (ut - _FOOTROOM) * (1.0 / _UV_SCALE)
-        vt = (vt - _FOOTROOM) * (1.0 / _UV_SCALE)
-    ut = ut - 0.5
-    vt = vt - 0.5
-    r = yt + 1.5748 * vt
-    g = yt - 0.1873 * ut - 0.4681 * vt
-    b = yt + 1.8556 * ut
-    return torch.stack([r, g, b, torch.ones_like(r)], dim=0)
+    return yuv_products_rgba_cm(*yuv_tile_products(y, u, v, crop, out_h, out_w, kind),
+                                full_range)
 
 
 class DeferredYuvSource:
     """Planar-YUV input whose RGBA conversion is deferred: static texture
-    layouts crop+resize the subsampled planes directly (`tile_cm`); the
+    layouts crop+resize the subsampled planes directly (`tile_cm`, or its
+    GEMM products, `tile_products`, for the group blend); the
     layouts that need full-resolution RGBA mips (the sampled pass, traced
     sizes) call `mips`, which converts once per frame."""
 
@@ -230,6 +257,11 @@ class DeferredYuvSource:
         return yuv_tile_rgba_cm(
             y, u, v, crop, out_h, out_w, full_range=self.full_range
         )
+
+    def tile_products(self, crop, out_h: int, out_w: int):
+        """`tile_cm`'s three GEMM products, before its colour tail
+        (`yuv_tile_products`): what kernel K4 reads for a static tile."""
+        return yuv_tile_products(*self.planes, crop, out_h, out_w)
 
     def mips(self) -> list:
         if self._mips is None:

@@ -7,10 +7,13 @@ planner-stable (`static_rect` set) renders region-locally:
     footprint (rotation is a coordinate rotation);
   - texture layers as a GEMM resize of the source crop placed at an integer
     origin, with SDF edges, borders and parent masks; a stable rotation
-    goes through the barrel-shear `rotate_static_cm`.
+    goes through the three-shear `rotate_static_cm` (kernel K5 on the card,
+    `ops/hopper/row_shear.py`).
 A run of such layouts that opens the canvas paints its colour and shadow
 members in one pass of kernel K1 (`ops/hopper/scene_assembly.py`), which
-creates the canvas; the textures then blend in coalesced union groups.
+creates the canvas; the textures then blend in coalesced union groups, each
+group in one pass of kernel K4 (`ops/hopper/group_blend.py`: the region's
+decode, every member's edge, border, masks and OVER, and its encode).
 `SMELTER_SCENE_ASSEMBLY=off` (`_assembly_mode`) sends the whole run to the
 group path instead.
 
@@ -309,61 +312,44 @@ def _pixel_centers(Y0: int, X0: int, vh: int, vw: int, device):
     return px.expand(vh, vw), py.expand(vh, vw)
 
 
-def _region_layer(
-    static: LayoutStatic,
-    params: LayoutParams,
-    sources: Sequence,
-    Y0: int,
-    X0: int,
-    vh: int,
-    vw: int,
-) -> torch.Tensor:
-    """Premultiplied (4, vh, vw) contribution of one region-local layout over
-    the absolute canvas region [Y0, Y0+vh) x [X0, X0+vw) — a superset of the
-    layout's own `_layer_region`. Outside the layout's footprint the
-    contribution is exactly zero, so blending over a larger region is
-    identical to blending over its own."""
+def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence,
+                  union: Tuple[int, int, int, int]):
+    """One region-local layout of a group as a member of kernel K4
+    (`ops/hopper/group_blend.GroupMember`): what torch computes for it here
+    (a tile's GEMM products, a stably rotated tile, a colour or shadow layer
+    over the union), and what K4 (or its plain version) does with it. Its
+    contribution is exactly zero outside its footprint, so blending it over
+    the union is identical to blending it over its own `_layer_region`."""
+    from smelter_tpu_torch.ops.hopper.group_blend import GroupMember
+
     top, left, h, w = static.static_rect  # type: ignore[misc]
 
     if static.content == "texture" and static.static_rotation is not None:
-        # stable-rotation texture: upright tile + barrel-shear rotation
+        # stable-rotation texture: upright tile + barrel-shear rotation, then
+        # K4 applies the masks at the rotated bbox's static origin
         theta = float(static.static_rotation)
         tile = _prepare_rect_tile(static, params, sources)
         bh, bw_ = rotated_bbox(theta, h, w)
         rotated = rotate_static_cm(tile, theta, bh, bw_)
-        oy = top + (h - bh) // 2
-        ox = left + (w - bw_) // 2
-        rotated = _apply_masks_region(rotated, static, params, oy, ox)
-        return _pad_into(rotated, oy, ox, Y0, X0, vh, vw)
-
-    px, py = _pixel_centers(Y0, X0, vh, vw, params.top.device)
+        origin = (top + (h - bh) // 2, left + (w - bw_) // 2)
+        return GroupMember("placed", static, params, (rotated,), origin)
 
     if static.content in ("color", "box_shadow"):
-        return render_single_layout(static, params, sources, px, py)
+        # the sampled layer over the union, masks included
+        uy, ux, uh, uw = union
+        px, py = _pixel_centers(uy, ux, uh, uw, params.top.device)
+        layer = render_single_layout(static, params, sources, px, py)
+        return GroupMember("placed", static, params, (layer,), (uy, ux), masks=False)
 
-    # non-rotated texture: region-local GEMM resize of the source crop
-    rw, rh = params.width, params.height
-    cx = params.left + rw * 0.5
-    cy = params.top + rh * 0.5
-    dx = px - cx
-    dy = py - cy
-    mask_alpha = _mask_alpha(px, py, params, static.n_masks, static.rotated_masks)
-    edge = -rounded_rect_sdf(dx, dy, rw * 0.5, rh * 0.5, params.border_radius)
-
-    tile = _src_tile_cm(sources[static.source_index], static.static_crop, h, w)
-    content = _pad_into(tile, top, left, Y0, X0, vh, vw)
-
-    if static.has_border:
-        bw = params.border_width
-        border_color = _premultiply(params.border_color)
-        border_alpha = smoothstep(bw - 0.5, bw + 0.5, edge)
-        inner = border_color + (content - border_color) * border_alpha[None]
-        content_alpha = smoothstep(-0.5, 0.5, edge)
-        outer = border_color * content_alpha[None]
-        layer = torch.where((edge > bw * 0.5)[None], inner, outer)
-        return layer * mask_alpha[None]
-    a = smoothstep(-0.5, 0.5, edge) * mask_alpha
-    return content * a[None]
+    # non-rotated texture: region-local GEMM resize of the source crop; K4
+    # applies the edge, border and masks
+    src = sources[static.source_index]
+    if hasattr(src, "tile_products"):
+        return GroupMember("yuv", static, params,
+                           tuple(src.tile_products(static.static_crop, h, w)),
+                           (top, left), full_range=src.full_range)
+    return GroupMember("rgba", static, params,
+                       (_src_tile_cm(src, static.static_crop, h, w),), (top, left))
 
 
 def _prepare_rect_tile(
@@ -559,20 +545,14 @@ def _render_rotozoom_layout(static: LayoutStatic, params: LayoutParams,
 
 def _blend_group(canvas, members, union, sources, h: int, w: int):
     """OVER-blend one coalesced group: one canvas region read, one blend
-    chain, one region write. The write is an in-place slice assignment into
-    the canvas, which this frame owns (the reference returns an updated
-    copy, which XLA turns into the same in-place update). The region
-    decodes to f32, the chain blends in f32, and only the stored value
-    quantizes to a 16-bit canvas's storage."""
-    uy, ux, uh, uw = union
-    acc = canvas_decode(canvas[:, uy : uy + uh, ux : ux + uw])
-    for st, p in members:
-        acc = _over(_region_layer(st, p, sources, uy, ux, uh, uw), acc)
-    acc = _canvas_encode(acc, canvas.dtype)
-    if (uh, uw) == (h, w):
-        return acc
-    canvas[:, uy : uy + uh, ux : ux + uw] = acc
-    return canvas
+    chain, one region write, in one pass of kernel K4 on a CUDA canvas
+    (`ops/hopper/group_blend.py`; its plain version on a CPU canvas). The
+    region decodes to f32, the chain blends in f32, and only the stored
+    value quantizes to a 16-bit canvas's storage."""
+    from smelter_tpu_torch.ops.hopper import group_blend
+
+    layers = [_group_member(st, p, sources, union) for st, p in members]
+    return group_blend.blend_group(canvas, layers, union, h, w)
 
 
 def _align_union(reg, h: int, w: int, sublane: int = 8):

@@ -104,6 +104,11 @@ def library() -> ctypes.CDLL:
     lib.smelter_scene_assembly.restype = i
     lib.smelter_sdf_layers.argtypes = [p, p, p, i, i, i, p]
     lib.smelter_sdf_layers.restype = i
+    lib.smelter_group_blend.argtypes = [p, i, i, i, i, i, i, i, p, i, i, p]
+    lib.smelter_group_blend.restype = i
+    ll = ctypes.c_longlong
+    lib.smelter_row_shear.argtypes = [p, p, i, i, i, ll, ll, ll, ctypes.c_double, i, p]
+    lib.smelter_row_shear.restype = i
     lib.smelter_cuda_error_string.argtypes = [i]
     lib.smelter_cuda_error_string.restype = ctypes.c_char_p
     return lib

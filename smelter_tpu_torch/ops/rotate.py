@@ -10,7 +10,9 @@ per row by one bit of that row's integer shift, then one per-row fractional
 blend with the neighbour. Quarter turns are `torch.rot90`.
 
 A static angle (`rotate_static_cm`) makes the per-row masks and fractions
-numpy constants of (shear, shape), built once per device (`_shear_plan`).
+numpy constants of (shear, shape), built once per device (`_shear_plan`);
+on a CUDA tensor each of its shears is one pass of kernel K5
+(`ops/hopper/row_shear.py`), which gathers each pixel's two taps directly.
 An animated angle (`rotate_traced_cm`) is a 0-d tensor on the tile's device:
 the per-row bits are computed there, and only their count comes from a
 static bound on the shear, so nothing waits for the host. Plain PyTorch:
@@ -19,6 +21,7 @@ pads, slices and `torch.where`.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -57,17 +60,34 @@ def _normalize(theta_deg: float) -> Tuple[int, float]:
     return q, psi
 
 
+@functools.lru_cache(maxsize=256)
+def _shear_rows(k: float, H: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row integer shift i (int64) and fraction f (f32) of a width shear
+    by k of H rows: delta = k * (r + 0.5 - H / 2) in f64, i = floor(delta),
+    f = delta - i. Host-side and read-only; kernel K5 recomputes them by the
+    same f64 operations."""
+    delta = k * (np.arange(H, dtype=np.float64) + 0.5 - H / 2.0)
+    i = np.floor(delta).astype(np.int64)
+    f = (delta - i).astype(np.float32)
+    return i, f
+
+
+def shear_moves_all_out(k: float, H: int, W: int) -> bool:
+    """Whether a width shear by k of an (H, W) image moves every row out of
+    it (its result is all zero)."""
+    i, _ = _shear_rows(k, H)
+    return max(abs(int(i.min())), abs(int(i.max()))) + 1 >= W
+
+
 @device_constant(maxsize=64)
 def _shear_plan(k: float, H: int, W: int, device: torch.device) -> Optional[tuple]:
     """Constants of one width shear of an (H, W) image: pads, the per-bit
     row masks (bits, H, 1) and the per-row fractions (H, 1). None when the
     shear moves every row out of the image (the result is all zero)."""
-    delta = k * (np.arange(H, dtype=np.float64) + 0.5 - H / 2.0)
-    i = np.floor(delta).astype(np.int64)
-    f = (delta - i).astype(np.float32)
-    imin, imax = int(i.min()), int(i.max())
-    if max(abs(imin), abs(imax)) + 1 >= W:
+    if shear_moves_all_out(k, H, W):
         return None
+    i, f = _shear_rows(k, H)
+    imin, imax = int(i.min()), int(i.max())
     bias = -imin if imin < 0 else 0
     shifts = i + bias  # nonnegative right-shifts
     left = imax + 1 if imax > 0 else 1
@@ -189,7 +209,9 @@ def rotate_static_cm(
     """Rotate (..., h, w) f32 premultiplied content by `theta_deg`
     (clockwise, y-down — the layout shader's frame) about the tile center;
     returns the (..., out_h, out_w) crop centered on the same point,
-    transparent-filled. The angle is static."""
+    transparent-filled. The angle is static. Each of the three shears is
+    one launch of kernel K5 on a CUDA tensor (`ops/hopper/row_shear.py`)
+    and the barrel shifter (`_shear_w`, `_shear_h`) on a CPU tensor."""
     q, psi = _normalize(theta_deg)
     if q:
         # rot90 with k>0 turns counter-clockwise in array display; clockwise
@@ -201,12 +223,14 @@ def rotate_static_cm(
     px = max((out_w - w + 1) // 2, 0) + 2
     work = F.pad(tile, (px, px, py, py))
     if abs(psi) > 1e-9:
+        from smelter_tpu_torch.ops.hopper.row_shear import shear
+
         rad = math.radians(psi)
         a = -math.tan(rad / 2.0)
         b = math.sin(rad)
-        work = _shear_w(work, a)
-        work = _shear_h(work, b)
-        work = _shear_w(work, a)
+        work = shear(work, a, -1)
+        work = shear(work, b, -2)
+        work = shear(work, a, -1)
     WH, WW = work.shape[-2], work.shape[-1]
     t0 = (WH - out_h) // 2
     l0 = (WW - out_w) // 2

@@ -5,7 +5,7 @@ card. These need a CUDA device and nvcc, so they skip elsewhere; on the card:
 
 (This file imports no JAX: the machine with the card need not have it.)
 
-Tolerances: K2 <= 1 u8 LSB per plane; K1 and K3 max abs err 0 on the f32
+Tolerances: K2 <= 1 u8 LSB per plane; K1, K3, K4 and K5 max abs err 0 on the f32
 canvas: the kernels are built without FMA contraction, repeat their plain
 versions' operations, and skip only what is exactly the identity (their
 tile classes, `ops/hopper/tile_class.py`).
@@ -710,3 +710,120 @@ def test_the_card_route_raises_on_f32_operands(cuda):
     w = torch.ones((3, 5), device=cuda)
     with pytest.raises(TypeError, match="bf16 operands"):
         rs.gemm(w, torch.ones((5, 4), device=cuda), -2, torch.bfloat16, True)
+
+
+def _group_case(dev, masks=True):
+    """Members of every kind at 511 x 257 built through
+    `compose._group_member` from sources on `dev`: a bordered YUV tile, an
+    RGBA tile, a bordered tile rotated 30 degrees (K5), a colour and a
+    box-shadow layer, each under two masks (the second rotated), and a tile
+    clipped at the canvas edge."""
+    from smelter_tpu_torch.ops import color_convert as cc
+
+    h, w = 257, 511
+    gen = torch.Generator(device=dev).manual_seed(44)
+    y = torch.randint(0, 256, (270, 480), generator=gen, device=dev, dtype=torch.uint8)
+    u = torch.randint(0, 256, (135, 240), generator=gen, device=dev, dtype=torch.uint8)
+    v = torch.randint(0, 256, (135, 240), generator=gen, device=dev, dtype=torch.uint8)
+    sources = [cc.DeferredYuvSource(y, u, v), [torch.rand((200, 300, 4), generator=gen,
+                                                          device=dev)]]
+    mrows = ([[8, 8, 8, 8, 12, 24, 400, 160, 0.0], [14, 14, 14, 14, 30, 100, 300, 150, 0.4]]
+             if masks else [[0.0] * 9])
+    n = 2 if masks else 0
+
+    def member(content, rect, src=0, border=False, rotation=None, blur=0.0):
+        top, left, hh, ww = rect
+        st = compose.LayoutStatic(
+            content=content, source_index=src if content == "texture" else -1, n_masks=n,
+            rotated_masks=(False, True)[:n], has_rotation=rotation is not None,
+            has_border=border, static_rect=rect,
+            static_crop=(0, 0, 180, 260) if content == "texture" else None,
+            static_blur=blur, static_rotation=rotation)
+        p = interop.layout_params(dict(
+            top=top, left=left, width=ww, height=hh, rotation_degrees=rotation or 0.0,
+            border_radius=(10, 14, 6, 12), border_width=3.5 if border else 0.0,
+            border_color=(1.0, 0.9, 0.7, 0.85), color=(0.8, 0.3, 0.2, 0.9),
+            crop=(0, 0, 0, 0), blur_radius=blur, masks=mrows), dev)
+        return st, p
+
+    items = [member("box_shadow", (100, 40, 90, 160), blur=14.0),
+             member("texture", (20, 30, 120, 200), border=True),
+             member("texture", (60, 250, 150, 220), src=1),
+             member("color", (10, 300, 80, 150), border=True, rotation=12.0),
+             member("texture", (70, 120, 100, 180), border=True, rotation=30.0),
+             member("texture", (200, 420, 120, 200), border=True)]
+    canvas = torch.rand((4, h, w), generator=gen, device=dev)
+    canvas[:3] *= canvas[3:4]
+    return canvas, items, sources
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint16, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("masks", [False, True])
+def test_group_blend_kernel_matches_plain(cuda, dtype, masks):
+    """K4 on a group of every member kind, on each canvas storage, and on a
+    union clipped at the canvas edge: max abs err 0 (the same bits)."""
+    from smelter_tpu_torch.ops.color_convert import canvas_decode
+    from smelter_tpu_torch.ops.hopper import group_blend
+
+    canvas, items, sources = _group_case(cuda, masks)
+    _, h, w = canvas.shape
+    base = compose._canvas_encode(canvas, dtype)
+    for union, chosen in (((0, 0, h, w), items), ((192, 384, 65, 127), items[-1:])):
+        members = [compose._group_member(st, p, sources, union) for st, p in chosen]
+        before = group_blend.LAUNCHES
+        got = group_blend.blend_group(base.clone(), members, union, h, w)
+        torch.cuda.synchronize()
+        assert group_blend.LAUNCHES == before + 1
+        want = group_blend.blend_group_plain(base.clone(), members, union, h, w)
+        assert got.dtype == dtype
+        assert float((canvas_decode(got) - canvas_decode(want)).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k", [-0.2679, 0.5, 0.1317, -0.7071, 0.001])
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_row_shear_kernel_matches_plain(cuda, k, axis):
+    """K5 along each axis, on a contiguous and on a transposed (strided)
+    input: bit-equal to the barrel shifter."""
+    from smelter_tpu_torch.ops.hopper import row_shear
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    img = torch.rand((4, 480, 853), generator=gen, device=cuda)
+    for x in (img, img.transpose(-2, -1)):
+        before = row_shear.LAUNCHES
+        got = row_shear.shear(x, k, axis)
+        torch.cuda.synchronize()
+        assert row_shear.LAUNCHES == before + 1
+        want = row_shear.shear_plain(x, k, axis)
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_group_kernels_replay_equal_to_eager_without_a_sync(cuda):
+    """general_4k at 4 x 256x144 -> 768x432 captured: a replay launches K4
+    once per group and K5 six times, equals the eager function bit for bit,
+    and makes no synchronising call."""
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.ops.hopper import group_blend, row_shear
+    from smelter_tpu_torch.parallel.flagship import make_flagship_general_compose
+    from smelter_tpu_torch.render.capture import capture
+
+    fn, args = make_flagship_general_compose(4, Resolution(256, 144), Resolution(768, 432),
+                                             device=cuda)
+    groups = []
+    blend = group_blend.blend_group
+    group_blend.blend_group = lambda c, m, u, h, w: groups.append(u) or blend(c, m, u, h, w)
+    try:
+        want = fn(*args)
+    finally:
+        group_blend.blend_group = blend
+    prog, _ = capture(fn, args, cuda)
+    prog(*args)  # warm
+    torch.cuda.synchronize()
+    before = (group_blend.LAUNCHES, row_shear.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = prog(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (group_blend.LAUNCHES - before[0], row_shear.LAUNCHES - before[1]) == (len(groups), 6)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
