@@ -58,6 +58,7 @@ from smelter_tpu_torch.ops import color_convert as cc
 from smelter_tpu_torch.ops.compose import _assembly_mode, _canvas_dtype, compose_layouts
 from smelter_tpu_torch.ops.resample import build_mips, resize_matmul
 from smelter_tpu_torch.parallel import mesh as meshes
+from smelter_tpu_torch.render.capture import route
 from smelter_tpu_torch.render.program import split_layout
 from smelter_tpu_torch.scene import components as comp
 from smelter_tpu_torch.scene.layout_types import BorderRadius, RenderChildNode, RenderColor
@@ -261,6 +262,7 @@ def make_flagship_general_compose(
     cache: dict = {}  # this scene's K1 member table, kept on the device
     canvas_dtype, assembly = _canvas_dtype(True), _assembly_mode()
 
+    @route("flagship_general_compose")
     def general4k(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
         # deferred sources: the texture layouts crop+resize the subsampled
         # YUV planes directly; full-resolution RGBA never exists
@@ -369,6 +371,7 @@ def _grid_stages(grid, n_inputs, out_res: Resolution) -> Stages:
 
 
 def _make_yuv_grid_compose(stages: Stages, n_inputs, in_res: Resolution, device):
+    @route("flagship_compose")
     def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
         return stages(y, u, v)
 
@@ -400,6 +403,7 @@ def make_flagship_batched_compose(
             f"compose launches kernels that a batch cannot go through")
     batched = torch.func.vmap(stages)
 
+    @route("flagship_batched_compose")
     def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
         return batched(y, u, v)
 
@@ -457,6 +461,7 @@ def _make_general_compose(stages: Stages, n_inputs, in_res: Resolution, device):
     planner-stable and composed channel-major (the colour layers through K3
     on the card, the tiles through the sampled pass), and the canvas
     converted to YUV420 (K2)."""
+    @route("flagship_compose")
     def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
         return stages(y, u, v)
 

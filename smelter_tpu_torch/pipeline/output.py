@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from smelter_tpu_torch.core.types import Frame, PixelFormat, Resolution
+from smelter_tpu_torch.utils import tracing
 from smelter_tpu_torch.utils.channels import Channel, Closed
 
 logger = logging.getLogger("smelter.pipeline.output")
@@ -308,8 +309,6 @@ class PipelineOutput:
                     break
                 if isinstance(item, _Eos):
                     break
-                from smelter_tpu_torch.utils import tracing
-
                 # the wait for the card's compose and copy lands here, so it
                 # gets its own span — otherwise the wait would be silently
                 # attributed to codec.video_encode
@@ -458,21 +457,25 @@ def to_host_async(frame: Frame) -> HostCopy:
     frame's compose on the same stream, and record an event; nothing waits.
     A frame on the CPU is its own host copy. The pipeline's outputs are
     YUV420 or, for 4:4:4 and 4:2:2 encoders, YUV444 (RGBA converts to
-    YUV420 on the card first)."""
-    fmt, planes = _planes_on_device(frame)
-    ready = None
-    if planes[0].device.type == "cuda":
-        pinned = tuple(torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
-                       for p in planes)
-        for dst, src in zip(pinned, planes):
-            dst.copy_(src, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        planes = pinned
-    # numpy views keep their tensors (and so the pinned memory) alive for as
-    # long as a consumer holds the frame
-    host = Frame(data=tuple(p.numpy() for p in planes), format=fmt,
-                 resolution=frame.resolution, pts=frame.pts)
+    YUV420 on the card first). Traced as `render.to_host`; counts the frame
+    (`output.to_host_frames`) and its planes' bytes (`output.to_host_bytes`)."""
+    with tracing.span("render.to_host"):
+        fmt, planes = _planes_on_device(frame)
+        ready = None
+        if planes[0].device.type == "cuda":
+            pinned = tuple(torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                           for p in planes)
+            for dst, src in zip(pinned, planes):
+                dst.copy_(src, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            planes = pinned
+        # numpy views keep their tensors (and so the pinned memory) alive for
+        # as long as a consumer holds the frame
+        host = Frame(data=tuple(p.numpy() for p in planes), format=fmt,
+                     resolution=frame.resolution, pts=frame.pts)
+        tracing.count_each((("output.to_host_frames", 1),
+                            ("output.to_host_bytes", sum(p.nbytes for p in planes))))
     return HostCopy(host, ready)
 
 

@@ -291,4 +291,5 @@ def collect_stats(pipeline) -> dict:
     from smelter_tpu_torch.utils import tracing
 
     report["spans"] = tracing.report()
+    report["counters"] = tracing.counters()
     return report

@@ -28,6 +28,14 @@ program of a structure is the closure `OutputProgram._build_inner` returns
   - Work counted per run (`each_run`: the kernels' launch counters) is
     recorded while the graph is captured and counted again on every replay,
     so the counters say what ran on the card.
+  - Each call is traced in three spans (`render.load`, `render.replay`,
+    `render.outputs`) and counted: `program.calls` and
+    `program.calls.<route>` (the route its builder named, `route`), the
+    bytes copied into the static buffers from the program's device
+    (`program.load_d2d_bytes`) and from elsewhere, the host
+    (`program.load_h2d_bytes`), and the bytes of the outputs copied out
+    (`program.out_bytes`). The sizes are fixed when the program is
+    captured, from its static buffers and the arguments of the capture.
 
 On the CPU (the tests) the same static buffers are filled and copied out,
 and the closure runs eagerly on them, with no graph.
@@ -44,6 +52,8 @@ import traceback
 from typing import Callable, List, Optional, Tuple
 
 import torch
+
+from smelter_tpu_torch.utils import tracing
 
 # CUDA graphs allow one capture at a time in a process; the lock covers the
 # warm-up on the capture stream as well
@@ -147,6 +157,17 @@ def device_constant(maxsize: int):
     return wrap
 
 
+def route(name: str) -> Callable[[Callable], Callable]:
+    """Name the route of a program function (a decorator): its captured
+    program counts its calls under `program.calls.<name>`."""
+
+    def name_it(fn: Callable) -> Callable:
+        fn.route = name
+        return fn
+
+    return name_it
+
+
 def _map_tensors(x, fn):
     """`x` (tensors in tuples, lists and dicts) with `fn` applied to each
     tensor; anything else is kept as it is."""
@@ -202,20 +223,38 @@ def _where(exc: BaseException) -> str:
     return f"{f.filename}:{f.lineno} `{f.line}`"
 
 
+def _call_counts(fn: Callable, static, args, outputs) -> Tuple[Tuple[str, int], ...]:
+    """What one call of a program counts: its call, under its route too,
+    the bytes loaded into `static` from `args` by where each argument lives,
+    and the bytes of `outputs` copied out."""
+    d2d = h2d = 0
+    for dst, src in zip(_tensors(static), _tensors(args)):
+        if src.device == dst.device:
+            d2d += dst.nbytes
+        else:
+            h2d += dst.nbytes
+    return (("program.calls", 1), (f"program.calls.{getattr(fn, 'route', 'unnamed')}", 1),
+            ("program.load_d2d_bytes", d2d), ("program.load_h2d_bytes", h2d),
+            ("program.out_bytes", sum(t.nbytes for t in _tensors(outputs))))
+
+
 class CapturedProgram:
     """A program of one structure: static argument buffers and, on a CUDA
     device, the graph captured over them. Call it with arguments of the
     shapes it was captured with; it returns outputs that it never writes
     again. `capture_ms` is the host time of the warm-up and the capture,
-    `graph_bytes` the device memory the capture reserved (0 on the CPU)."""
+    `graph_bytes` the device memory the capture reserved (0 on the CPU),
+    `counts` what each call adds to the tracing counters (`_call_counts`)."""
 
     def __init__(self, fn: Callable, static, graph, outputs, scope: _Scope,
-                 capture_ms: float = 0.0, graph_bytes: int = 0) -> None:
+                 counts: Tuple[Tuple[str, int], ...], capture_ms: float = 0.0,
+                 graph_bytes: int = 0) -> None:
         self.fn = fn
         self._static = static
         self._graph = graph
         self._outputs = outputs
         self._scope = scope  # the device tensors and constants the graph reads
+        self.counts = counts
         self.capture_ms = capture_ms
         self.graph_bytes = graph_bytes
 
@@ -236,8 +275,14 @@ class CapturedProgram:
         return self._outputs
 
     def __call__(self, *args):
-        self.load(*args)
-        return _map_tensors(self.run(), torch.clone)
+        with tracing.span("render.load"):
+            self.load(*args)
+        with tracing.span("render.replay"):
+            out = self.run()
+        with tracing.span("render.outputs"):
+            out = _map_tensors(out, torch.clone)
+        tracing.count_each(self.counts)
+        return out
 
 
 def capture(fn: Callable, args: tuple, device, pool=None,
@@ -257,7 +302,9 @@ def capture(fn: Callable, args: tuple, device, pool=None,
         static = _map_tensors(args, lambda t: torch.empty(t.shape, dtype=t.dtype, device=device))
         _copy_into(static, args)
         if device.type != "cuda":
-            return CapturedProgram(fn, static, None, None, scope), fn(*static)
+            out = fn(*static)
+            return (CapturedProgram(fn, static, None, None, scope,
+                                    _call_counts(fn, static, args, out)), out)
         t0 = time.perf_counter()
         replay_stream = torch.cuda.current_stream(device)
         stream = stream if stream is not None else torch.cuda.Stream(device)
@@ -291,5 +338,6 @@ def capture(fn: Callable, args: tuple, device, pool=None,
         for t in scope.held + _tensors(out):
             t.record_stream(replay_stream)
         program = CapturedProgram(fn, static, graph, outputs, scope,
+                                  _call_counts(fn, static, args, outputs),
                                   (time.perf_counter() - t0) * 1e3, graph_bytes)
     return program, out

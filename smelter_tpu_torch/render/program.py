@@ -63,7 +63,7 @@ from smelter_tpu_torch.ops.compose import (
 from smelter_tpu_torch.ops.resample import build_mips, resize_bilinear, resize_matmul
 from smelter_tpu_torch.ops.rotate import MAX_SHEAR_BANDS, rotation_band_count
 from smelter_tpu_torch.render import shader_validation as sv
-from smelter_tpu_torch.render.capture import CapturedProgram, capture
+from smelter_tpu_torch.render.capture import CapturedProgram, capture, route
 from smelter_tpu_torch.render.shader_ns import ShaderArray, ShaderNamespace
 from smelter_tpu_torch.scene.layout_types import (
     Mask,
@@ -868,18 +868,26 @@ class OutputProgram:
             key_parts.append((nid, "web", res, method))
             return res
 
-        visit(self.root)
-        frame_buf, raw_planes = _pack_frame_buf(
-            used_frames, pin=self.device.type == "cuda")
+        with tracing.span("render.plan.walk"):
+            visit(self.root)
+            key = tuple(key_parts)
+        with tracing.span("render.plan.pack"):
+            frame_buf, raw_planes = _pack_frame_buf(
+                used_frames, pin=self.device.type == "cuda")
+            packed_params = _pack_layout_params(layout_params, pts)
+        aux_textures: Dict[int, torch.Tensor] = {}
+        if aux:
+            with tracing.span("render.plan.aux"):
+                aux_textures = {nid: self._dev_aux(nid, a) for nid, a in aux.items()}
         plan = FramePlan(
             frame_buf=frame_buf,
             raw_planes=raw_planes,
-            packed_params=_pack_layout_params(layout_params, pts),
-            aux_textures={nid: self._dev_aux(nid, a) for nid, a in aux.items()},
+            packed_params=packed_params,
+            aux_textures=aux_textures,
             shader_params=shader_params,
         )
         self._used_frames = used_frames
-        return tuple(key_parts), plan
+        return key, plan
 
     def _plan_subtree_embed(self, child: Node, res: Resolution, pts: float,
                             input_frames):
@@ -956,9 +964,15 @@ class OutputProgram:
         frame until the program is ready)."""
         with tracing.span("render.plan"):
             key, plan = self.plan(pts, input_frames)
-        program = self._build_cache.get(key)
+        with tracing.span("render.lookup"):
+            # hashes the whole structure key, and compares it on a hit
+            program = self._build_cache.get(key)
+            tracing.count_each((("program.lookups", 1),
+                                ("program.hits", int(program is not None))))
         if program is not None:
-            return program(*self._args(plan))
+            with tracing.span("render.args"):
+                args = self._args(plan)
+            return program(*args)
         if allow_async_compile:
             self._compile_async(key, plan, input_frames)
             return None
@@ -984,14 +998,17 @@ class OutputProgram:
         (the program, this frame's output)."""
         fn = self._build(key, input_frames)
         with tracing.span("render.capture"):
-            return capture(fn, self._args(plan), self.device, pool=self._graph_pool,
-                           stream=self._capture_stream)
+            captured = capture(fn, self._args(plan), self.device, pool=self._graph_pool,
+                               stream=self._capture_stream)
+        tracing.count("program.captures")
+        return captured
 
     def _store_program(self, key: tuple, program: CapturedProgram) -> None:
         with self._compile_lock:
             if len(self._build_cache) >= self.MAX_CACHED_PROGRAMS:
                 oldest = next(iter(self._build_cache))
                 del self._build_cache[oldest]
+                tracing.count("program.evictions")
             self._build_cache[key] = program
 
     def _compile_async(self, key: tuple, plan: FramePlan, input_frames) -> None:
@@ -1084,6 +1101,7 @@ class OutputProgram:
         canvas_dtype = _canvas_dtype(root_planar)
         assembly = _assembly_mode()
 
+        @route("general")
         def run(frame_buf, raw_planes, packed_params, aux_textures, shader_params):
             layout_params = _unpack_layout_params(packed_params, static_statics)
             time = packed_params[-1]  # a 0-d view on the device
@@ -1305,6 +1323,7 @@ def _try_yuv_grid_program(
         [(tile, tile[1], tile[2], tile[3], tile[4]) for tile in tiles], H, W
     )
 
+    @route("grid")
     def run(frame_buf, raw_planes, packed_params, aux_textures, shader_params):
         # the parameters are unused: the grid's geometry is all static
         def tile_planes(tile):
