@@ -48,6 +48,13 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      on the tensor cores and none in f32 (cuBLAS's kernel names in
      torch.profiler), as many as an eager frame counts
      (`resample.LAUNCHES`); times both eager and replayed;
+  5b. drives the renderer's YUV grid program, the path both benchmark cells
+     run (`grid_program_phase`): 16 1080p YUV420 inputs on the card into one
+     4K Tiles of 16 and into four 1080p Tiles of 4; checks that each replay
+     of an output launches `grid_resize` once and no other kernel and
+     counts 48 (4K) or 12 (1080p) in `program.grid.tile_planes`, that a
+     replay equals its program run eagerly bit for bit and that the frames
+     are within 1 step of the plain chain on the card;
   6. drives the renderer (`smelter_tpu_torch.render.renderer.Renderer`), the
      entry point a pipeline calls, on 16 host YUV420 inputs at 1080p into a
      4K YUV420 output: a Tiles grid under a highlight frame and a lower-third
@@ -114,7 +121,11 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      in phase 5 (and no replay of phase 5 ran a kernel of the plain route),
      the output dtype (bf16 where the reference casts, f32 where it keeps)
      and the bound (bytes at 3.35 TB/s, or operations at the bf16 tensor
-     cores' 989 TFLOP/s), printed as `{"resize_gemms": [...]}`; and K4 and K5
+     cores' 989 TFLOP/s), printed as `{"resize_gemms": [...]}`; the banded
+     grid resize (`grid_resize_rows`) at the two benchmark cells' geometries,
+     replayed and on the device against its bound and against the plain
+     chain on the card (casts, cuBLAS, `_round_u8`, concatenation), with
+     their parity, printed as `{"grid_resize": [...]}`; and K4 and K5
      on phase 4b's general_4k frame (all of its launches back to back, the
      device time a launch, the plain versions, the bounds from this run's
      bytes; K4 on each 16-bit canvas too);
@@ -255,13 +266,15 @@ animated-texture numbers, a JSON line of the pipeline's numbers
 phase (`{"nodes": ...}`), a JSON line of the captured programs of every
 phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
-JSON line of the kernels (K1-K5; `launches` from the pipeline's offline
-4K run for K1-K3 and from one general_4k replay for K4 and K5,
+JSON line of the kernels (K1-K5 and grid_resize; `launches` from the
+pipeline's offline 4K run for K1-K3, from one general_4k replay for K4 and
+K5 and from phase 5b's 4K grid replays for grid_resize,
 each path's counts under `launches_by_path`, the nodes, multichip,
 bench, tools and soak phases' included, the tools' and the A/B tools' per tool;
 K1's and K2's 16-bit times, bounds and launches per replay under
 `storage_16bit`), after a JSON line of the resize GEMMs' sites
-(`{"resize_gemms": [...]}`), the nvidia-smi line, and
+(`{"resize_gemms": [...]}`) and of the grid resize (`{"grid_resize":
+[...]}`), the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -320,13 +333,18 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-KERNEL_NAMES = ("scene_assembly", "yuv_out", "sdf_layers", "group_blend", "row_shear")
+KERNEL_NAMES = ("scene_assembly", "yuv_out", "sdf_layers", "group_blend", "row_shear",
+                "grid_resize")
+# the kernels of the general and RGBA routes; the YUV grid program runs
+# grid_resize alone
+GENERAL_KERNELS = KERNEL_NAMES[:5]
 
 
 def kernel_modules():
-    """{name: wrapper module} of the port's kernels, K1-K5, each with its
-    `LAUNCHES` count."""
+    """{name: wrapper module} of the port's kernels, K1-K5 and grid_resize,
+    each with its `LAUNCHES` count."""
     from smelter_tpu_torch.ops.hopper import (
+        grid_resize,
         group_blend,
         row_shear,
         scene_assembly,
@@ -334,7 +352,7 @@ def kernel_modules():
         yuv_out,
     )
 
-    mods = (scene_assembly, yuv_out, sdf_layers, group_blend, row_shear)
+    mods = (scene_assembly, yuv_out, sdf_layers, group_blend, row_shear, grid_resize)
     return dict(zip(KERNEL_NAMES, mods))
 
 
@@ -1340,6 +1358,185 @@ def resize_gemm_rows(site_logs, renders, launches, stamp):
                   f"{row['bound_by']} ({t_ops:.4f} ops, {t_bytes:.4f} bytes), "
                   f"{row['bound_ms'] / t:.0%} of bound {stamp}")
     return rows, f32_names
+
+
+# the YUV grid program's layouts of the benchmark's cells: (cell, tiles a
+# side of the grid, output width and height), 1080p inputs
+GRID_RESIZE_CELLS = (("tiles16_4k", 4, 3840, 2160), ("tiles4to1_1080p", 2, 1920, 1080))
+
+
+def grid_resize_rows(dev, stamp):
+    """Phase 9's rows of the banded grid resize (`ops/hopper/grid_resize.py`)
+    at the benchmark cells' geometries (16 x 1080p into 3840x2160 by a 4 x 4
+    grid; 4 into one 1920x1080 output by a 2 x 2 one): held to the plain
+    chain on the card (the bf16 casts, cuBLAS's GEMMs, `_round_u8` and the
+    concatenation, the library yardstick) by the largest u8 step and the
+    samples that differ a million, and timed: one frame's launch captured
+    and replayed back to back ("ms"), the kernel alone on the device
+    (torch.profiler), the plain chain replayed the same way ("plain_ms"),
+    against the bound (each input sample read once and each output sample
+    written once at 3.35 TB/s). Gates: one launch a frame, at most 1 step,
+    at most 10 samples a million."""
+    import torch
+
+    from smelter_tpu_torch.ops.hopper import grid_resize
+    from smelter_tpu_torch.render.capture import capture
+
+    def replayed_ms(fn):
+        prog, _ = capture(lambda _: fn(), (torch.zeros(1, device=dev),), dev)
+        t = kernel_ms(prog.run, n=20)
+        del prog
+        return t
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for cell, side, w, h in GRID_RESIZE_CELLS:
+        tw, th = w // side, h // side
+        tiles = [(r * th, c * tw, th, tw, (0, 0, IN_H, IN_W))
+                 for r in range(side) for c in range(side)]
+        g = grid_resize.GridResize(tiles, h, w, (16, 128, 128))
+        sources = [tuple(torch.randint(0, 256, s, dtype=torch.uint8, generator=gen, device=dev)
+                         for s in ((IN_H, IN_W), (IN_H // 2, IN_W // 2), (IN_H // 2, IN_W // 2)))
+                   for _ in tiles]
+        n0 = grid_resize.LAUNCHES
+        got = g(sources, dev)
+        torch.cuda.synchronize()
+        check(grid_resize.LAUNCHES - n0 == 1,
+              f"grid_resize {cell}: {grid_resize.LAUNCHES - n0} launches a frame, not 1")
+        want = g.resize_tiles_plain(sources, dev)
+        diffs = [(a.to(torch.int32) - b.to(torch.int32)).abs() for a, b in zip(got, want)]
+        max_lsb = max(int(d.max()) for d in diffs)
+        ppm = sum(int((d > 0).sum()) for d in diffs) * 1e6 / sum(d.numel() for d in diffs)
+        check(max_lsb <= 1 and ppm <= 10,
+              f"grid_resize {cell}: {max_lsb} LSB, {ppm} samples a million differ")
+        kernel = lambda g=g, sources=sources: g(sources, dev)  # noqa: E731
+        plain = lambda g=g, sources=sources: g.resize_tiles_plain(sources, dev)  # noqa: E731
+        t, t_plain = replayed_ms(kernel), replayed_ms(plain)
+        t_dev = device_ms(kernel, "grid_resize_kernel", n=10)
+        n_bytes = len(tiles) * IN_H * IN_W * 3 // 2 + h * w * 3 // 2
+        bound, by = bound_ms(n_bytes)
+        shapes = g.plane_views(sources)[1]
+        _, strips, _, smem = grid_resize.plan(shapes).launch(0, len(shapes))
+        per_sm = grid_resize.blocks_per_sm(dev, smem)
+        row = dict(cell=cell, tiles=len(tiles), tile_planes=len(shapes), strips=strips,
+                   smem_bytes=smem, blocks_per_sm=per_sm, ms=t, device_ms=t_dev,
+                   plain_ms=t_plain,
+                   bound_ms=bound, bound_by=by, bytes=n_bytes, max_lsb=max_lsb,
+                   diff_ppm=ppm)
+        rows.append(row)
+        print(f"time grid_resize {cell} ({len(tiles)} tiles, {len(shapes)} tile planes, "
+              f"{strips} strips, {smem} B of shared memory a block, {per_sm} blocks an "
+              f"SM): replayed "
+              f"{t:.4f} ms, device {t_dev} ms, plain chain {t_plain:.4f} ms, bound {bound:.4f} "
+              f"ms by {by} ({n_bytes} B), {bound / t:.0%} of bound; against the plain chain "
+              f"{max_lsb} LSB, {ppm:.3f} samples a million differ {stamp}")
+    return rows
+
+
+# the renderer's YUV grid program as each benchmark cell runs it: outputs
+# (each a Tiles of N_INPUTS / outputs of the 1080p inputs) and their size
+GRID_PROGRAM_CELLS = (("tiles16_4k", 1, (OUT_W, OUT_H)), ("tiles4to1_1080p", 4, (IN_W, IN_H)))
+GRID_PROGRAM_TICKS = 8
+
+
+def _grid_of(program):
+    """The `GridResize` a captured grid program's closure runs."""
+    cells = (c.cell_contents for c in program.fn.__closure__)
+    return dict(zip(program.fn.__code__.co_freevars, cells))["grid"]
+
+
+def grid_program_phase(dev, stamp, ticks=GRID_PROGRAM_TICKS):
+    """Phase 5b: the renderer's YUV grid program (`render/program.
+    _try_yuv_grid_program`), the path both benchmark cells run: 16 1080p
+    PLANAR_YUV420 inputs on the card into one 3840x2160 Tiles of 16
+    (`tiles16_4k`) and into four 1920x1080 Tiles of 4 each
+    (`tiles4to1_1080p`), PLANAR_YUV420 out. After the outputs' captures the
+    kernels' counts and the tracing counters are set to 0 and `ticks` ticks
+    replayed: each output's replay launches `grid_resize` once and no other
+    kernel, and counts its tile planes in `program.grid.tile_planes` (48 a
+    4K frame, 12 a 1080p output) and itself in `program.calls.grid`. One more
+    tick under `EagerCheck` holds each replay bit for bit to its program run
+    eagerly, and each output frame to the plain chain on the card (at most 1
+    step, at most 10 samples a million). Returns {cell: launches over the
+    counted ticks} and the numbers."""
+    import torch
+
+    from smelter_tpu_torch.core import types as tt
+    from smelter_tpu_torch.render.renderer import Renderer, RendererOptions
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    sources = [tuple(torch.randint(0, 256, s, dtype=torch.uint8, generator=gen, device=dev)
+                     for s in ((IN_H, IN_W), (IN_H // 2, IN_W // 2), (IN_H // 2, IN_W // 2)))
+               for _ in range(N_INPUTS)]
+    frames = {f"input_{i}": tt.Frame(data=planes, format=tt.PixelFormat.PLANAR_YUV420,
+                                     resolution=tt.Resolution(IN_W, IN_H), pts=0.0)
+              for i, planes in enumerate(sources)}
+    launches, numbers = {}, {}
+    for cell, outputs, (w, h) in GRID_PROGRAM_CELLS:
+        per = N_INPUTS // outputs
+        r = Renderer(RendererOptions(async_compile=False), device=dev)
+        for i in range(N_INPUTS):
+            r.register_input(f"input_{i}")
+        for o in range(outputs):
+            r.update_scene(f"out_{o}", comp.Tiles(
+                background_color=tt.RGBAColor(0, 0, 0, 255), tile_aspect_ratio=(16, 9),
+                children=[comp.InputStream(input_id=f"input_{i}")
+                          for i in range(o * per, (o + 1) * per)]),
+                tt.Resolution(w, h), tt.PixelFormat.PLANAR_YUV420)
+        r.render(tt.FrameSet(pts=0.0, frames=frames))  # the captures
+        torch.cuda.synchronize()
+        zero_launches()
+        tracing.reset()
+        t0 = time.perf_counter()
+        for k in range(1, ticks + 1):
+            r.render(tt.FrameSet(pts=k / 32, frames=frames))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        launches[cell] = counts = launch_counts()
+        counters = tracing.counters()
+        tracing.reset()
+        replays, planes = ticks * outputs, 3 * per
+        print(f"grid program {cell}: {ticks} ticks of {outputs} outputs replayed, launches "
+              f"{counts}, program.grid.tile_planes {counters.get('program.grid.tile_planes')}, "
+              f"program.calls.grid {counters.get('program.calls.grid')}, {wall_ms:.3f} ms a "
+              f"tick on the host {stamp}")
+        check(counts == {**dict.fromkeys(KERNEL_NAMES, 0), "grid_resize": replays},
+              f"grid program {cell}: {replays} replays launched {counts}, not one grid_resize "
+              f"each")
+        check(counters.get("program.grid.tile_planes") == replays * planes,
+              f"grid program {cell}: program.grid.tile_planes "
+              f"{counters.get('program.grid.tile_planes')}, not {planes} a replay")
+        check(counters.get("program.calls.grid") == replays,
+              f"grid program {cell}: program.calls.grid {counters.get('program.calls.grid')}, "
+              f"not {replays}")
+        with EagerCheck(f"grid program {cell}") as eager:
+            out = r.render(tt.FrameSet(pts=(ticks + 1) / 32, frames=frames)).frames
+        stats = eager.report()
+        kinds = [kind for _, _, kind in eager.renders]
+        check(kinds == ["replay"] * outputs, f"grid program {cell}: renders {kinds}")
+        max_lsb, n_diff, n_all = 0, 0, 0
+        for o in range(outputs):
+            (program,) = r._programs[f"out_{o}"]._build_cache.values()
+            check(program.fn.route == "grid", f"grid program {cell}: route {program.fn.route}")
+            want = _grid_of(program).resize_tiles_plain(sources[o * per : (o + 1) * per], dev)
+            for a, b in zip(out[f"out_{o}"].data, want):
+                d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+                max_lsb = max(max_lsb, int(d.max()))
+                n_diff += int((d > 0).sum())
+                n_all += d.numel()
+        ppm = n_diff * 1e6 / n_all
+        print(f"grid program {cell}: against the plain chain on the card {max_lsb} LSB, "
+              f"{ppm:.3f} samples a million differ {stamp}")
+        check(max_lsb <= 1 and ppm <= 10,
+              f"grid program {cell}: {max_lsb} LSB, {ppm} samples a million differ")
+        r.close()
+        numbers[cell] = dict(outputs=outputs, ticks=ticks, launches_a_tick=outputs,
+                             tile_planes_an_output=planes, host_ms_a_tick=wall_ms,
+                             max_lsb=max_lsb, diff_ppm=ppm,
+                             eager_mismatches=stats["eager_mismatches"])
+    return launches, numbers
 
 
 class EagerCheck:
@@ -4384,8 +4581,8 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
         print(f"bench {label}: replay vs eager max abs err {mx}, one replay launched "
               f"{replay_launches}")
         check(mx == 0, f"bench {label}: the replay differs from the eager function by {mx}")
-        expected = ((1, 1, 0, GENERAL_GROUPS, GENERAL_SHEARS) if label == "general_4k"
-                    else (0, 0, 0, 0, 0))
+        expected = ((1, 1, 0, GENERAL_GROUPS, GENERAL_SHEARS, 0) if label == "general_4k"
+                    else (0, 0, 0, 0, 0, 0))
         check(tuple(replay_launches.values()) == expected,
               f"bench {label}: one replay launched {replay_launches}")
         if label == "grid":
@@ -4811,7 +5008,8 @@ def canvas_builders_phase(dev, stamp):
               f"eager max {mx}, replay {t_replay:.4f} ms {stamp}")
         check(stored == [_storage_dtype(name)], f"canvas {name}: the canvas was {stored}")
         check(launches == {"scene_assembly": 1, "yuv_out": 1, "sdf_layers": 0,
-                           "group_blend": GENERAL_GROUPS, "row_shear": GENERAL_SHEARS},
+                           "group_blend": GENERAL_GROUPS, "row_shear": GENERAL_SHEARS,
+                           "grid_resize": 0},
               f"canvas {name}: launches per replay {launches}")
         check(mx == 0, f"canvas {name}: the replay differs from the eager function by {mx}")
         check_planes(f"canvas {name}", replay, OUT_W, OUT_H)
@@ -5402,6 +5600,9 @@ def main() -> int:
     parity_vs_cpu(make_flagship_general_compose, 4, 256, 144, 768, 432, dev, "general_4k")
     parity_vs_cpu(make_flagship_compose, N_INPUTS, IN_W, IN_H, OUT_W, OUT_H, dev, "grid")
 
+    # phase 5b: the renderer's YUV grid program at the benchmark cells' geometries
+    grid_launches, grid_program = grid_program_phase(dev, stamp)
+
     # phase 16: the benchmark entry point, `python -m smelter_tpu_torch.bench`
     bench_launches, bench_numbers = bench_phase(dev, stamp)
 
@@ -5469,7 +5670,8 @@ def main() -> int:
     # phase 8: the pipeline, offline (checked) and in real time (measured)
     t_phase = time.perf_counter()
     pipe_launches, pipe_offline = pipeline_phase(dev)
-    check(all(pipe_launches.values()), f"pipeline: a kernel never launched: {pipe_launches}")
+    check(all(pipe_launches[k] for k in GENERAL_KERNELS),
+          f"pipeline: a kernel never launched: {pipe_launches}")
     pipe_live = [pipeline_live(dev, N_INPUTS, OUT_W, OUT_H, stamp),
                  pipeline_live(dev, 4, IN_W, IN_H, stamp)]
     print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
@@ -5488,14 +5690,16 @@ def main() -> int:
     t_phase = time.perf_counter()
     edge_launches, edges = edges_phase(dev, stamp)
     if edge_launches is not None:
-        check(all(edge_launches.values()), f"edges: a kernel never launched: {edge_launches}")
+        check(all(edge_launches[k] for k in GENERAL_KERNELS),
+              f"edges: a kernel never launched: {edge_launches}")
     print(f"edges phase: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 13b: MoQ's media path through the server
     t_phase = time.perf_counter()
     moq_launches, moq = moq_phase(dev, stamp, moq_transport_numbers)
     if moq_launches is not None:
-        check(all(moq_launches.values()), f"moq: a kernel never launched: {moq_launches}")
+        check(all(moq_launches[k] for k in GENERAL_KERNELS),
+              f"moq: a kernel never launched: {moq_launches}")
     print(f"moq phase: {time.perf_counter() - t_phase:.1f} s")
 
     # the reference's 4K goldens, rendered on the card
@@ -5723,6 +5927,7 @@ def main() -> int:
     renders = {"grid": 1, "general_4k": 1,
                "animated": capture_stats["animated textures"]["eager_compared"]}
     resize_rows, f32_names = resize_gemm_rows(site_logs, renders, gemm_launches, stamp)
+    grid_rows = grid_resize_rows(dev, stamp)
     for label, kernels in replay_gemms.items():
         check(not f32_names & set(kernels),
               f"one {label} replay ran the plain route's f32 GEMMs {f32_names & set(kernels)}")
@@ -5790,10 +5995,14 @@ def main() -> int:
     check("jax" not in sys.modules, "the port imported jax")
     # "launches": K1-K3's from the pipeline's offline run at 16 x 1080p -> 4K
     # (their slices' main path), K4's and K5's from one general_4k replay
-    # (theirs); each path's counts under "launches_by_path". No single
-    # PyTorch call computes any of the five functions: library_ms is null.
-    # K4's and K5's times are those of one general_4k frame's launches, "ms"
-    # replayed from a CUDA graph, "eager_ms" run eagerly.
+    # (theirs), grid_resize's from phase 5b's replays of the 4K grid program
+    # (its); each path's counts under "launches_by_path". No single PyTorch
+    # call computes any of K1-K5: their library_ms is null. K4's and K5's
+    # times are those of one general_4k frame's launches, "ms" replayed from
+    # a CUDA graph, "eager_ms" run eagerly; grid_resize's those of one 4K
+    # frame (phase 9's `grid_resize_rows`), whose plain version is the
+    # library chain (bf16 casts, cuBLAS's GEMMs, `_round_u8`, concatenation):
+    # its library_ms is that chain's replayed ms.
     def by_path(name):
         return {"general_4k": launches[name], "renderer": render_launches[name],
                 "animated": anim_launches[name], "pipeline": pipe_launches[name],
@@ -5802,7 +6011,10 @@ def main() -> int:
                 "multichip": multichip_launches[name], "bench": bench_launches[name],
                 "tools": {tool: n[name] for tool, n in tool_launches.items()},
                 "canvas_tools": {tool: n[name] for tool, n in canvas_launches.items()},
-                "soak": soak_launches[name]}
+                "soak": soak_launches[name],
+                "grid_program": {cell: n[name] for cell, n in grid_launches.items()}}
+
+    grid_4k = next(row for row in grid_rows if row["cell"] == "tiles16_4k")
 
     kernels = [
         {"name": "scene_assembly", "route": "cuda",
@@ -5849,11 +6061,22 @@ def main() -> int:
          "launches_by_path": by_path("row_shear"),
          "max_abs_err": group_numbers["k5_max_abs_err"],
          "library_ms": None, **k5_main},
+        {"name": "grid_resize", "route": "cuda",
+         "source": "smelter_tpu_torch/csrc/grid_resize.cu",
+         "replaces": "smelter_tpu/render/program.py:1331",
+         "launches": grid_launches["tiles16_4k"]["grid_resize"],
+         "launches_by_path": by_path("grid_resize"),
+         "max_abs_err": max(row["max_lsb"] for row in grid_rows),
+         "ms": grid_4k["ms"], "device_ms": grid_4k["device_ms"],
+         "plain_ms": grid_4k["plain_ms"], "library_ms": grid_4k["plain_ms"],
+         "bound_ms": grid_4k["bound_ms"], "bound_by": grid_4k["bound_by"],
+         "bytes": grid_4k["bytes"], "grid_program": grid_program},
     ]
     lossy = [k for k in TRACE_LOSSES if k]
     print(f"profiler traces of phases 5 and 9: {len(TRACE_LOSSES)}, of which {len(lossy)} lost "
           f"opening records ({sorted(set(lossy))} of {PAD_LAUNCHES}) {stamp}")
     print(json.dumps({"resize_gemms": resize_rows}))
+    print(json.dumps({"grid_resize": grid_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -109,6 +109,10 @@ def library() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.smelter_row_shear.argtypes = [p, p, i, i, i, ll, ll, ll, ctypes.c_double, i, p]
     lib.smelter_row_shear.restype = i
+    lib.smelter_grid_resize.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    lib.smelter_grid_resize.restype = i
+    lib.smelter_grid_resize_blocks_per_sm.argtypes = [i]
+    lib.smelter_grid_resize_blocks_per_sm.restype = i
     lib.smelter_cuda_error_string.argtypes = [i]
     lib.smelter_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -38,6 +38,7 @@ and NV12 outputs.
 from __future__ import annotations
 
 import atexit
+import functools
 import logging
 import math
 import threading
@@ -60,10 +61,11 @@ from smelter_tpu_torch.ops.compose import (
     _canvas_dtype,
     compose_layouts,
 )
-from smelter_tpu_torch.ops.resample import build_mips, resize_bilinear, resize_matmul
+from smelter_tpu_torch.ops.hopper.grid_resize import GridResize
+from smelter_tpu_torch.ops.resample import build_mips, resize_bilinear
 from smelter_tpu_torch.ops.rotate import MAX_SHEAR_BANDS, rotation_band_count
 from smelter_tpu_torch.render import shader_validation as sv
-from smelter_tpu_torch.render.capture import CapturedProgram, capture, route
+from smelter_tpu_torch.render.capture import CapturedProgram, capture, each_run, route
 from smelter_tpu_torch.render.shader_ns import ShaderArray, ShaderNamespace
 from smelter_tpu_torch.scene.layout_types import (
     Mask,
@@ -1263,13 +1265,14 @@ def _try_yuv_grid_program(
 ) -> Optional[Callable]:
     """If this structure is an opaque axis-aligned grid of planar-YUV420
     inputs over an opaque background, build the YUV-domain program: per-tile
-    separable resizes (GEMMs) + static slice placements, chroma at half
-    resolution, no RGBA round trip. Returns None when conditions don't hold.
+    separable resizes and static placements, chroma at half resolution, no
+    RGBA round trip (`ops/hopper/grid_resize.GridResize`: one banded pass on
+    the card, the resize GEMMs on the CPU). Returns None when conditions
+    don't hold. Each run counts its tile planes in
+    `program.grid.tile_planes`.
 
     Texture sources must resolve (possibly through collapsed wrappers) to
     InputStreamNodes with planar-YUV420 frames."""
-    from smelter_tpu_torch.parallel.flagship import _round_u8, plan_grid_partition
-
     if out_format != PixelFormat.PLANAR_YUV420 or not statics:
         return None
     child_inputs: List[Optional[str]] = [
@@ -1316,47 +1319,14 @@ def _try_yuv_grid_program(
         else:
             return None  # shadows need blending
 
-    ch_, cw_ = H // 2, W // 2
-    # concatenation when the tiles exactly partition the canvas (one write
-    # instead of one region write per tile)
-    partition = plan_grid_partition(
-        [(tile, tile[1], tile[2], tile[3], tile[4]) for tile in tiles], H, W
-    )
+    grid = GridResize([tile[1:] for tile in tiles], H, W, bg)
+    tile_planes = functools.partial(tracing.count, "program.grid.tile_planes", 3 * len(tiles))
 
     @route("grid")
     def run(frame_buf, raw_planes, packed_params, aux_textures, shader_params):
         # the parameters are unused: the grid's geometry is all static
-        def tile_planes(tile):
-            iid, t, l, h, w, (ct, cl, chh, cww) = tile
-            y, u, v = access.get(iid, frame_buf, raw_planes)
-            ys = y[ct : ct + chh, cl : cl + cww]
-            us = u[ct // 2 : (ct + chh) // 2, cl // 2 : (cl + cww) // 2]
-            vs = v[ct // 2 : (ct + chh) // 2, cl // 2 : (cl + cww) // 2]
-            return (
-                _round_u8(resize_matmul(ys, h, w)),
-                _round_u8(resize_matmul(us, h // 2, w // 2)),
-                _round_u8(resize_matmul(vs, h // 2, w // 2)),
-            )
-
-        if partition is not None:
-            rows_y, rows_u, rows_v = [], [], []
-            for row in partition:
-                ry, ru, rv = zip(*(tile_planes(entry[0]) for entry in row))
-                rows_y.append(torch.cat(ry, dim=1))
-                rows_u.append(torch.cat(ru, dim=1))
-                rows_v.append(torch.cat(rv, dim=1))
-            return torch.cat(rows_y), torch.cat(rows_u), torch.cat(rows_v)
-
-        dev = frame_buf.device
-        canvas_y = torch.full((H, W), bg[0], dtype=torch.uint8, device=dev)
-        canvas_u = torch.full((ch_, cw_), bg[1], dtype=torch.uint8, device=dev)
-        canvas_v = torch.full((ch_, cw_), bg[2], dtype=torch.uint8, device=dev)
-        for tile in tiles:
-            _, t, l, h, w, _ = tile
-            ty, tu, tv = tile_planes(tile)
-            canvas_y[t : t + h, l : l + w] = ty
-            canvas_u[t // 2 : (t + h) // 2, l // 2 : (l + w) // 2] = tu
-            canvas_v[t // 2 : (t + h) // 2, l // 2 : (l + w) // 2] = tv
-        return canvas_y, canvas_u, canvas_v
+        each_run(tile_planes)
+        return grid([access.get(tile[0], frame_buf, raw_planes) for tile in tiles],
+                    frame_buf.device)
 
     return run

@@ -827,3 +827,107 @@ def test_group_kernels_replay_equal_to_eager_without_a_sync(cuda):
     torch.cuda.synchronize()
     assert (group_blend.LAUNCHES - before[0], row_shear.LAUNCHES - before[1]) == (len(groups), 6)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the banded grid resize (`ops/hopper/grid_resize.py`): layouts as (tiles,
+# canvas (w, h), source (w, h)), each tile (top, left, height, width, crop)
+def _grid_of(side, canvas, src):
+    w, h = canvas[0] // side, canvas[1] // side
+    return [(r * h, c * w, h, w, (0, 0, src[1], src[0])) for r in range(side) for c in range(side)]
+
+
+GRID_LAYOUTS = {
+    "tiles16_4k": (_grid_of(4, (3840, 2160), (1920, 1080)), (3840, 2160), (1920, 1080)),
+    "tiles4to1_1080p": (_grid_of(2, (1920, 1080), (1920, 1080)), (1920, 1080), (1920, 1080)),
+    "cropped": ([(100, 200, 540, 960, (120, 240, 800, 1400))], (1920, 1080), (1920, 1080)),
+    "upscaled": ([(0, 0, 810, 1440, (0, 0, 360, 640)), (820, 1500, 200, 300, (0, 0, 360, 640))],
+                 (1920, 1080), (640, 360)),
+    "odd_width": ([(0, 0, 480, 854, (0, 0, 1080, 1920)), (480, 854, 600, 1066, (0, 0, 1080, 1920))],
+                  (1920, 1080), (1920, 1080)),
+    "overlapping": ([(0, 0, 720, 1280, (0, 0, 1080, 1920)), (360, 640, 720, 1280, (0, 0, 1080, 1920)),
+                     (100, 1500, 300, 400, (10, 20, 900, 1600))], (1920, 1080), (1920, 1080)),
+    "many_small": (_grid_of(8, (1920, 1072), (1920, 1080)), (1920, 1072), (1920, 1080)),
+}
+
+
+def _grid_sources(dev, n, src, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w, h = src
+    return [tuple(torch.randint(0, 256, s, dtype=torch.uint8, generator=gen, device=dev)
+                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))) for _ in range(n)]
+
+
+def _lsb_and_ppm(got, want):
+    d = [(a.to(torch.int32) - b.to(torch.int32)).abs() for a, b in zip(got, want)]
+    n = sum(x.numel() for x in d)
+    return max(int(x.max()) for x in d), sum(int((x > 0).sum()) for x in d) * 1e6 / n
+
+
+@pytest.mark.parametrize("layout", sorted(GRID_LAYOUTS))
+def test_grid_resize_kernel_matches_the_plain_chain(cuda, layout):
+    """The kernel against the plain chain on the card (the bf16 cast,
+    cuBLAS's GEMMs, `_round_u8` and the placement): at most 1 step, on a
+    few samples a million (the two sum their f32 products in other
+    orders). Disjoint tiles take one launch (of up to MAX_PLANES tile
+    planes), overlapping ones one each."""
+    from smelter_tpu_torch.ops.hopper import grid_resize
+
+    tiles, (w, h), src = GRID_LAYOUTS[layout]
+    g = grid_resize.GridResize(tiles, h, w, (16, 128, 128))
+    sources = _grid_sources(cuda, len(tiles), src, seed=len(layout))
+    before = grid_resize.LAUNCHES
+    got = g(sources, cuda)
+    torch.cuda.synchronize()
+    assert grid_resize.LAUNCHES - before == len(g.launches)
+    # disjoint tiles: one launch a MAX_PLANES tile planes
+    assert len(g.launches) == (len(tiles) if layout == "overlapping"
+                               else -(-3 * len(tiles) // grid_resize.MAX_PLANES))
+    want = g.resize_tiles_plain(sources, cuda)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    mx, ppm = _lsb_and_ppm(got, want)
+    print(f"grid_resize {layout}: max {mx} LSB, {ppm:.3f} samples a million differ")
+    assert mx <= 1 and ppm <= 10
+
+
+@pytest.mark.parametrize("n,out_res,planes", [(16, (3840, 2160), 48), (4, (1920, 1080), 12)])
+def test_grid_resize_runs_once_a_replay_of_the_grid_program(cuda, n, out_res, planes):
+    """The renderer's grid program of a Tiles of `n` 1080p inputs, captured:
+    each replay launches the kernel once and counts its tile planes in
+    `program.grid.tile_planes`, and its frames stay within 1 step of the
+    plain chain."""
+    from smelter_tpu_torch.core import types as tt
+    from smelter_tpu_torch.ops.hopper import grid_resize
+    from smelter_tpu_torch.render.renderer import Renderer, RendererOptions
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.utils import tracing
+
+    r = Renderer(RendererOptions(async_compile=False), device=cuda)
+    for i in range(n):
+        r.register_input(f"input_{i}")
+    r.update_scene("out", comp.Tiles(background_color=tt.RGBAColor(0, 0, 0, 255),
+                                     tile_aspect_ratio=(16, 9),
+                                     children=[comp.InputStream(input_id=f"input_{i}")
+                                               for i in range(n)]),
+                   tt.Resolution(*out_res), tt.PixelFormat.PLANAR_YUV420)
+    sources = _grid_sources(cuda, n, (1920, 1080), seed=n)
+    frames = {f"input_{i}": tt.Frame(data=planes_, format=tt.PixelFormat.PLANAR_YUV420,
+                                     resolution=tt.Resolution(1920, 1080), pts=0.0)
+              for i, planes_ in enumerate(sources)}
+    r.render(tt.FrameSet(pts=0.0, frames=frames))  # the capture
+    torch.cuda.synchronize()
+    tracing.reset()
+    before = grid_resize.LAUNCHES
+    try:
+        for k in range(1, 4):
+            out = r.render(tt.FrameSet(pts=k / 32, frames=frames)).frames["out"].data
+        torch.cuda.synchronize()
+        assert grid_resize.LAUNCHES - before == 3
+        assert tracing.counters()["program.grid.tile_planes"] == 3 * planes
+    finally:
+        tracing.reset()
+    (program,) = r._programs["out"]._build_cache.values()
+    assert program.fn.route == "grid"
+    grid = dict(zip(program.fn.__code__.co_freevars,
+                    (c.cell_contents for c in program.fn.__closure__)))["grid"]
+    mx, _ = _lsb_and_ppm(out, grid.resize_tiles_plain(sources, cuda))
+    assert mx <= 1
