@@ -1,0 +1,17 @@
+"""Texture groups a call of the general program blends (one K4 pass
+each): `program.general.groups` over `program.calls.general`, from the
+program's counters since the window began. None where the program counts
+neither."""
+
+from smelter_tpu_torch.utils import tracing
+
+
+def read(ctx):
+    counters = getattr(tracing, "counters", None)
+    if counters is None:
+        return None
+    c = counters()
+    calls = c.get("program.calls.general", 0)
+    if not calls or "program.general.groups" not in c:
+        return None
+    return c["program.general.groups"] / calls

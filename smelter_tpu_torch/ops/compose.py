@@ -41,6 +41,13 @@ every route above) through the sampled full-canvas pass
 Scalar parameters are 0-d f32 tensors, as the reference's traced scalars
 are f32, so that every intermediate rounds as it does there.
 
+What a compose runs is counted per run of its program
+(`capture.count_each_run`: fixed when the program is captured, counted
+again on each replay): `program.general.groups` (K4 groups),
+`.assembly_members` (K1's colour and shadow members), `.tile_converts`
+(the deferred YUV tile converts) and `.shears` (K5 passes,
+`ops/rotate.py`).
+
 Corner-radius order is [top_left, top_right, bottom_right, bottom_left].
 """
 
@@ -71,6 +78,7 @@ from smelter_tpu_torch.ops.rotate import (
     rotated_bbox,
     traced_work_size,
 )
+from smelter_tpu_torch.render.capture import count_each_run
 
 MAX_MASKS_COUNT = 20
 
@@ -193,6 +201,7 @@ def _src_tile_cm(src, crop, out_h: int, out_w: int) -> torch.Tensor:
     subsampled planes directly (color_convert.yuv_tile_rgba_cm); an (H, W, 4)
     RGBA source (or a mip list, level 0 used) resizes its crop."""
     if hasattr(src, "tile_cm"):
+        count_each_run("program.general.tile_converts")
         return src.tile_cm(crop, out_h, out_w)
     img = src[0] if isinstance(src, (list, tuple)) else src
     ct, cl, chh, cww = crop
@@ -345,6 +354,7 @@ def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence,
     # applies the edge, border and masks
     src = sources[static.source_index]
     if hasattr(src, "tile_products"):
+        count_each_run("program.general.tile_converts")
         return GroupMember("yuv", static, params,
                            tuple(src.tile_products(static.static_crop, h, w)),
                            (top, left), full_range=src.full_range)
@@ -552,6 +562,7 @@ def _blend_group(canvas, members, union, sources, h: int, w: int):
     from smelter_tpu_torch.ops.hopper import group_blend
 
     layers = [_group_member(st, p, sources, union) for st, p in members]
+    count_each_run("program.general.groups")
     return group_blend.blend_group(canvas, layers, union, h, w)
 
 
@@ -707,6 +718,7 @@ def _try_scene_assembly(items, i: int, j: int, sources, h: int, w: int, clip,
     specs, plist, group_items = _assembly_members(items, i, j, clip)
     if not specs:
         return None
+    count_each_run("program.general.assembly_members", len(specs))
     params = sa.pack_member_params(plist, max(s.n_masks for s in specs))
     key = ("scene_assembly", i, j, h, w)
     spec_rows = cache.get(key) if cache is not None else None

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from smelter_tpu_torch.render.capture import device_constant
+from smelter_tpu_torch.render.capture import count_each_run, device_constant
 
 # The barrel shifter's op count scales with log2 of the shift range, so the
 # band count bounds nothing but absurd degenerate geometry.
@@ -225,6 +225,7 @@ def rotate_static_cm(
     if abs(psi) > 1e-9:
         from smelter_tpu_torch.ops.hopper.row_shear import shear
 
+        count_each_run("program.general.shears", 3)
         rad = math.radians(psi)
         a = -math.tan(rad / 2.0)
         b = math.sin(rad)

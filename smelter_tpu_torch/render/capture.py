@@ -25,9 +25,10 @@ program of a structure is the closure `OutputProgram._build_inner` returns
     eviction can free a tensor that a graph reads.
   - Each call returns copies of the graph's outputs, which no later replay
     writes.
-  - Work counted per run (`each_run`: the kernels' launch counters) is
-    recorded while the graph is captured and counted again on every replay,
-    so the counters say what ran on the card.
+  - Work counted per run (`each_run`: the kernels' launch counters;
+    `count_each_run`: the routes' tracing counters) is recorded while the
+    graph is captured and counted again on every replay, so the counters
+    say what ran on the card.
   - Each call is traced in three spans (`render.load`, `render.replay`,
     `render.outputs`) and counted: `program.calls` and
     `program.calls.<route>` (the route its builder named, `route`), the
@@ -129,6 +130,12 @@ def each_run(count: Callable[[], None]) -> None:
         scope.on_replay.append(count)
     else:
         count()
+
+
+def count_each_run(name: str, n: int = 1) -> None:
+    """`tracing.count(name, n)` on each run of the calling code
+    (`each_run`)."""
+    each_run(functools.partial(tracing.count, name, n))
 
 
 def device_constant(maxsize: int):

@@ -38,7 +38,6 @@ and NV12 outputs.
 from __future__ import annotations
 
 import atexit
-import functools
 import logging
 import math
 import threading
@@ -65,7 +64,7 @@ from smelter_tpu_torch.ops.hopper.grid_resize import GridResize
 from smelter_tpu_torch.ops.resample import build_mips, resize_bilinear
 from smelter_tpu_torch.ops.rotate import MAX_SHEAR_BANDS, rotation_band_count
 from smelter_tpu_torch.render import shader_validation as sv
-from smelter_tpu_torch.render.capture import CapturedProgram, capture, each_run, route
+from smelter_tpu_torch.render.capture import CapturedProgram, capture, count_each_run, route
 from smelter_tpu_torch.render.shader_ns import ShaderArray, ShaderNamespace
 from smelter_tpu_torch.scene.layout_types import (
     Mask,
@@ -1320,12 +1319,11 @@ def _try_yuv_grid_program(
             return None  # shadows need blending
 
     grid = GridResize([tile[1:] for tile in tiles], H, W, bg)
-    tile_planes = functools.partial(tracing.count, "program.grid.tile_planes", 3 * len(tiles))
 
     @route("grid")
     def run(frame_buf, raw_planes, packed_params, aux_textures, shader_params):
         # the parameters are unused: the grid's geometry is all static
-        each_run(tile_planes)
+        count_each_run("program.grid.tile_planes", 3 * len(tiles))
         return grid([access.get(tile[0], frame_buf, raw_planes) for tile in tiles],
                     frame_buf.device)
 

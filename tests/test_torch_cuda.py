@@ -931,3 +931,74 @@ def test_grid_resize_runs_once_a_replay_of_the_grid_program(cuda, n, out_res, pl
                     (c.cell_contents for c in program.fn.__closure__)))["grid"]
     mx, _ = _lsb_and_ppm(out, grid.resize_tiles_plain(sources, cuda))
     assert mx <= 1
+
+
+@pytest.mark.parametrize("out_res", [(768, 432), (3840, 2160)])
+def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
+    """The benchmark's styled multiview (16 Rescaler cards, bordered and
+    shadowed; `benchmark/scenes/multiview.py`) through the renderer's
+    general program, captured: on each replay the general counters equal
+    the kernels' launches (a K4 launch a group, one K1 launch for its
+    members, six resize GEMMs a tile convert, no K5), and the frame meets
+    the benchmark's plain reference within the cell's limits."""
+    import importlib.util
+    import json
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from smelter_tpu_torch.core import types as tt
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper import group_blend, row_shear
+    from smelter_tpu_torch.render.renderer import Renderer, RendererOptions
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.utils import tracing
+
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+
+    def load(path):
+        spec = importlib.util.spec_from_file_location(f"cuda_multiview_{path.parent.name}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    scene = load(bench / "scenes" / "multiview.py")
+    ref = load(bench / "references" / "multiview.py")
+    limits = json.loads((bench / "limits" / "multiview16_4k.steady.json").read_text())
+    cfg = {**json.loads((bench / "configs" / "multiview16_4k.json").read_text()),
+           "output_width": out_res[0], "output_height": out_res[1]}
+    ids = [f"input_{i}" for i in range(16)]
+    r = Renderer(RendererOptions(async_compile=False), device=cuda)
+    for iid in ids:
+        r.register_input(iid)
+    r.update_scene("out", scene.build(SimpleNamespace(comp=comp, types=tt), cfg, 0, "out"),
+                   tt.Resolution(*out_res), tt.PixelFormat.PLANAR_YUV420)
+    sources = _grid_sources(cuda, 16, (1920, 1080), seed=3)
+    frames = {iid: tt.Frame(data=p, format=tt.PixelFormat.PLANAR_YUV420,
+                            resolution=tt.Resolution(1920, 1080), pts=0.0)
+              for iid, p in zip(ids, sources)}
+    r.render(tt.FrameSet(pts=0.0, frames=frames))  # the capture
+    torch.cuda.synchronize()
+    tracing.reset()
+    before = (group_blend.LAUNCHES, scene_assembly.LAUNCHES, resample.LAUNCHES,
+              row_shear.LAUNCHES, yuv_out.LAUNCHES)
+    try:
+        for k in range(1, 4):
+            out = r.render(tt.FrameSet(pts=k / 32, frames=frames)).frames["out"].data
+        torch.cuda.synchronize()
+        c = tracing.counters()
+    finally:
+        tracing.reset()
+    launched = [after - b for after, b in zip(
+        (group_blend.LAUNCHES, scene_assembly.LAUNCHES, resample.LAUNCHES,
+         row_shear.LAUNCHES, yuv_out.LAUNCHES), before)]
+    print(out_res, {k: v for k, v in c.items() if k.startswith("program.general")}, launched)
+    assert c["program.calls.general"] == 3
+    assert launched == [c["program.general.groups"], 3, 6 * c["program.general.tile_converts"],
+                        0, 3]
+    assert c["program.general.tile_converts"] == 3 * 16
+    assert c["program.general.assembly_members"] % 3 == 0 and "program.general.shears" not in c
+    want = ref.render(cfg, ids, {iid: ("PLANAR_YUV420", p) for iid, p in zip(ids, sources)},
+                      cuda, torch.bfloat16)
+    mx, ppm = _lsb_and_ppm(out, tuple(torch.from_numpy(p).to(cuda) for p in want))
+    print(out_res, "against the reference: max", mx, "steps,", ppm, "ppm")
+    assert mx <= limits["max_lsb"] and ppm <= limits["diff_ppm"]
