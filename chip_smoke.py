@@ -860,8 +860,9 @@ def k4_edge_groups(dev):
     `compose._group_member` from sources on the card: a bordered YUV tile
     under two masks (the second rotated), an RGBA tile under one, a bordered
     tile rotated 30 degrees under two masks (K5), colour and box-shadow
-    layers with masks, a tile clipped at the canvas edge, a tile partly off
-    its union, and all of them in one group. Returns ([(canvas, members,
+    members (evaluated by K4: "sdf") with masks, an upright ring and an
+    upright colour, a tile clipped at the canvas edge, a tile partly off its
+    union, and all of them in one group. Returns ([(canvas, members,
     union, h, w)], a group of 33 members)."""
     import torch
 
@@ -905,6 +906,9 @@ def k4_edge_groups(dev):
                                 rotation=12.0, color=(0.8, 0.3, 0.2, 0.9)),
         "shadow, masks": member("box_shadow", (100, 40, 90, 160), masks=masks2, blur=14.0,
                                 color=(0, 0, 0, 0.6)),
+        "upright ring": member("color", (150, 260, 90, 170), border=True),
+        "upright colour, one mask": member("color", (30, 180, 70, 120), masks=masks2[:1],
+                                           color=(0.2, 0.6, 0.9, 0.7)),
         "clipped at the canvas edge": member("texture", (200, 420, 120, 200), border=True),
         "partly off its union": member("texture", (20, 30, 120, 200), border=True),
     }
@@ -915,10 +919,9 @@ def k4_edge_groups(dev):
     groups = []
     for name, (st, p) in named.items():
         union = unions.get(name, (0, 0, h, w))
-        members = [compose._group_member(st, p, sources, union)]
+        members = [compose._group_member(st, p, sources)]
         groups.append((canvas.clone(), members, union, h, w))
-    all_members = [compose._group_member(st, p, sources, (0, 0, h, w))
-                   for st, p in named.values()]
+    all_members = [compose._group_member(st, p, sources) for st, p in named.values()]
     groups.append((canvas.clone(), all_members, (0, 0, h, w), h, w))
     many = (canvas.clone(), (all_members * 5)[:33], (0, 0, h, w), h, w)
     return groups, many
@@ -929,7 +932,7 @@ def group_kernel_phase(dev, gen_fn, dev_frames, stamp):
     every group and shear of one eager general_4k frame at 16 x 1080p -> 4K
     (each group on the f32, u16, f16 and bf16 canvas), on the groups and
     shears of a renderer frame of the 4K golden `res4k_general_rotated`
-    (its bordered tile rotated -15 degrees), and on the edge cases
+    (its bordered card rotated -15 degrees), and on the edge cases
     (`k4_edge_groups`: f32 and each 16-bit canvas; a group of 33 members
     split across launches on f32 and refused on u16; K5 on shears at 30,
     -15, 45 and 120 degrees of a 480 x 853 tile, a transposed (strided)
@@ -955,7 +958,7 @@ def group_kernel_phase(dev, gen_fn, dev_frames, stamp):
     err4 = k4_checks("general_4k frame", gen_log.groups)
     err5 = k5_checks("general_4k frame", gen_log.shears)
 
-    # a renderer frame with a bordered rotated tile (captured: its warm-up
+    # a renderer frame with a bordered rotated card (captured: its warm-up
     # runs the groups eagerly)
     n, scene = golden_scene("res4k_general_rotated")
     r = Renderer(device=dev)
@@ -968,11 +971,15 @@ def group_kernel_phase(dev, gen_fn, dev_frames, stamp):
             r.render(FrameSet(pts=0.0, frames=frames))
     finally:
         r.close()
-    bordered_rotated = [m for g in render_log.groups for m in g[1]
-                        if m.kind == "placed" and m.static.has_border
+    # the -15-degree card: its border a rotated ring that K4 evaluates
+    # ("sdf"), its picture a tile rotated by K5 ("placed")
+    members = [m for g in render_log.groups for m in g[1]]
+    bordered_rotated = [m for m in members if m.kind == "sdf" and m.static.has_border
                         and m.static.static_rotation]
-    check(bordered_rotated and render_log.shears,
-          "the renderer frame of res4k_general_rotated blended no bordered rotated tile")
+    rotated_tiles = [m for m in members if m.kind == "placed"]
+    check(bordered_rotated and rotated_tiles and render_log.shears,
+          "the renderer frame of res4k_general_rotated blended no bordered rotated ring "
+          "over a rotated tile")
     err4 = max(err4, k4_checks("renderer frame (res4k_general_rotated)", render_log.groups))
     err5 = max(err5, k5_checks("renderer frame (res4k_general_rotated)", render_log.shears))
     del render_log
@@ -5855,7 +5862,7 @@ def main() -> int:
                 (top, left), (mh, mw) = m.origin, m.size
                 rows = max(0, min(top + mh, uy + uh) - max(top, uy))
                 cols = max(0, min(left + mw, ux + uw) - max(left, ux))
-                n_bytes += rows * cols * (12 if m.kind == "yuv" else 16)
+                n_bytes += rows * cols * {"yuv": 12, "sdf": 0}.get(m.kind, 16)
                 n_bytes += 4 * (scene_assembly.PARAMS_BASE + scene_assembly.MASK_W * m.n_masks)
         return n_bytes, n_ops
 

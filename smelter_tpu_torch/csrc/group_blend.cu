@@ -11,7 +11,9 @@
 // smelter_tpu_torch/ops/hopper/group_blend.py, and the operation order here
 // is that version's, operation for operation (-fmad=false, no fast math):
 // the SDF, smoothstep and mask math of sdf_common.cuh, whose formula order
-// is the same, and the members' own steps below.
+// is the same, and the members' own steps below. An sdf member is K1's
+// member (sdf_common.cuh's load_member and member_layer), so the two
+// kernels share one definition of a colour or box-shadow layer.
 //
 // Member kinds (GroupMember.kind):
 //   - kYuv: a static YUV tile from its three f32 GEMM products (luma and the
@@ -22,8 +24,14 @@
 //     plain version's zero padding;
 //   - kRgba: the same with a (4, h, w) f32 RGBA tile;
 //   - kPlaced: a premultiplied (4, h, w) layer at a static origin (a stably
-//     rotated tile, or a colour or shadow layer the group path renders),
-//     times the layout's masks where n_masks > 0, zero outside.
+//     rotated tile), times the layout's masks where n_masks > 0, zero
+//     outside;
+//   - kSdf: a colour or box-shadow layout, evaluated at each union pixel
+//     from its parameter row alone (no planes): its rounded-rect SDF,
+//     rotation, border, blur and masks. Each block builds the member's
+//     constants once in shared memory (load_member, as K1 does) and skips
+//     the pixels outside the box set_region proves it cannot reach (its
+//     layer is exactly 0 there, and OVER with 0 is the identity).
 //
 // Parameters: each member's descriptor (pointers, strides, static origin
 // and size, flags) is passed by value in the launch's arguments
@@ -36,7 +44,8 @@
 // Bound on the H100 by bytes: the union's canvas values read and written
 // once (32 bytes a pixel in f32, 16 in 16 bits) and each member's inputs
 // read once over its footprint (12 bytes a pixel for a YUV tile's three
-// products, 16 for an RGBA tile or a placed layer). Design, simple first:
+// products, 16 for an RGBA tile or a placed layer, none for an sdf member
+// but its parameter row). Design, simple first:
 // one thread per union pixel, 32 threads of a warp along a row (128-byte
 // lines per plane in f32), every member looped in registers from the
 // argument space (uniform across the block, so its loads broadcast). The
@@ -54,7 +63,7 @@
 namespace {
 
 constexpr int kMaxMembers = 32;  // group_blend.MAX_MEMBERS
-constexpr int kYuv = 0, kPlaced = 2;  // group_blend.KINDS; 1 is an RGBA tile
+constexpr int kYuv = 0, kPlaced = 2, kSdf = 3;  // group_blend.KINDS; 1 is an RGBA tile
 constexpr int kBlockX = 32, kBlockY = 8;
 
 // Every constant is the Python double of color_convert rounded once to f32,
@@ -66,19 +75,21 @@ constexpr float kInvUvScale = static_cast<float>(1.0 / (224.0 / 255.0));
 constexpr float kRv = static_cast<float>(1.5748), kGu = static_cast<float>(0.1873),
                 kGv = static_cast<float>(0.4681), kBu = static_cast<float>(1.8556);
 
-// One member, as group_blend._Member packs it (96 bytes).
+// One member, as group_blend._Member packs it (104 bytes).
 struct GroupMember {
-  const float* plane[4];  // kYuv: Y, U, V products; otherwise R, G, B, A
+  const float* plane[4];  // kYuv: Y, U, V products; kSdf: none; otherwise R, G, B, A
   int row_stride[4];      // elements between rows, per plane
   const float* params;    // the member's row of pack_member_params
   int kind, has_border, full_range, n_masks;
   int rotated_bits, top, left, h, w;  // static origin and size of the planes
+  int sdf_kind, has_rotation;  // kSdf: smelter::kKindColor or kKindShadow, rotated
 };
-static_assert(sizeof(GroupMember) == 96, "group_blend._Member's layout");
+static_assert(sizeof(GroupMember) == 104, "group_blend._Member's layout");
 
 struct GroupArgs {
   GroupMember m[kMaxMembers];
   int n;
+  int has_sdf;  // some member is kSdf
 };
 
 // The BT.709 tail of yuv_products_rgba_cm for one pixel's products.
@@ -173,6 +184,18 @@ template <int kKind>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
     group_blend_kernel(void* __restrict__ canvas, int h, int w, int uy, int ux,
                        int uh, int uw, const __grid_constant__ GroupArgs args) {
+  // the constants of the sdf members, built once a block from their rows
+  __shared__ smelter::MemberConst sdf[kMaxMembers];
+  if (args.has_sdf) {  // uniform across the grid
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    if (tid < args.n && args.m[tid].kind == kSdf) {
+      const GroupMember& m = args.m[tid];
+      smelter::load_member(m.params, m.sdf_kind, m.has_border, m.has_rotation,
+                           m.n_masks, m.rotated_bits, sdf[tid]);
+      smelter::set_region(sdf[tid], uy, ux, uy + uh, ux + uw);
+    }
+    __syncthreads();
+  }
   const int tx = blockIdx.x * blockDim.x + threadIdx.x;
   const int ty = blockIdx.y * blockDim.y + threadIdx.y;
   if (tx >= uw || ty >= uh) return;
@@ -187,7 +210,11 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   for (int k = 0; k < args.n; ++k) {
     const GroupMember& m = args.m[k];
     float layer[4];
-    if (m.kind == kPlaced) {
+    if (m.kind == kSdf) {
+      const smelter::MemberConst& s = sdf[k];
+      if (y < s.ry0 || y >= s.ry1 || x < s.rx0 || x >= s.rx1) continue;
+      smelter::member_layer(s, px, py, layer);
+    } else if (m.kind == kPlaced) {
       placed_layer(m, x, y, px, py, layer);
     } else {
       tile_layer(m, x, y, px, py, layer);
@@ -226,6 +253,7 @@ extern "C" int smelter_group_blend(void* canvas, int canvas_kind, int h, int w,
   std::memset(&args, 0, sizeof(args));
   std::memcpy(args.m, members, sizeof(GroupMember) * n);
   args.n = n;
+  for (int k = 0; k < n; ++k) args.has_sdf |= args.m[k].kind == kSdf;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (canvas_kind) {
     case smelter::kF32:

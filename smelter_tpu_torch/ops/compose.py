@@ -11,9 +11,11 @@ planner-stable (`static_rect` set) renders region-locally:
     `ops/hopper/row_shear.py`).
 A run of such layouts that opens the canvas paints its colour and shadow
 members in one pass of kernel K1 (`ops/hopper/scene_assembly.py`), which
-creates the canvas; the textures then blend in coalesced union groups, each
-group in one pass of kernel K4 (`ops/hopper/group_blend.py`: the region's
-decode, every member's edge, border, masks and OVER, and its encode).
+creates the canvas; the textures, and the colour and shadow layouts behind
+them, then blend in coalesced union groups, each group in one pass of
+kernel K4 (`ops/hopper/group_blend.py`: the region's decode, every member's
+edge, border, masks and OVER, and its encode; a colour or shadow member's
+whole layer from its parameters, as K1 evaluates it).
 `SMELTER_SCENE_ASSEMBLY=off` (`_assembly_mode`) sends the whole run to the
 group path instead.
 
@@ -44,9 +46,9 @@ are f32, so that every intermediate rounds as it does there.
 What a compose runs is counted per run of its program
 (`capture.count_each_run`: fixed when the program is captured, counted
 again on each replay): `program.general.groups` (K4 groups),
-`.assembly_members` (K1's colour and shadow members), `.tile_converts`
-(the deferred YUV tile converts) and `.shears` (K5 passes,
-`ops/rotate.py`).
+`.assembly_members` (K1's colour and shadow members), `.sdf_members`
+(the colour and shadow members K4 evaluates), `.tile_converts` (the
+deferred YUV tile converts) and `.shears` (K5 passes, `ops/rotate.py`).
 
 Corner-radius order is [top_left, top_right, bottom_right, bottom_left].
 """
@@ -321,14 +323,14 @@ def _pixel_centers(Y0: int, X0: int, vh: int, vw: int, device):
     return px.expand(vh, vw), py.expand(vh, vw)
 
 
-def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence,
-                  union: Tuple[int, int, int, int]):
+def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence):
     """One region-local layout of a group as a member of kernel K4
     (`ops/hopper/group_blend.GroupMember`): what torch computes for it here
-    (a tile's GEMM products, a stably rotated tile, a colour or shadow layer
-    over the union), and what K4 (or its plain version) does with it. Its
-    contribution is exactly zero outside its footprint, so blending it over
-    the union is identical to blending it over its own `_layer_region`."""
+    (a tile's GEMM products, a stably rotated tile; nothing for a colour or
+    shadow layout, which K4 evaluates from its parameters), and what K4 (or
+    its plain version) does with it. Its contribution is exactly zero
+    outside its footprint, so blending it over the union is identical to
+    blending it over its own `_layer_region`."""
     from smelter_tpu_torch.ops.hopper.group_blend import GroupMember
 
     top, left, h, w = static.static_rect  # type: ignore[misc]
@@ -344,11 +346,9 @@ def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence,
         return GroupMember("placed", static, params, (rotated,), origin)
 
     if static.content in ("color", "box_shadow"):
-        # the sampled layer over the union, masks included
-        uy, ux, uh, uw = union
-        px, py = _pixel_centers(uy, ux, uh, uw, params.top.device)
-        layer = render_single_layout(static, params, sources, px, py)
-        return GroupMember("placed", static, params, (layer,), (uy, ux), masks=False)
+        # K4 evaluates its SDF layer, border, blur and masks at each pixel
+        count_each_run("program.general.sdf_members")
+        return GroupMember("sdf", static, params, (), (top, left))
 
     # non-rotated texture: region-local GEMM resize of the source crop; K4
     # applies the edge, border and masks
@@ -561,7 +561,7 @@ def _blend_group(canvas, members, union, sources, h: int, w: int):
     value quantizes to a 16-bit canvas's storage."""
     from smelter_tpu_torch.ops.hopper import group_blend
 
-    layers = [_group_member(st, p, sources, union) for st, p in members]
+    layers = [_group_member(st, p, sources) for st, p in members]
     count_each_run("program.general.groups")
     return group_blend.blend_group(canvas, layers, union, h, w)
 

@@ -10,16 +10,21 @@ order in f32 and stores once, in place, in the canvas's storage (f32, or
 u16 fixed point, f16, bf16: `compose._canvas_encode`). It is bound by
 bytes: the union read and written once and each member's inputs read once.
 
-A member (`GroupMember`) is one layout with its torch-made inputs already
-computed by `compose._group_member`:
+A member (`GroupMember`) is one layout with its torch-made inputs, if it
+has any, already computed by `compose._group_member`:
   - "yuv": a static YUV tile's three f32 GEMM products
     (`DeferredYuvSource.tile_products`); the kernel applies the colour tail
     (`color_convert.yuv_products_rgba_cm`), then the texture edge, border
     and masks of the layout's rect;
   - "rgba": the same with a (4, h, w) f32 RGBA tile (`compose._src_tile_cm`);
   - "placed": a premultiplied (4, h, w) layer at a static origin (a stably
-    rotated tile after `rotate_static_cm`, or a colour or shadow layer the
-    group path renders), times the layout's masks when `masks`.
+    rotated tile after `rotate_static_cm`), times the layout's masks;
+  - "sdf": a colour or box-shadow layout, with no planes: the kernel
+    evaluates its layer at each union pixel from its parameter row, as
+    kernel K1 evaluates its members (`csrc/sdf_common.cuh`'s `load_member`
+    and `member_layer`: SDF, rotation, border, blur and masks), and its
+    plain version is K1's plain member layer (`scene_assembly._member_layer`)
+    over the union's pixel centres.
 The plain version (`blend_group_plain`) is the port's former torch chain,
 moved: the kernel repeats its operations in its order.
 
@@ -61,11 +66,16 @@ from smelter_tpu_torch.ops.compose import (
     smoothstep,
 )
 from smelter_tpu_torch.ops.hopper import build
-from smelter_tpu_torch.ops.hopper.scene_assembly import pack_member_params
+from smelter_tpu_torch.ops.hopper.scene_assembly import (
+    _KINDS as SDF_KINDS,
+    MemberSpec,
+    _member_layer,
+    pack_member_params,
+)
 from smelter_tpu_torch.render.capture import each_run
 
 MAX_MEMBERS = 32  # members a launch takes (csrc/group_blend.cu kMaxMembers)
-KINDS = {"yuv": 0, "rgba": 1, "placed": 2}
+KINDS = {"yuv": 0, "rgba": 1, "placed": 2, "sdf": 3}
 # canvas storage dtypes the kernel loads and stores, by the code its entry takes
 CANVAS_DTYPES = {torch.float32: 0, torch.uint16: 1, torch.float16: 2, torch.bfloat16: 3}
 
@@ -82,10 +92,10 @@ def _count() -> None:
 @dataclass(frozen=True)
 class GroupMember:
     """One member of a group with its inputs computed (see the module).
-    `planes`: (Y, U, V) products of one (h, w) shape for "yuv", one
-    (4, h, w) tensor otherwise; `origin`: the static canvas (top, left) of
-    their pixel (0, 0); `masks`: whether the layout's masks still apply (a
-    layer rendered with them holds them already)."""
+    `planes`: (Y, U, V) products of one (h, w) shape for "yuv", none for
+    "sdf", one (4, h, w) tensor otherwise; `origin`: the static canvas
+    (top, left) of their pixel (0, 0), the static rect's for "sdf". K4
+    applies the layout's masks to every kind."""
 
     kind: str
     static: LayoutStatic
@@ -93,15 +103,17 @@ class GroupMember:
     planes: Tuple[torch.Tensor, ...]
     origin: Tuple[int, int]
     full_range: bool = False
-    masks: bool = True
 
     @property
     def size(self) -> Tuple[int, int]:
+        """(h, w) of the planes; of the static rect for "sdf"."""
+        if not self.planes:
+            return tuple(self.static.static_rect[2:])  # type: ignore[index,return-value]
         return tuple(self.planes[0].shape[-2:])  # type: ignore[return-value]
 
     @property
     def n_masks(self) -> int:
-        return self.static.n_masks if self.masks else 0
+        return self.static.n_masks
 
 
 def member_layer_plain(m: GroupMember, Y0: int, X0: int, vh: int, vw: int) -> torch.Tensor:
@@ -110,10 +122,13 @@ def member_layer_plain(m: GroupMember, Y0: int, X0: int, vh: int, vw: int) -> to
     its footprint."""
     st, params = m.static, m.params
     top, left = m.origin
+    if m.kind == "sdf":
+        spec = MemberSpec(st.content, st.has_border, st.has_rotation, m.n_masks,
+                          st.rotated_masks, (Y0, X0, Y0 + vh, X0 + vw))
+        px, py = _pixel_centers(Y0, X0, vh, vw, params.top.device)
+        return _member_layer(spec, pack_member_params([params], m.n_masks)[0], px, py)
     if m.kind == "placed":
-        layer = m.planes[0]
-        if m.masks:
-            layer = _apply_masks_region(layer, st, params, top, left)
+        layer = _apply_masks_region(m.planes[0], st, params, top, left)
         return _pad_into(layer, top, left, Y0, X0, vh, vw)
 
     # non-rotated texture: the tile at its static rect, SDF edge, border, masks
@@ -165,7 +180,7 @@ def blend_group_plain(canvas: torch.Tensor, members: Sequence[GroupMember],
 
 
 class _Member(ctypes.Structure):
-    """csrc/group_blend.cu's GroupMember (96 bytes; its entry checks the
+    """csrc/group_blend.cu's GroupMember (104 bytes; its entry checks the
     size)."""
 
     _fields_ = [
@@ -181,12 +196,18 @@ class _Member(ctypes.Structure):
         ("left", ctypes.c_int),
         ("h", ctypes.c_int),
         ("w", ctypes.c_int),
+        ("sdf_kind", ctypes.c_int),
+        ("has_rotation", ctypes.c_int),
     ]
 
 
 def _plane_pointers(m: GroupMember):
     """(pointers, row strides) of a member's four planes (a YUV tile's
-    fourth is unused)."""
+    fourth is unused, an sdf member has none)."""
+    if m.kind == "sdf":
+        if m.planes:
+            raise ValueError(f"K4: an sdf member takes no planes, got {len(m.planes)}")
+        return [0] * 4, [0] * 4
     if m.kind == "yuv":
         if len(m.planes) != 3 or any(t.dim() != 2 or tuple(t.shape) != m.size
                                      for t in m.planes):
@@ -236,6 +257,9 @@ def describe(members: Sequence[GroupMember], rows: torch.Tensor, device) -> ctyp
         d.params = rows.data_ptr() + k * rows.stride(0) * rows.element_size()
         d.kind = KINDS[m.kind]
         d.has_border = int(m.kind != "placed" and m.static.has_border)
+        if m.kind == "sdf":
+            d.sdf_kind = SDF_KINDS[m.static.content]
+            d.has_rotation = int(m.static.has_rotation)
         d.full_range = int(m.full_range)
         d.n_masks = m.n_masks
         d.rotated_bits = bits

@@ -715,9 +715,10 @@ def test_the_card_route_raises_on_f32_operands(cuda):
 def _group_case(dev, masks=True):
     """Members of every kind at 511 x 257 built through
     `compose._group_member` from sources on `dev`: a bordered YUV tile, an
-    RGBA tile, a bordered tile rotated 30 degrees (K5), a colour and a
-    box-shadow layer, each under two masks (the second rotated), and a tile
-    clipped at the canvas edge."""
+    RGBA tile, a bordered tile rotated 30 degrees (K5), and "sdf" members:
+    a box shadow, a bordered colour rotated 12 degrees, an upright ring and
+    a colour rotated -40 degrees; each under two masks (the second rotated),
+    and a tile clipped at the canvas edge."""
     from smelter_tpu_torch.ops import color_convert as cc
 
     h, w = 257, 511
@@ -751,6 +752,8 @@ def _group_case(dev, masks=True):
              member("texture", (60, 250, 150, 220), src=1),
              member("color", (10, 300, 80, 150), border=True, rotation=12.0),
              member("texture", (70, 120, 100, 180), border=True, rotation=30.0),
+             member("color", (150, 260, 90, 170), border=True),
+             member("color", (30, 180, 70, 120), rotation=-40.0),
              member("texture", (200, 420, 120, 200), border=True)]
     canvas = torch.rand((4, h, w), generator=gen, device=dev)
     canvas[:3] *= canvas[3:4]
@@ -761,7 +764,8 @@ def _group_case(dev, masks=True):
 @pytest.mark.parametrize("masks", [False, True])
 def test_group_blend_kernel_matches_plain(cuda, dtype, masks):
     """K4 on a group of every member kind, on each canvas storage, and on a
-    union clipped at the canvas edge: max abs err 0 (the same bits)."""
+    union clipped at the canvas edge: max abs err 0 (the same bits), in one
+    launch a group."""
     from smelter_tpu_torch.ops.color_convert import canvas_decode
     from smelter_tpu_torch.ops.hopper import group_blend
 
@@ -769,7 +773,7 @@ def test_group_blend_kernel_matches_plain(cuda, dtype, masks):
     _, h, w = canvas.shape
     base = compose._canvas_encode(canvas, dtype)
     for union, chosen in (((0, 0, h, w), items), ((192, 384, 65, 127), items[-1:])):
-        members = [compose._group_member(st, p, sources, union) for st, p in chosen]
+        members = [compose._group_member(st, p, sources) for st, p in chosen]
         before = group_blend.LAUNCHES
         got = group_blend.blend_group(base.clone(), members, union, h, w)
         torch.cuda.synchronize()
@@ -939,8 +943,10 @@ def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
     shadowed; `benchmark/scenes/multiview.py`) through the renderer's
     general program, captured: on each replay the general counters equal
     the kernels' launches (a K4 launch a group, one K1 launch for its
-    members, six resize GEMMs a tile convert, no K5), and the frame meets
-    the benchmark's plain reference within the cell's limits."""
+    members, six resize GEMMs a tile convert, no K5), K4 evaluates the 15
+    rings and shadows behind a picture (`program.general.sdf_members`), and
+    the frame meets the benchmark's plain reference within the cell's
+    limits."""
     import importlib.util
     import json
     from pathlib import Path
@@ -997,6 +1003,8 @@ def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
                         0, 3]
     assert c["program.general.tile_converts"] == 3 * 16
     assert c["program.general.assembly_members"] % 3 == 0 and "program.general.shears" not in c
+    # the 7 rings and 8 shadows behind a picture, evaluated inside K4
+    assert c["program.general.sdf_members"] == 3 * 15
     want = ref.render(cfg, ids, {iid: ("PLANAR_YUV420", p) for iid, p in zip(ids, sources)},
                       cuda, torch.bfloat16)
     mx, ppm = _lsb_and_ppm(out, tuple(torch.from_numpy(p).to(cuda) for p in want))

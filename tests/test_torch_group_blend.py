@@ -4,9 +4,10 @@ reached through `compose._blend_group`) and kernel K5's plain version
 JAX package on the CPU, and the host side of both kernels' launches.
 
 K4: one coalesced group blended over its union, each member kind (a YUV
-tile with and without a border, an RGBA tile, a stably rotated tile, colour
-and box-shadow layers), 0, 1 and 2 masks, rotated and not, unions clipped
-at the canvas edge, a tile partly off its union and a group of several
+tile with and without a border, an RGBA tile, a stably rotated tile, and
+"sdf" members: colour layers upright and rotated, bordered and not, and
+box-shadow layers), 0, 1 and 2 masks, rotated and not, unions clipped at
+the canvas edge, a tile partly off its union and a group of several
 members, on f32, u16, f16 and bf16 canvases, against the reference's
 `_blend_group`. Tolerance: <= 1 u8 LSB on every plane after the YUV420
 output (K2's plain version on both decoded canvases): the reference's
@@ -106,7 +107,16 @@ def _member(name, masks=None):
                            radius=(5, 5, 5, 5), border_width=2.5,
                            border_color=(1, 1, 1, 0.9), color=(0.8, 0.2, 0.3, 0.9),
                            masks=masks)
-    if name == "shadow":
+    if name == "ring":  # the multiview's bordered card: upright, transparent fill
+        st = St(content="color", static_rect=(20, 60, 50, 90), has_border=True, **mk)
+        return st, _params(top=20, left=60, height=50, width=90, radius=(12, 12, 12, 12),
+                           border_width=4.0, border_color=(1, 1, 1, 1), masks=masks)
+    if name == "colour_rotated":
+        st = St(content="color", static_rect=(30, 40, 36, 64), has_rotation=True,
+                static_rotation=-40.0, **mk)
+        return st, _params(top=30, left=40, height=36, width=64, rotation=-40.0,
+                           radius=(9, 3, 9, 3), color=(0.1, 0.7, 0.4, 0.8), masks=masks)
+    if name in ("shadow", "shadow_masked"):
         st = St(content="box_shadow", static_rect=(40, 30, 30, 60), static_blur=10.0, **mk)
         return st, _params(top=40, left=30, height=30, width=60, blur=10.0,
                            radius=(8, 8, 8, 8), color=(0.0, 0.0, 0.0, 0.6), masks=masks)
@@ -127,8 +137,12 @@ CASES = {
     "clipped_at_the_canvas_edge": (["yuv_edge"], None, (64, 128, 32, 128)),
     "tile_partly_off_its_union": (["yuv_border"], None, (16, 0, 16, 128)),
     "several": (["shadow", "yuv_border", "rgba", "colour", "rotated"], MASK_1, (0, 0, H, W)),
+    "ring_and_rotated_colour": (["ring", "colour_rotated"], None, (0, 0, 96, 256)),
+    "ring_one_mask": (["ring"], MASK_1, (16, 0, 64, 256)),
+    "rotated_colour_two_masks": (["colour_rotated", "yuv"], MASK_2, (0, 0, 80, 128)),
+    "shadow_rotated_mask": (["shadow_masked", "yuv"], MASK_2, (0, 0, 80, 128)),
 }
-MASKED = {"yuv_border", "rgba", "rotated", "colour"}
+MASKED = {"yuv_border", "rgba", "rotated", "colour", "ring", "colour_rotated", "shadow_masked"}
 
 
 def _sources():
@@ -194,8 +208,9 @@ def test_group_blend_plain_matches_the_reference_on_16_bit_floats(case, dtype_na
 
 def test_group_members_take_the_kind_of_their_inputs(monkeypatch):
     """`_blend_group` hands K4 a YUV tile's three GEMM products, an RGBA
-    tile, a rotated tile at its bbox's origin with its masks still to apply,
-    and colour and shadow layers over the union with theirs applied."""
+    tile, a rotated tile at its bbox's origin with its masks still to apply
+    ("placed"), and colour and shadow layouts with no planes at their static
+    rects, for K4 to evaluate with their masks ("sdf")."""
     seen = []
     monkeypatch.setattr(group_blend, "blend_group",
                         lambda canvas, members, union, h, w: seen.extend(members) or canvas)
@@ -204,8 +219,8 @@ def test_group_members_take_the_kind_of_their_inputs(monkeypatch):
     st, pr = interop.layouts([s for s, _ in members], [p for _, p in members], "cpu")
     _, sources = _sources()
     tcomp._blend_group(torch.zeros((4, H, W)), list(zip(st, pr)), (0, 0, H, W), sources, H, W)
-    assert [m.kind for m in seen] == ["placed", "yuv", "rgba", "placed", "placed"]
-    assert [m.n_masks for m in seen] == [0, 1, 1, 0, 1]
+    assert [m.kind for m in seen] == ["sdf", "yuv", "rgba", "sdf", "placed"]
+    assert [m.n_masks for m in seen] == [1, 1, 1, 1, 1]
     yuv = seen[1]
     assert [tuple(p.shape) for p in yuv.planes] == [(40, 70)] * 3
     assert all(p.dtype == torch.float32 for p in yuv.planes)
@@ -213,7 +228,8 @@ def test_group_members_take_the_kind_of_their_inputs(monkeypatch):
     bh, bw = trot.rotated_bbox(30.0, 40, 64)
     assert seen[4].size == (bh, bw)
     assert seen[4].origin == (24 + (40 - bh) // 2, 150 + (64 - bw) // 2)
-    assert seen[0].origin == (0, 0) and seen[0].size == (H, W)
+    for m, rect in ((seen[0], (40, 30, 30, 60)), (seen[3], (8, 12, 30, 50))):
+        assert m.planes == () and m.origin == rect[:2] and m.size == rect[2:]
     # the products' colour tail is the tile `tile_cm` gives
     tile = sources[0].tile_cm((4, 6, 56, 84), 40, 70)
     assert torch.equal(tcc.yuv_products_rgba_cm(*yuv.planes), tile)
@@ -235,10 +251,14 @@ def test_descriptors_hold_each_member():
     members = [_yuv_member(k) for k in range(3)]
     layer = torch.zeros((4, 6, 10))[:, 1:, 2:]  # a view: rows of adjacent pixels
     members.append(group_blend.GroupMember("placed", members[0].static, members[0].params,
-                                           (layer,), (5, -3), masks=False))
+                                           (layer,), (5, -3)))
+    shadow = tcomp.LayoutStatic(content="box_shadow", static_rect=(7, 9, 20, 30), n_masks=2,
+                                rotated_masks=(True, False), has_rotation=True,
+                                has_border=True, static_rotation=12.0)
+    members.append(group_blend.GroupMember("sdf", shadow, members[0].params, (), (7, 9)))
     rows = group_blend.pack_member_params([m.params for m in members], 2)
     arr = group_blend.describe(members, rows, torch.device("cpu"))
-    assert ctypes.sizeof(group_blend._Member) == 96
+    assert ctypes.sizeof(group_blend._Member) == 104
     for k, m in enumerate(members[:3]):
         d = arr[k]
         assert list(d.plane)[:3] == [t.data_ptr() for t in m.planes] and d.plane[3] is None
@@ -249,7 +269,15 @@ def test_descriptors_hold_each_member():
     d = arr[3]
     assert list(d.plane) == [layer.data_ptr() + c * 60 * 4 for c in range(4)]
     assert list(d.row_stride) == [10] * 4
-    assert (d.kind, d.n_masks, d.top, d.left, d.h, d.w) == (2, 0, 5, -3, 5, 8)
+    assert (d.kind, d.n_masks, d.top, d.left, d.h, d.w) == (2, 2, 5, -3, 5, 8)
+    assert (d.sdf_kind, d.has_rotation) == (0, 0)
+    # an sdf member: no planes, its row, the shadow kind, rotated, its masks
+    d = arr[4]
+    assert list(d.plane) == [None] * 4 and list(d.row_stride) == [0] * 4
+    assert d.params == rows.data_ptr() + 4 * rows.shape[1] * 4
+    assert (d.kind, d.sdf_kind, d.has_rotation, d.has_border, d.n_masks, d.rotated_bits) == (
+        3, 1, 1, 1, 2, 1)
+    assert (d.top, d.left, d.h, d.w) == (7, 9, 20, 30)
 
 
 def test_the_member_cap_raises_with_the_count():

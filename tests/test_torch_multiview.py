@@ -12,7 +12,8 @@ configuration `benchmark/configs/multiview16_4k.json` gives them.
   - (c) the reference one precision below the stated bf16 (float8) fails
     the tolerances of (a);
   - (d) the general program's counters per call equal what the compose
-    runs: its groups, its K1 members and its tile converts, and no shear.
+    runs: its groups, its K1 members, the colour and shadow members K4
+    evaluates, its tile converts, and no shear.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import pytest
 import torch
 
 from smelter_tpu_torch.core import types as tt
-from smelter_tpu_torch.ops import color_convert
+from smelter_tpu_torch.ops import color_convert, compose
 from smelter_tpu_torch.ops.hopper import group_blend, scene_assembly
 from smelter_tpu_torch.render.renderer import Renderer
 from smelter_tpu_torch.scene import components
@@ -177,9 +178,10 @@ def test_border_background_and_shadow_values():
 
 def test_general_counters_per_call(monkeypatch):
     """Each call of the general program counts the groups K4 blends (the
-    plain version's calls here), the members K1 paints, the deferred YUV
-    tile converts, and no K5 pass."""
-    seen = {"groups": 0, "assembly_members": 0, "tile_converts": 0}
+    plain version's calls here), the members K1 paints, the colour and
+    shadow members K4 evaluates (the "sdf" members `_group_member` makes),
+    the deferred YUV tile converts, and no K5 pass."""
+    seen = {"groups": 0, "assembly_members": 0, "sdf_members": 0, "tile_converts": 0}
 
     def spy(name, fn, n=lambda *a: 1):
         def wrapped(*args, **kwargs):
@@ -193,6 +195,14 @@ def test_general_counters_per_call(monkeypatch):
                             lambda res, specs, *a: len(specs)))
     monkeypatch.setattr(color_convert, "yuv_tile_products",
                         spy("tile_converts", color_convert.yuv_tile_products))
+    group_member = compose._group_member
+
+    def sdf_spy(*args):
+        m = group_member(*args)
+        seen["sdf_members"] += m.kind == "sdf"
+        return m
+
+    monkeypatch.setattr(compose, "_group_member", sdf_spy)
     r = _renderer()
     planes = _planes(2**31 + 8)
     _render(r, 0, planes)  # the capture
@@ -208,5 +218,7 @@ def test_general_counters_per_call(monkeypatch):
     per_call = {k: c.get(f"program.general.{k}", 0) / 3 for k in seen}
     assert per_call == {k: n / 3 for k, n in seen.items()}
     assert per_call["tile_converts"] == 16 and per_call["groups"] >= 1
+    # the 7 rings and 8 shadows behind a picture (K1 paints the first ring)
+    assert per_call["sdf_members"] == 15
     assert per_call["assembly_members"] >= 1
     assert "program.general.shears" not in c
