@@ -39,6 +39,20 @@ _UV_SCALE = 224.0 / 255.0
 _FOOTROOM = 16.0 / 255.0
 
 
+def rgb_to_yuv_limited_u8(r: int, g: int, b: int) -> Tuple[int, int, int]:
+    """BT.709 limited-range u8 YUV of a constant u8 RGB colour (an opaque
+    grid's background), in Python floats, rounded half to even."""
+    rf, gf, bf = r / 255.0, g / 255.0, b / 255.0
+    y = 0.2126 * rf + 0.7152 * gf + 0.0722 * bf
+    u = (bf - y) / 1.8556
+    v = (rf - y) / 1.5748
+    return (
+        int(round(16.0 + 219.0 * y)),
+        int(round(128.0 + 224.0 * u)),
+        int(round(128.0 + 224.0 * v)),
+    )
+
+
 def u8_to_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) * (1.0 / 255.0)
 

@@ -21,13 +21,15 @@ a dense bf16 block over only the k-tiles of 16 source samples its bands
 reach (`_blocks`). The kernel thus sums every product the GEMM sums but
 those by an exact zero, on the tensor cores as cuBLAS sums them.
 
-`GridResize` is built once per grid program from the tiles' static
-geometry. Called with each tile's (Y, U, V) source planes, it launches the
-kernel for CUDA planes (raising if it cannot) and runs the plain version,
-the former torch chain (`resize_tiles_plain`), for CPU planes. Tiles that
-are pairwise disjoint take one launch (up to `MAX_PLANES` tile planes a
-launch); tiles that overlap take one launch each, in paint order, so later
-tiles overwrite earlier ones. The output planes come from `torch.empty`
+`GridResize` is the port's one resize, rounding and placement of an opaque
+YUV420 grid: the renderer's grid program, `make_flagship_compose`'s grid
+and the multi-device grid step's per-stream stage each build one from their
+tiles' static geometry. Called with each tile's (Y, U, V) source planes, it
+launches the kernel for CUDA planes (raising if it cannot) and runs the
+plain version, the torch chain (`resize_tiles_plain`), for CPU planes.
+Tiles that are pairwise disjoint take one launch (up to `MAX_PLANES` tile
+planes a launch); tiles that overlap take one launch each, in paint order,
+so later tiles overwrite earlier ones. The output planes come from `torch.empty`
 where the tiles cover the canvas and from `torch.full` with the background
 where they leave gaps. The strips' descriptors and the weights of a program
 are one int32 table on the device (`_device_table`), made in the program's
@@ -69,6 +71,41 @@ LAUNCHES = 0
 def _count() -> None:
     global LAUNCHES
     LAUNCHES += 1
+
+
+def round_u8(x: torch.Tensor) -> torch.Tensor:
+    """A resized plane's u8 samples: +0.5 then truncation (the reference's
+    rounding here, not half to even), clamped to [0, 255]."""
+    return torch.clamp(x.to(torch.float32) + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def plan_grid_partition(rects, H: int, W: int):
+    """If `rects` [(key, top, left, h, w)] exactly partition an HxW canvas
+    (no gaps, no overlap), return them as rows (top→bottom, each row
+    left→right); else None. A partition lets the canvas be assembled with
+    row/column concatenation — one write — instead of one region write per
+    tile."""
+    rows: dict = {}
+    for r in rects:
+        rows.setdefault((r[1], r[3]), []).append(r)
+    y = 0
+    ordered = []
+    for (top, h), row in sorted(rows.items()):
+        if top != y or h <= 0:
+            return None
+        row = sorted(row, key=lambda r: r[2])
+        x = 0
+        for r in row:
+            if r[2] != x or r[4] <= 0:
+                return None
+            x += r[4]
+        if x != W:
+            return None
+        ordered.append(row)
+        y += h
+    if y != H:
+        return None
+    return ordered
 
 
 @functools.lru_cache(maxsize=64)
@@ -280,8 +317,10 @@ def _device_table(shapes: Tuple[Tuple[int, ...], ...], device: torch.device) -> 
 
 
 def _crop_views(y, u, v, crop: Rect):
-    """The source windows of a tile's crop (top, left, height, width, even)
-    in its Y, U and V planes, clipped as slices clip."""
+    """The source windows of a tile's crop (top, left, height, width; top and
+    left even) in its Y, U and V planes, clipped as slices clip. An odd
+    height or width takes the chroma rows or columns below it, as an
+    odd-sized YUV420 frame stores h // 2 x w // 2 chroma samples."""
     ct, cl, ch, cw = crop
     return (y[ct : ct + ch, cl : cl + cw],
             u[ct // 2 : (ct + ch) // 2, cl // 2 : (cl + cw) // 2],
@@ -291,18 +330,17 @@ def _crop_views(y, u, v, crop: Rect):
 class GridResize:
     """The tiles of an opaque YUV420 grid resized and placed into an
     `height` x `width` canvas over `background` (Y, U, V). `tiles`: (top,
-    left, height, width, crop) each, in paint order, every number even and
-    the rect inside the canvas; tile i shows `sources[i]` of a call."""
+    left, height, width, crop) each, in paint order, the rect even and
+    inside the canvas, the crop's top and left even (`_crop_views`); tile i
+    shows `sources[i]` of a call."""
 
     def __init__(self, tiles: Sequence[Tuple[int, int, int, int, Rect]], height: int,
                  width: int, background: Tuple[int, int, int]) -> None:
-        from smelter_tpu_torch.parallel.flagship import plan_grid_partition
-
         for t, l, h, w, crop in tiles:
             if min(t, l) < 0 or h <= 0 or w <= 0 or t + h > height or l + w > width:
                 raise ValueError(f"grid_resize: tile {(t, l, h, w)} is not inside the "
                                  f"{width}x{height} canvas")
-            if any(x % 2 for x in (t, l, h, w, *crop)):
+            if any(x % 2 for x in (t, l, h, w, *crop[:2])):
                 raise ValueError(f"grid_resize: tile {(t, l, h, w)} crop {crop} is not on "
                                  f"the chroma grid")
         self.tiles = tuple(tiles)
@@ -341,19 +379,22 @@ class GridResize:
         return self._launch(sources, device)
 
     def resize_tiles_plain(self, sources, device: torch.device):
-        """The plain version, the former torch chain: each tile plane's
-        `_round_u8(resize_matmul(...))`, placed by concatenation where the
-        tiles partition the canvas and by slice writes over the background
-        otherwise."""
-        from smelter_tpu_torch.parallel.flagship import _round_u8
-
+        """The plain version, the torch chain: each tile plane's
+        `round_u8(resize_matmul(...))`, placed (`place`)."""
         def tile_planes(i):
             _, _, h, w, crop = self.tiles[i]
             ys, us, vs = _crop_views(*sources[i], crop)
-            return (_round_u8(resample.resize_matmul(ys, h, w)),
-                    _round_u8(resample.resize_matmul(us, h // 2, w // 2)),
-                    _round_u8(resample.resize_matmul(vs, h // 2, w // 2)))
+            return (round_u8(resample.resize_matmul(ys, h, w)),
+                    round_u8(resample.resize_matmul(us, h // 2, w // 2)),
+                    round_u8(resample.resize_matmul(vs, h // 2, w // 2)))
 
+        return self.place(tile_planes, device)
+
+    def place(self, tile_planes, device: torch.device):
+        """The output planes on `device` of tiles already resized, tile i's
+        u8 (Y, U, V) planes `tile_planes(i)`: placed by concatenation where
+        the tiles partition the canvas and by slice writes over the
+        background, in paint order, otherwise."""
         if self.partition is not None:
             rows_y, rows_u, rows_v = [], [], []
             for row in self.partition:

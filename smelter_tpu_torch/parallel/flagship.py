@@ -4,18 +4,19 @@ Port of the single-device builders of `smelter_tpu/parallel/flagship.py`,
 the driver's north-star shape, in its two scenes:
 
   - `make_flagship_compose`: the Tiles grid. When the scene is an opaque
-    axis-aligned grid, the compose stays in YUV: each tile is a separable
-    Lanczos3 resize (two GEMMs per plane, batched over the inputs when the
-    tiles are uniform), rounded to u8 and assembled by concatenation when
-    the tiles partition the canvas. Otherwise it falls back, as the
-    reference does, to the general RGBA compose (`_make_general_compose`).
+    axis-aligned grid, the compose stays in YUV: every tile plane is resized
+    (separable Lanczos3), rounded to u8 and placed by one `GridResize`
+    (`ops/hopper/grid_resize.py`, one `grid_resize` launch on the card).
+    Otherwise it falls back, as the reference does, to the general RGBA
+    compose (`_general_stages`).
   - `make_flagship_general_compose` (`general_4k`): rounded, half-bordered
     tiles with box shadows on every third and two static rotations, through
     the general compose (`ops/compose.py`: kernel K1 paints the colour and
     shadow members, the textures blend in groups) and the YUV420 output
     (kernel K2).
   - `make_flagship_batched_compose`: the Tiles grid over a batch of frames
-    in one call, the counterpart of the reference bench's `jax.vmap`.
+    in one call, the counterpart of the reference bench's `jax.vmap`: the
+    grid's function frame by frame.
 
 Every builder takes the `device` its tensors live on (the CUDA card unless
 another is named; `interop.resolve_device` raises when there is no card)
@@ -24,10 +25,11 @@ arguments, so that every host-built constant (resize and chroma weight
 matrices, shear masks, the K1 member table) is on the device before the
 first real frame.
 
-The grid and the general compose are each built in stages (`Stages`): a
-per-stream stage on the stacked inputs, an assembly of the whole frame and
-its conversion to YUV420 rows. One device runs them in a row. The
-multi-device steps run the same stages over a `DeviceMesh`
+For the multi-device steps, the grid and the general compose are each built
+in stages (`Stages`): a per-stream stage on the stacked inputs, an assembly
+of the whole frame and its conversion to YUV420 rows. One device runs the
+general compose's stages in a row. The multi-device steps run them over a
+`DeviceMesh`
 (`parallel/mesh.py`), one process per device:
 
   - `make_multichip_step` (the Tiles grid) and `make_multichip_general_step`
@@ -47,7 +49,7 @@ and (step, example_args); `mesh.gather_planes` gathers the global planes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable
 
 import numpy as np
 import torch
@@ -56,7 +58,8 @@ from smelter_tpu_torch.core.types import Resolution, RGBAColor
 from smelter_tpu_torch.interop import resolve_device
 from smelter_tpu_torch.ops import color_convert as cc
 from smelter_tpu_torch.ops.compose import _assembly_mode, _canvas_dtype, compose_layouts
-from smelter_tpu_torch.ops.resample import build_mips, resize_matmul
+from smelter_tpu_torch.ops.hopper.grid_resize import GridResize
+from smelter_tpu_torch.ops.resample import build_mips
 from smelter_tpu_torch.parallel import mesh as meshes
 from smelter_tpu_torch.render.capture import route
 from smelter_tpu_torch.render.program import split_layout
@@ -90,19 +93,6 @@ def _scene_layouts(scene, n_inputs: int, in_res: Resolution, out_res: Resolution
     return nested.flatten([in_res] * n_inputs, out_res)
 
 
-def _rgb_to_yuv_limited(color: RGBAColor) -> Tuple[int, int, int]:
-    """BT.709 RGB -> limited-range YUV for a constant color."""
-    r, g, b = color.r / 255.0, color.g / 255.0, color.b / 255.0
-    y = 0.2126 * r + 0.7152 * g + 0.0722 * b
-    u = (b - y) / 1.8556
-    v = (r - y) / 1.5748
-    return (
-        int(round(16.0 + 219.0 * y)),
-        int(round(128.0 + 224.0 * u)),
-        int(round(128.0 + 224.0 * v)),
-    )
-
-
 def _analyze_opaque_grid(flat, out_res: Resolution):
     """If the flattened layout list is background + opaque axis-aligned child
     rects (the Tiles case), return (bg_yuv, [(index, top, left, h, w)]);
@@ -126,7 +116,7 @@ def _analyze_opaque_grid(flat, out_res: Resolution):
                 return None  # colored rect above tiles -> general path
             if c.color.a < 255:
                 return None
-            bg = _rgb_to_yuv_limited(c.color)
+            bg = cc.rgb_to_yuv_limited_u8(c.color.r, c.color.g, c.color.b)
         elif isinstance(c, RenderChildNode):
             if c.border_width > 0:
                 return None
@@ -156,8 +146,9 @@ class Stages:
     `per_stream(y, u, v)` maps the stacked planes of a block of inputs to
     its fields; `assemble(fields)` maps the fields of all N inputs to the
     frame; `rows(frame, r0, r1)` gives the u8 YUV420 planes of the frame's
-    luma rows [r0, r1) (r0, r1 even). One device runs
-    rows(assemble(per_stream(y, u, v)), 0, height). A mesh gathers the
+    luma rows [r0, r1) (r0, r1 even). One device runs the general compose
+    as rows(assemble(per_stream(y, u, v)), 0, height); the grid's function
+    on one device is its own (`_grid_stages`). A mesh gathers the
     fields as `pack` gives them, tensors stacked over the block's inputs
     (row i belongs to input i), and `unpack` turns the gathered tensors back
     into fields for `assemble`."""
@@ -175,16 +166,15 @@ class Stages:
 
 def _flagship_stages(n_inputs: int, in_res: Resolution, out_res: Resolution, device,
                      canvas_dtype: torch.dtype = torch.float32):
-    """The stages of the function `make_flagship_compose` builds, with the
-    builder that makes that function of them: the YUV grid when the Tiles
-    scene is an opaque grid, else the general RGBA compose with its canvas
-    stored as `canvas_dtype`."""
+    """(stages, grid) of the Tiles scene: when it is an opaque grid, its
+    stages (`_grid_stages`) and `grid`, its function on one device; else
+    the general RGBA compose's stages, with its canvas stored as
+    `canvas_dtype`, and `grid` None."""
     flat = _tiles_layouts(n_inputs, in_res, out_res)
     grid = _analyze_opaque_grid(flat, out_res)
     if grid is not None:
-        return _grid_stages(grid, n_inputs, out_res), _make_yuv_grid_compose
-    return (_general_stages(flat, n_inputs, out_res, device, canvas_dtype),
-            _make_general_compose)
+        return _grid_stages(grid, n_inputs, in_res, out_res)
+    return _general_stages(flat, n_inputs, out_res, device, canvas_dtype), None
 
 
 def make_flagship_compose(
@@ -197,9 +187,22 @@ def make_flagship_compose(
     (N, H, W) / (N, H/2, W/2) on `device` -> the 4K YUV420 u8 planes. The
     general fallback reads SMELTER_CANVAS_DTYPE and SMELTER_SCENE_ASSEMBLY
     here, when it is built."""
-    device = resolve_device(device)
-    stages, build = _flagship_stages(n_inputs, in_res, out_res, device, _canvas_dtype(True))
-    return build(stages, n_inputs, in_res, device)
+    return _flagship_fn(n_inputs, in_res, out_res, resolve_device(device), _canvas_dtype(True))
+
+
+def _flagship_fn(n_inputs: int, in_res: Resolution, out_res: Resolution, device,
+                 canvas_dtype: torch.dtype):
+    """`make_flagship_compose` with its general fallback's canvas stored as
+    `canvas_dtype`."""
+    stages, grid = _flagship_stages(n_inputs, in_res, out_res, device, canvas_dtype)
+    if grid is None:
+        return _make_general_compose(stages, n_inputs, in_res, device)
+
+    @route("flagship_compose")
+    def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        return grid(y, u, v)
+
+    return _warmed(fn, n_inputs, in_res, device)
 
 
 def _general_layouts(n_inputs: int, in_res: Resolution, out_res: Resolution):
@@ -281,101 +284,46 @@ def make_flagship_general_compose(
     return general4k, example_args
 
 
-def plan_grid_partition(rects, H: int, W: int):
-    """If `rects` [(key, top, left, h, w)] exactly partition an HxW canvas
-    (no gaps, no overlap), return them as rows (top→bottom, each row
-    left→right); else None. A partition lets the canvas be assembled with
-    row/column concatenation — one write — instead of one region write per
-    tile."""
-    rows: dict = {}
-    for r in rects:
-        rows.setdefault((r[1], r[3]), []).append(r)
-    y = 0
-    ordered = []
-    for (top, h), row in sorted(rows.items()):
-        if top != y or h <= 0:
-            return None
-        row = sorted(row, key=lambda r: r[2])
-        x = 0
-        for r in row:
-            if r[2] != x or r[4] <= 0:
-                return None
-            x += r[4]
-        if x != W:
-            return None
-        ordered.append(row)
-        y += h
-    if y != H:
-        return None
-    return ordered
-
-
-def _grid_stages(grid, n_inputs, out_res: Resolution) -> Stages:
-    """The opaque grid in stages. Uniform tiles (every Tiles scene): the
-    per-stream stage resizes and rounds the block's tiles, batched, and the
-    assembly places them. Tiles of several sizes: the per-stream stage
-    passes the inputs through and the assembly resizes each tile."""
+def _grid_stages(grid, n_inputs, in_res: Resolution, out_res: Resolution):
+    """The opaque grid: (stages, compose). `compose(y, u, v)`, its function
+    on one device, passes each tile's input planes to one `GridResize` of
+    the analysis's tiles, each showing its whole input. In the stages, with
+    uniform tiles (every Tiles scene) the per-stream stage resizes the
+    block's tiles through a `GridResize` of them stacked in a column (one a
+    block size), and the assembly places the gathered tiles as `compose`'s
+    `GridResize` places its own; with tiles of several sizes the per-stream
+    stage passes the inputs through and the assembly is `compose`."""
     bg, tiles = grid
     H, W = out_res.height, out_res.width
-    ch, cw = H // 2, W // 2
-    sizes = {(h, w) for _, _, _, h, w in tiles}
-    uniform = len(sizes) == 1 and len(tiles) == n_inputs
-    partition = plan_grid_partition(tiles, H, W)
+    whole = (0, 0, in_res.height, in_res.width)
+    resize = GridResize([(t, l, h, w, whole) for _, t, l, h, w in tiles], H, W, bg)
+    index = [idx for idx, *_ in tiles]
 
-    def per_stream(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-        if not uniform:
-            return y, u, v
-        _, _, _, th, tw = tiles[0]
-        return (_round_u8(resize_matmul(y, th, tw)),          # (k, th, tw)
-                _round_u8(resize_matmul(u, th // 2, tw // 2)),
-                _round_u8(resize_matmul(v, th // 2, tw // 2)))
-
-    def assemble(fields):
-        if uniform:
-            bty, btu, btv = fields
-            tile_of = lambda idx, h, w: (bty[idx], btu[idx], btv[idx])
-        else:
-            y, u, v = fields
-
-            def tile_of(idx, h, w):
-                return (
-                    _round_u8(resize_matmul(y[idx], h, w)),
-                    _round_u8(resize_matmul(u[idx], h // 2, w // 2)),
-                    _round_u8(resize_matmul(v[idx], h // 2, w // 2)),
-                )
-        if partition is not None:
-            # tiles cover the canvas: assemble with concatenation
-            rows_y, rows_u, rows_v = [], [], []
-            for row in partition:
-                ry, ru, rv = zip(*(tile_of(idx, h, w) for idx, _, _, h, w in row))
-                rows_y.append(torch.cat(ry, dim=1))
-                rows_u.append(torch.cat(ru, dim=1))
-                rows_v.append(torch.cat(rv, dim=1))
-            return torch.cat(rows_y), torch.cat(rows_u), torch.cat(rows_v)
-        dev = fields[0].device
-        canvas_y = torch.full((H, W), bg[0], dtype=torch.uint8, device=dev)
-        canvas_u = torch.full((ch, cw), bg[1], dtype=torch.uint8, device=dev)
-        canvas_v = torch.full((ch, cw), bg[2], dtype=torch.uint8, device=dev)
-        for idx, top, left, h, w in tiles:
-            ty, tu, tv = tile_of(idx, h, w)
-            canvas_y[top : top + h, left : left + w] = ty
-            canvas_u[top // 2 : (top + h) // 2, left // 2 : (left + w) // 2] = tu
-            canvas_v[top // 2 : (top + h) // 2, left // 2 : (left + w) // 2] = tv
-        return canvas_y, canvas_u, canvas_v
+    def compose(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        return resize([(y[i], u[i], v[i]) for i in index], y.device)
 
     def rows(planes, r0: int, r1: int):
         y, u, v = planes
         return y[r0:r1], u[r0 // 2 : r1 // 2], v[r0 // 2 : r1 // 2]
 
-    return Stages(per_stream, assemble, rows, H)
+    if len({(h, w) for *_, h, w in tiles}) > 1 or len(tiles) != n_inputs:
+        return Stages(lambda y, u, v: (y, u, v), lambda planes: compose(*planes), rows, H), compose
 
+    th, tw = tiles[0][3:]
+    blocks: dict = {}
 
-def _make_yuv_grid_compose(stages: Stages, n_inputs, in_res: Resolution, device):
-    @route("flagship_compose")
-    def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-        return stages(y, u, v)
+    def per_stream(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        k = y.shape[0]
+        if k not in blocks:
+            blocks[k] = GridResize([(i * th, 0, th, tw, whole) for i in range(k)],
+                                   k * th, tw, bg)
+        ty, tu, tv = blocks[k]([(y[i], u[i], v[i]) for i in range(k)], y.device)
+        return ty.view(k, th, tw), tu.view(k, th // 2, tw // 2), tv.view(k, th // 2, tw // 2)
 
-    return _warmed(fn, n_inputs, in_res, device)
+    def assemble(fields):
+        return resize.place(lambda t: tuple(f[index[t]] for f in fields), fields[0].device)
+
+    return Stages(per_stream, assemble, rows, H), compose
 
 
 def make_flagship_batched_compose(
@@ -388,34 +336,27 @@ def make_flagship_batched_compose(
     """The counterpart of `jax.vmap` over `make_flagship_compose`'s function:
     returns (fn, example_args), fn(y, u, v) taking `batch` frames of stacked
     planes, (B, N, H, W) / (B, N, H/2, W/2) u8, and returning their
-    (B, OH, OW) / (B, OH/2, OW/2) planes in one call, frame b bit-equal to
-    the single compose of frame b. The Tiles grid batches through
-    `torch.func.vmap`: its resize GEMMs take the frames as one more batch
-    axis, and its assembly concatenates each frame's tiles. A Tiles scene
-    that is not an opaque grid takes the general compose, whose kernels
-    (K3, K2) vmap cannot batch: that raises ValueError naming the shape."""
+    (B, OH, OW) / (B, OH/2, OW/2) planes in one call: the grid's function
+    run on each frame, frame b bit-equal to the single compose of frame b.
+    Only the opaque grid batches, as the reference's bench batches only
+    it: a Tiles scene that is not one raises ValueError naming the shape."""
     device = resolve_device(device)
-    stages, build = _flagship_stages(n_inputs, in_res, out_res, device)
-    if build is not _make_yuv_grid_compose:
+    _, grid = _flagship_stages(n_inputs, in_res, out_res, device)
+    if grid is None:
         raise ValueError(
             f"the Tiles scene of {n_inputs} x {in_res.width}x{in_res.height} -> "
-            f"{out_res.width}x{out_res.height} is not an opaque grid; its general "
-            f"compose launches kernels that a batch cannot go through")
-    batched = torch.func.vmap(stages)
+            f"{out_res.width}x{out_res.height} is not an opaque grid; only the grid's "
+            f"compose batches")
 
     @route("flagship_batched_compose")
     def fn(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-        return batched(y, u, v)
+        frames = [grid(y[b], u[b], v[b]) for b in range(y.shape[0])]
+        return tuple(torch.stack(plane) for plane in zip(*frames))
 
     example_args = tuple(p.expand(batch, *p.shape).contiguous()
                          for p in _example_args(n_inputs, in_res, device))
     fn(*example_args)
     return fn, example_args
-
-
-def _round_u8(x: torch.Tensor) -> torch.Tensor:
-    # +0.5 then truncate (the reference's rounding here, not half-to-even)
-    return torch.clamp(x.to(torch.float32) + 0.5, 0.0, 255.0).to(torch.uint8)
 
 
 def _general_stages(flat, n_inputs, out_res: Resolution, device,
@@ -615,8 +556,7 @@ def make_multioutput_step(
     device = meshes.rank_device(mesh, device)
     lo, hi = meshes.shard_range(n_outputs, mesh, "outputs")
     group = mesh.get_group("outputs")
-    stages, build = _flagship_stages(n_inputs, in_res, out_res, device, torch.float32)
-    fn, example = build(stages, n_inputs, in_res, device)
+    fn, example = _flagship_fn(n_inputs, in_res, out_res, device, torch.float32)
 
     def step(y, u, v, perms):
         if mesh.get_local_rank("outputs") == 0:

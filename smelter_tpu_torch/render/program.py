@@ -52,6 +52,7 @@ import torch
 from smelter_tpu_torch.core.types import Frame, PixelFormat, Resolution
 from smelter_tpu_torch.interop import layout_params, resolve_device, upload
 from smelter_tpu_torch.ops import color_convert as cc
+from smelter_tpu_torch.ops.color_convert import rgb_to_yuv_limited_u8 as _rgb_to_yuv_limited_u8
 from smelter_tpu_torch.ops.compose import (
     MAX_MASKS_COUNT,
     LayoutParams,
@@ -1238,20 +1239,6 @@ def _layout_res_from_key(key: tuple, nid: int) -> Resolution:
         if isinstance(part, tuple) and part and part[0] == nid and part[1] == "layout":
             return part[3]
     raise KeyError(nid)
-
-
-def _rgb_to_yuv_limited_u8(r: int, g: int, b: int) -> Tuple[int, int, int]:
-    """BT.709 limited-range YUV for a constant color (matches
-    ops/color_convert.py matrices)."""
-    rf, gf, bf = r / 255.0, g / 255.0, b / 255.0
-    y = 0.2126 * rf + 0.7152 * gf + 0.0722 * bf
-    u = (bf - y) / 1.8556
-    v = (rf - y) / 1.5748
-    return (
-        int(round(16.0 + 219.0 * y)),
-        int(round(128.0 + 224.0 * u)),
-        int(round(128.0 + 224.0 * v)),
-    )
 
 
 def _try_yuv_grid_program(

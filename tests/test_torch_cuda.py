@@ -603,7 +603,7 @@ def _resize_sites(dev):
     returns, GEMMs a call, the site's own u8 rounding)."""
     from smelter_tpu_torch.ops import color_convert as cc
     from smelter_tpu_torch.ops import resample as rs
-    from smelter_tpu_torch.parallel.flagship import _round_u8
+    from smelter_tpu_torch.ops.hopper.grid_resize import round_u8 as _round_u8
 
     gen = torch.Generator(device=dev).manual_seed(11)
 
@@ -851,6 +851,7 @@ GRID_LAYOUTS = {
     "overlapping": ([(0, 0, 720, 1280, (0, 0, 1080, 1920)), (360, 640, 720, 1280, (0, 0, 1080, 1920)),
                      (100, 1500, 300, 400, (10, 20, 900, 1600))], (1920, 1080), (1920, 1080)),
     "many_small": (_grid_of(8, (1920, 1072), (1920, 1080)), (1920, 1072), (1920, 1080)),
+    "odd_source": (_grid_of(2, (1920, 1080), (1919, 1079)), (1920, 1080), (1919, 1079)),
 }
 
 
@@ -870,7 +871,7 @@ def _lsb_and_ppm(got, want):
 @pytest.mark.parametrize("layout", sorted(GRID_LAYOUTS))
 def test_grid_resize_kernel_matches_the_plain_chain(cuda, layout):
     """The kernel against the plain chain on the card (the bf16 cast,
-    cuBLAS's GEMMs, `_round_u8` and the placement): at most 1 step, on a
+    cuBLAS's GEMMs, `round_u8` and the placement): at most 1 step, on a
     few samples a million (the two sum their f32 products in other
     orders). Disjoint tiles take one launch (of up to MAX_PLANES tile
     planes), overlapping ones one each."""
@@ -890,6 +891,43 @@ def test_grid_resize_kernel_matches_the_plain_chain(cuda, layout):
     assert [t.shape for t in got] == [t.shape for t in want]
     mx, ppm = _lsb_and_ppm(got, want)
     print(f"grid_resize {layout}: max {mx} LSB, {ppm:.3f} samples a million differ")
+    assert mx <= 1 and ppm <= 10
+
+
+@pytest.mark.parametrize("n,in_res,out_res", [(16, (1920, 1080), (3840, 2160)),
+                                              (4, (1919, 1079), (1920, 1080))])
+def test_flagship_grid_launches_grid_resize_once_a_call(cuda, n, in_res, out_res):
+    """`make_flagship_compose`'s opaque grid (16 x 1080p -> 4K, and inputs of
+    odd size): one `grid_resize` launch a call and no resize GEMM, eagerly
+    and as a captured replay (bit-equal), its planes within 1 step of
+    `GridResize.resize_tiles_plain` of the analysis's tiles on at most 10
+    samples a million."""
+    from smelter_tpu_torch.core.types import Resolution
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper import grid_resize
+    from smelter_tpu_torch.parallel import flagship
+    from smelter_tpu_torch.render.capture import capture
+
+    in_r, out_r = Resolution(*in_res), Resolution(*out_res)
+    fn, _ = flagship.make_flagship_compose(n, in_r, out_r, device=cuda)
+    sources = _grid_sources(cuda, n, in_res, seed=n)
+    args = tuple(torch.stack(planes) for planes in zip(*sources))
+    prog, _ = capture(fn, args, cuda)
+    torch.cuda.synchronize()
+    counts = [(grid_resize.LAUNCHES, resample.LAUNCHES)]
+    outs = []
+    for run in (fn, prog):  # eagerly, then replayed
+        outs.append(run(*args))
+        torch.cuda.synchronize()
+        counts.append((grid_resize.LAUNCHES, resample.LAUNCHES))
+    assert [(b[0] - a[0], b[1] - a[1]) for a, b in zip(counts, counts[1:])] == [(1, 0), (1, 0)]
+    eager, out = outs
+    assert all(torch.equal(a, b) for a, b in zip(eager, out))
+    bg, tiles = flagship._analyze_opaque_grid(flagship._tiles_layouts(n, in_r, out_r), out_r)
+    g = grid_resize.GridResize([(t, l, h, w, (0, 0, in_res[1], in_res[0]))
+                                for _, t, l, h, w in tiles], out_res[1], out_res[0], bg)
+    mx, ppm = _lsb_and_ppm(out, g.resize_tiles_plain([sources[i] for i, *_ in tiles], cuda))
+    print(f"flagship grid {n} x {in_res} -> {out_res}: max {mx} LSB, {ppm:.3f} ppm")
     assert mx <= 1 and ppm <= 10
 
 

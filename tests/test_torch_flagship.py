@@ -1,8 +1,9 @@
 """The port's flagship slice (`smelter_tpu_torch/parallel/flagship.py`) against
 the JAX package on the CPU, at small size: the Tiles grid at
-16 x 192x108 -> 384x216 and general_4k at 4 x 256x144 -> 768x432, u8 YUV420
-planes from seeded inputs. Also the planner split (`split_layout`) field for
-field, on the full-size general_4k and Tiles layouts.
+16 and 7 x 192x108 -> 384x216 and 4 x 65x37 -> 130x74, general_4k at
+4 x 256x144 -> 768x432, u8 YUV420 planes from seeded inputs. Also the
+planner split (`split_layout`) field for field, on the full-size general_4k
+and Tiles layouts.
 
 The reference's objects (resolutions, layouts) reach the port through
 `interop.from_reference`; the port runs with `device="cpu"`.
@@ -28,6 +29,7 @@ from smelter_tpu.parallel import flagship as jflag
 from smelter_tpu.render import program as jprog
 from smelter_tpu_torch import interop
 from smelter_tpu_torch.interop import from_reference
+from smelter_tpu_torch.ops.hopper.grid_resize import plan_grid_partition
 from smelter_tpu_torch.parallel import flagship as tflag
 from smelter_tpu_torch.render import program as tprog
 
@@ -39,6 +41,10 @@ SCENES = {
     # 7 tiles leave gaps: background fill + region writes, not concatenation
     "grid_7": (jflag.make_flagship_compose, tflag.make_flagship_compose,
                7, Resolution(192, 108), Resolution(384, 216)),
+    # inputs of odd width and height: each tile resizes its whole Y plane
+    # and its (h // 2, w // 2) chroma planes; the tiles leave gaps
+    "grid_odd": (jflag.make_flagship_compose, tflag.make_flagship_compose,
+                 4, Resolution(65, 37), Resolution(130, 74)),
     "general_4k": (jflag.make_flagship_general_compose,
                    tflag.make_flagship_general_compose,
                    4, Resolution(256, 144), Resolution(768, 432)),
@@ -137,7 +143,7 @@ def test_grid_plan_matches():
         flat = jflag._tiles_layouts(n, Resolution(1920, 1080), out_res)
         grid = jflag._analyze_opaque_grid(flat, out_res)
         assert tflag._analyze_opaque_grid(*from_reference((flat, out_res))) == grid
-        assert tflag.plan_grid_partition(grid[1], 2160, 3840) == \
+        assert plan_grid_partition(grid[1], 2160, 3840) == \
             jflag.plan_grid_partition(grid[1], 2160, 3840)
 
 

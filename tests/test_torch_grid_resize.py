@@ -12,11 +12,17 @@ the CPU can reach of it.
   - the kernel's blocks, mirrored in numpy from the table the kernel reads
     (windows, k-tile ranges, shared memory, rounding), against the plain
     version at small sizes of the cells' geometries, a cropped, an
-    upscaled, an odd-width and an overlapping layout;
-  - the wrapper's checks, and the grid program's `program.grid.tile_planes`.
+    upscaled, an odd-width, an odd-sized source's and an overlapping
+    layout;
+  - the wrapper's checks, and the grid program's `program.grid.tile_planes`;
+  - no module under `smelter_tpu_torch/ops/` imports `smelter_tpu_torch.
+    parallel`: the grid's helpers live here, below `parallel/flagship.py`.
 """
 
 from __future__ import annotations
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -283,6 +289,9 @@ LAYOUTS = {
                  (160, 108), (64, 36)),
     "odd_width": ([(0, 0, 72, 214, (0, 0, 108, 192)), (72, 214, 36, 106, (0, 0, 108, 192))],
                   (320, 108), (192, 108)),
+    # a source of odd width and height, shown whole (the flagship grid's crop)
+    "odd_source": ([(0, 0, 36, 64, (0, 0, 37, 65)), (36, 66, 38, 64, (0, 0, 37, 65))],
+                   (130, 74), (65, 37)),
     "overlapping": ([(0, 0, 80, 140, (0, 0, 108, 192)), (40, 60, 68, 120, (0, 0, 108, 192)),
                      (10, 100, 30, 54, (4, 8, 100, 176))], (192, 108), (192, 108)),
     "unchanged": ([(0, 0, 108, 192, (0, 0, 108, 192))], (192, 108), (192, 108)),
@@ -364,3 +373,26 @@ def test_the_grid_program_counts_its_tile_planes_each_run(n):
         assert tracing.counters()["program.calls.grid"] == 3
     finally:
         tracing.reset()
+
+
+def test_no_module_under_ops_imports_the_parallel_package():
+    import smelter_tpu_torch.ops
+
+    ops = Path(smelter_tpu_torch.ops.__file__).parent
+    found = []
+    for path in sorted(ops.rglob("*.py")):
+        package = ["smelter_tpu_torch", "ops", *path.relative_to(ops).parent.parts]
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                # a relative import resolved against the module's package
+                base = ".".join(package[: len(package) + 1 - node.level] if node.level else [])
+                module = ".".join(p for p in (base, node.module) if p)
+                names = [module] + [f"{module}.{a.name}" for a in node.names]
+            else:
+                continue
+            found += [f"{path.relative_to(ops)}:{node.lineno} {n}" for n in names
+                      if n == "smelter_tpu_torch.parallel"
+                      or n.startswith("smelter_tpu_torch.parallel.")]
+    assert len(list(ops.rglob("*.py"))) > 10 and found == []

@@ -190,6 +190,54 @@ class _Mesh:
         return None
 
 
+@pytest.mark.parametrize("n,stage", [(16, "compose"), (7, "compose"), (16, "per_stream")])
+def test_every_grid_tile_resize_runs_inside_grid_resize(monkeypatch, n, stage):
+    """The flagship grid on one device (16 tiles that partition the canvas, 7
+    that leave gaps) and the grid step's per-stream stage (rank 1 of 2 over
+    "streams") resize every tile plane inside one `GridResize` call: each
+    body of a static resize (`resample._resize_matmul`, which
+    `resize_matmul` calls however it was imported) runs inside
+    `GridResize.__call__`, three a tile."""
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper.grid_resize import GridResize
+
+    inside, calls, resizes = [False], [], []
+    call, body = GridResize.__call__, resample._resize_matmul
+
+    def spy_call(self, sources, device):
+        inside[0] = True
+        calls.append(len(sources))
+        try:
+            return call(self, sources, device)
+        finally:
+            inside[0] = False
+
+    def spy_body(*args):
+        resizes.append(inside[0])
+        return body(*args)
+
+    monkeypatch.setattr(GridResize, "__call__", spy_call)
+    monkeypatch.setattr(resample, "_resize_matmul", spy_body)
+    in_res, out_res = from_reference(GRID_RES)
+    y, u, v = graft_entry.case_inputs(n, in_res, graft_entry.SEEDS["grid"])
+    if stage == "compose":
+        fn, _ = tflag.make_flagship_compose(n, in_res, out_res, device="cpu")
+        calls.clear()  # make_flagship_compose's warm-up call
+        resizes.clear()
+        out = fn(*(torch.from_numpy(p) for p in (y, u, v)))
+        tiles = n
+    else:
+        step, _ = tflag.make_multichip_step(_Mesh((2, 1), ("streams", "space"), coords=(1, 0)),
+                                            n_inputs=n, in_res=in_res, out_res=out_res,
+                                            device="cpu")
+        out = step.local(y, u, v)
+        tiles = n // 2
+        assert [tuple(t.shape) for t in out] == [(tiles, 54, 96), (tiles, 27, 48),
+                                                 (tiles, 27, 48)]
+    assert calls == [tiles]
+    assert len(resizes) == 3 * tiles and all(resizes)
+
+
 def test_indivisible_shapes_raise():
     two_d = _Mesh((3, 2), ("streams", "space"))
     with pytest.raises(ValueError, match="'streams' of size 3"):
