@@ -41,14 +41,14 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      (the Tiles grid, then general_4k), each captured into a CUDA graph
      (`render.capture.capture`, as the reference jits them) and replayed;
      checks shapes and dtypes, that a general_4k replay launched K1 and K2
-     once each, K4 once per group and K5 six times, and a grid replay
-     `grid_resize` once and no other kernel, that
+     once each, K4 once per group, K5 six times and `tile_resize` three
+     times (the run's 14 upright tiles, then each rotated tile's upright
+     tile), and a grid replay `grid_resize` once and no other kernel, that
      each replay equals the eager function bit for bit, and
-     that the card's frames match the port run on the CPU; that one
-     general_4k replay ran its resize GEMMs (`ops/resample.gemm`) with bf16
-     operands on the tensor cores and none in f32 (cuBLAS's kernel names in
-     torch.profiler), and a grid replay none, as many as an eager frame
-     counts (`resample.LAUNCHES`); times both eager and replayed;
+     that the card's frames match the port run on the CPU; that neither
+     replay ran a resize GEMM (`ops/resample.gemm`; cuBLAS's kernel names
+     in torch.profiler), as an eager frame counts none
+     (`resample.LAUNCHES`); times both eager and replayed;
   5b. drives the renderer's YUV grid program, the path both benchmark cells
      run (`grid_program_phase`): 16 1080p YUV420 inputs on the card into one
      4K Tiles of 16 and into four 1080p Tiles of 4; checks that each replay
@@ -126,7 +126,10 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      grid resize (`grid_resize_rows`) at the two benchmark cells' geometries,
      replayed and on the device against its bound and against the plain
      chain on the card (casts, cuBLAS, `round_u8`, concatenation), with
-     their parity, printed as `{"grid_resize": [...]}`; and K4 and K5
+     their parity, printed as `{"grid_resize": [...]}`; the tile converts'
+     banded resize (`tile_resize_rows`) at the multiview cell's geometry,
+     the same way against its bound and the GEMM chain on the card, printed
+     as `{"tile_resize": [...]}`; and K4 and K5
      on phase 4b's general_4k frame (all of its launches back to back, the
      device time a launch, the plain versions, the bounds from this run's
      bytes; K4 on each 16-bit canvas too);
@@ -268,15 +271,16 @@ animated-texture numbers, a JSON line of the pipeline's numbers
 phase (`{"nodes": ...}`), a JSON line of the captured programs of every
 phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
-JSON line of the kernels (K1-K5 and grid_resize; `launches` from the
-pipeline's offline 4K run for K1-K3, from one general_4k replay for K4 and
-K5 and from phase 5b's 4K grid replays for grid_resize,
+JSON line of the kernels (K1-K5, grid_resize and tile_resize; `launches`
+from the pipeline's offline 4K run for K1-K3, from one general_4k replay for
+K4, K5 and tile_resize and from phase 5b's 4K grid replays for grid_resize,
 each path's counts under `launches_by_path`, the nodes, multichip,
 bench, tools and soak phases' included, the tools' and the A/B tools' per tool;
 K1's and K2's 16-bit times, bounds and launches per replay under
 `storage_16bit`), after a JSON line of the resize GEMMs' sites
-(`{"resize_gemms": [...]}`) and of the grid resize (`{"grid_resize":
-[...]}`), the nvidia-smi line, and
+(`{"resize_gemms": [...]}`), of the grid resize (`{"grid_resize":
+[...]}`) and of the tile resize (`{"tile_resize": [...]}`), the nvidia-smi
+line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
 """
@@ -336,25 +340,27 @@ def check(cond: bool, what: str) -> None:
 
 
 KERNEL_NAMES = ("scene_assembly", "yuv_out", "sdf_layers", "group_blend", "row_shear",
-                "grid_resize")
-# the kernels of the general and RGBA routes; the YUV grid program runs
-# grid_resize alone
+                "grid_resize", "tile_resize")
+# K1-K5, the kernels of the general and RGBA routes; the YUV grid program
+# runs grid_resize alone, the general routes' YUV tiles tile_resize
 GENERAL_KERNELS = KERNEL_NAMES[:5]
 
 
 def kernel_modules():
-    """{name: wrapper module} of the port's kernels, K1-K5 and grid_resize,
-    each with its `LAUNCHES` count."""
+    """{name: wrapper module} of the port's kernels, K1-K5, grid_resize and
+    tile_resize, each with its `LAUNCHES` count."""
     from smelter_tpu_torch.ops.hopper import (
         grid_resize,
         group_blend,
         row_shear,
         scene_assembly,
         sdf_layers,
+        tile_resize,
         yuv_out,
     )
 
-    mods = (scene_assembly, yuv_out, sdf_layers, group_blend, row_shear, grid_resize)
+    mods = (scene_assembly, yuv_out, sdf_layers, group_blend, row_shear, grid_resize,
+            tile_resize)
     return dict(zip(KERNEL_NAMES, mods))
 
 
@@ -757,6 +763,9 @@ GROUP_STORAGE = ("float32", "uint16", "float16", "bfloat16")
 # the shears of its two statically rotated tiles (three K5 launches each)
 GENERAL_GROUPS = 16
 GENERAL_SHEARS = 6
+# ... and its `tile_resize` launches: one for the run's 14 upright tiles,
+# one for each rotated tile's upright tile
+GENERAL_TILE_LAUNCHES = 3
 
 
 class GroupLog:
@@ -1440,6 +1449,85 @@ def grid_resize_rows(dev, stamp):
               f"ms by {by} ({n_bytes} B), {bound / t:.0%} of bound; against the plain chain "
               f"{max_lsb} LSB, {ppm:.3f} samples a million differ {stamp}")
     return rows
+
+
+# the multiview cell's tile converts: 16 1080p inputs into the pictures of
+# its bordered and shadowed Rescaler cards at 4K (benchmark/configs/
+# multiview16_4k.json), in tile order
+TILE_RESIZE_SIZES = ((520, 924), (528, 938)) * 8
+
+
+def tile_resize_rows(dev, stamp):
+    """Phase 9's row of the tile converts' banded resize (`ops/hopper/
+    tile_resize.py`) at the multiview cell's geometry (`TILE_RESIZE_SIZES`,
+    whole 1080p crops): held to the GEMM route on the card (`color_convert.
+    _rs`: the bf16 casts and cuBLAS's six GEMMs a tile, the library
+    yardstick) after `round_u8` by the largest u8 step and the values off
+    by 2 or more, and timed: the call captured and replayed back to back
+    ("ms"), the kernel alone on the device (torch.profiler), the GEMM route
+    ("library_ms") and the plain route ("plain_ms") replayed the same way,
+    against the bound (each input sample read once and each f32 product
+    written once at 3.35 TB/s). Gates: one launch, at most 2 steps, under
+    0.01% of the values at 2."""
+    import torch
+
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops.hopper import grid_resize, tile_resize
+    from smelter_tpu_torch.render.capture import capture
+
+    def replayed_ms(fn):
+        prog, _ = capture(lambda _: fn(), (torch.zeros(1, device=dev),), dev)
+        t = kernel_ms(prog.run, n=20)
+        del prog
+        return t
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    crop = (0, 0, IN_H, IN_W)
+    tiles = [(tuple(torch.randint(0, 256, s, dtype=torch.uint8, generator=gen, device=dev)
+                    for s in ((IN_H, IN_W), (IN_H // 2, IN_W // 2), (IN_H // 2, IN_W // 2))),
+              crop, h, w) for h, w in TILE_RESIZE_SIZES]
+
+    def gemm_route(card):
+        out = []
+        for (y, u, v), _, h, w in tiles:
+            wh, ww, wch, wcw = cc.tile_weights(tuple(y.shape), tuple(u.shape), crop, h, w,
+                                               "lanczos3", dev)
+            out.append((cc._rs(y, wh, ww, card), cc._rs(u, wch, wcw, card),
+                        cc._rs(v, wch, wcw, card)))
+        return out
+
+    n0 = tile_resize.LAUNCHES
+    got = tile_resize.resize_tiles(tiles)
+    torch.cuda.synchronize()
+    check(tile_resize.LAUNCHES - n0 == 1,
+          f"tile_resize: {tile_resize.LAUNCHES - n0} launches for {len(tiles)} tiles, not 1")
+    round_u8 = grid_resize.round_u8
+    d = torch.cat([(round_u8(a).to(torch.int32) - round_u8(b).to(torch.int32)).abs().reshape(-1)
+                   for ga, gb in zip(got, gemm_route(True)) for a, b in zip(ga, gb)])
+    max_lsb, n_gt1 = int(d.max()), int((d > 1).sum())
+    ppm = int((d > 0).sum()) * 1e6 / d.numel()
+    check(max_lsb <= 2 and n_gt1 * 10000 < d.numel(),
+          f"tile_resize: {max_lsb} LSB, {n_gt1} values off by 2 or more")
+    kernel = lambda: tile_resize.resize_tiles(tiles)  # noqa: E731
+    t, t_lib = replayed_ms(kernel), replayed_ms(lambda: gemm_route(True))
+    t_plain = replayed_ms(lambda: gemm_route(False))
+    t_dev = device_ms(kernel, "tile_resize_kernel", n=10)
+    n_bytes = len(tiles) * IN_H * IN_W * 3 // 2 + sum(3 * h * w * 4 for h, w in TILE_RESIZE_SIZES)
+    bound, by = bound_ms(n_bytes)
+    planes = tile_resize.plane_views(tiles, "lanczos3")[1]
+    _, strips, dims, smem = grid_resize.plan_planes(planes).launch(0, len(planes))
+    per_sm = grid_resize.blocks_per_sm(dev, smem, "tile_resize")
+    row = dict(cell="multiview16_4k", tiles=len(tiles), tile_planes=len(planes), strips=strips,
+               smem_bytes=smem, blocks_per_sm=per_sm, ms=t, device_ms=t_dev, plain_ms=t_plain,
+               library_ms=t_lib, bound_ms=bound, bound_by=by, bytes=n_bytes, max_lsb=max_lsb,
+               diff_ppm=ppm)
+    print(f"time tile_resize multiview16_4k ({len(tiles)} tiles, {len(planes)} tile planes, "
+          f"{strips} strips, {smem} B of shared memory a block, {per_sm} blocks an SM): "
+          f"replayed {t:.4f} ms, device {t_dev} ms, GEMM route {t_lib:.4f} ms, plain route "
+          f"{t_plain:.4f} ms, bound {bound:.4f} ms by {by} ({n_bytes} B), {bound / t:.0%} of "
+          f"bound; against the GEMM route {max_lsb} LSB, {ppm:.3f} values a million differ, "
+          f"{n_gt1} by 2+ {stamp}")
+    return [row]
 
 
 # the renderer's YUV grid program as each benchmark cell runs it: outputs
@@ -4571,9 +4659,10 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
           f"({general_runs})")
     check(launches["sdf_layers"] == 0, f"bench: K3 launched {launches['sdf_layers']} times")
     check(launches["group_blend"] == GENERAL_GROUPS * general_runs
-          and launches["row_shear"] == GENERAL_SHEARS * general_runs,
-          f"bench: K4/K5 launched {launches}, not {GENERAL_GROUPS} and {GENERAL_SHEARS} "
-          f"times a run of the general program")
+          and launches["row_shear"] == GENERAL_SHEARS * general_runs
+          and launches["tile_resize"] == GENERAL_TILE_LAUNCHES * general_runs,
+          f"bench: K4/K5/tile_resize launched {launches}, not {GENERAL_GROUPS}, "
+          f"{GENERAL_SHEARS} and {GENERAL_TILE_LAUNCHES} times a run of the general program")
     check(result["card"] == nvidia_smi(), f"bench: card {result['card']!r}")
 
     frames = bench.host_frames(n, in_res)
@@ -4591,8 +4680,8 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
         print(f"bench {label}: replay vs eager max abs err {mx}, one replay launched "
               f"{replay_launches}")
         check(mx == 0, f"bench {label}: the replay differs from the eager function by {mx}")
-        expected = ((1, 1, 0, GENERAL_GROUPS, GENERAL_SHEARS, 0) if label == "general_4k"
-                    else (0, 0, 0, 0, 0, 1))
+        expected = ((1, 1, 0, GENERAL_GROUPS, GENERAL_SHEARS, 0, GENERAL_TILE_LAUNCHES)
+                    if label == "general_4k" else (0, 0, 0, 0, 0, 1, 0))
         check(tuple(replay_launches.values()) == expected,
               f"bench {label}: one replay launched {replay_launches}")
         if label == "grid":
@@ -5035,7 +5124,7 @@ def canvas_builders_phase(dev, stamp):
         check(stored == [_storage_dtype(name)], f"canvas {name}: the canvas was {stored}")
         check(launches == {"scene_assembly": 1, "yuv_out": 1, "sdf_layers": 0,
                            "group_blend": GENERAL_GROUPS, "row_shear": GENERAL_SHEARS,
-                           "grid_resize": 0},
+                           "grid_resize": 0, "tile_resize": GENERAL_TILE_LAUNCHES},
               f"canvas {name}: launches per replay {launches}")
         check(mx == 0, f"canvas {name}: the replay differs from the eager function by {mx}")
         check_planes(f"canvas {name}", replay, OUT_W, OUT_H)
@@ -5596,9 +5685,13 @@ def main() -> int:
     check(launches["row_shear"] == GENERAL_SHEARS,
           f"a general_4k replay launched K5 {launches['row_shear']} times, not "
           f"{GENERAL_SHEARS}")
-    # the resize GEMMs of one replay of each: bf16 on the tensor cores, none in
-    # f32; the grid's trace holds none
-    check(gemm_launches["general_4k"] > 0, "a general_4k replay ran no resize GEMM")
+    check(launches["tile_resize"] == GENERAL_TILE_LAUNCHES,
+          f"a general_4k replay launched tile_resize {launches['tile_resize']} times, not "
+          f"{GENERAL_TILE_LAUNCHES}")
+    # the resize GEMMs of one replay of each: neither trace holds one (the
+    # tile converts' resizes are tile_resize's, the grid's grid_resize's)
+    check(gemm_launches["general_4k"] == 0,
+          f"a general_4k replay ran {gemm_launches['general_4k']} resize GEMMs")
     replay_gemms = {}
     for label, prog in (("grid", grid_prog), ("general_4k", gen_prog)):
         replay_gemms[label] = check_bf16_gemms(
@@ -5960,6 +6053,7 @@ def main() -> int:
                "animated": capture_stats["animated textures"]["eager_compared"]}
     resize_rows, f32_names = resize_gemm_rows(site_logs, renders, gemm_launches, stamp)
     grid_rows = grid_resize_rows(dev, stamp)
+    tile_rows = tile_resize_rows(dev, stamp)
     for label, kernels in replay_gemms.items():
         check(not f32_names & set(kernels),
               f"one {label} replay ran the plain route's f32 GEMMs {f32_names & set(kernels)}")
@@ -6103,12 +6197,21 @@ def main() -> int:
          "plain_ms": grid_4k["plain_ms"], "library_ms": grid_4k["plain_ms"],
          "bound_ms": grid_4k["bound_ms"], "bound_by": grid_4k["bound_by"],
          "bytes": grid_4k["bytes"], "grid_program": grid_program},
+        {"name": "tile_resize", "route": "cuda",
+         "source": "smelter_tpu_torch/csrc/tile_resize.cu",
+         "replaces": "smelter_tpu/ops/color_convert.py yuv_tile_rgba_cm",
+         "launches": launches["tile_resize"],
+         "launches_by_path": by_path("tile_resize"),
+         "max_abs_err": tile_rows[0]["max_lsb"],
+         **{k: tile_rows[0][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "bytes")}},
     ]
     lossy = [k for k in TRACE_LOSSES if k]
     print(f"profiler traces of phases 5 and 9: {len(TRACE_LOSSES)}, of which {len(lossy)} lost "
           f"opening records ({sorted(set(lossy))} of {PAD_LAUNCHES}) {stamp}")
     print(json.dumps({"resize_gemms": resize_rows}))
     print(json.dumps({"grid_resize": grid_rows}))
+    print(json.dumps({"tile_resize": tile_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Port of `smelter_tpu/ops/color_convert.py` but its 4:2:2 output
 converters: u8 <-> f32, YUV <-> RGB, the chroma up- and down-sampling, the
-deferred-YUV tile convert (`yuv_tile_rgba_cm`), the full-resolution RGBA
+deferred-YUV tile convert (`yuv_tile_rgba_cm`, whose resizes are the banded
+pass of `ops/hopper/tile_resize.py` on the card), the full-resolution RGBA
 conversion of every input format (`convert_to_rgba_f32`,
 `DeferredYuvSource.mips`) and the canvas -> YUV420, NV12 and YUV444
 outputs. The YUV420 output (and so NV12, its interleaved form) runs kernel
@@ -17,6 +18,7 @@ textures are not premultiplied here (they are opaque or straight alpha).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -156,6 +158,31 @@ def _chroma_upsample_matrix(n_full: int, n_sub: int) -> np.ndarray:
     return U
 
 
+@functools.lru_cache(maxsize=256)
+def tile_matrices(
+    luma_hw: Tuple[int, int],
+    chroma_hw: Tuple[int, int],
+    crop: Tuple[int, int, int, int],
+    out_h: int,
+    out_w: int,
+    kind: str,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(Wh, Ww, Wch, Wcw) of `tile_weights` on the host, in f32 before their
+    rounding to bf16: the luma resize matrices, and the chroma ones composed
+    with the bilinear upsample in f32, rows sliced by the luma crop.
+    Read-only arrays, cached."""
+    ct, cl, chh, cww = crop
+    Wh = _dense_axis_weights(chh, out_h, kind)
+    Ww = _dense_axis_weights(cww, out_w, kind)
+    Uh = _chroma_upsample_matrix(luma_hw[0], chroma_hw[0])
+    Uw = _chroma_upsample_matrix(luma_hw[1], chroma_hw[1])
+    Wch = Wh @ Uh[ct : ct + chh]
+    Wcw = Ww @ Uw[cl : cl + cww]
+    Wch.setflags(write=False)
+    Wcw.setflags(write=False)
+    return Wh, Ww, Wch, Wcw
+
+
 @device_constant(maxsize=256)
 def tile_weights(
     luma_hw: Tuple[int, int],
@@ -166,18 +193,11 @@ def tile_weights(
     kind: str,
     device: torch.device,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(Wh, Ww, Wch, Wcw) for `yuv_tile_rgba_cm`: the luma resize matrices and
-    the chroma ones composed with the bilinear upsample, rows sliced by the
-    luma crop. Built once per (shapes, crop, size, device) as bf16 device
-    tensors; the Python row loops never run per frame."""
-    ct, cl, chh, cww = crop
-    Wh = _dense_axis_weights(chh, out_h, kind)
-    Ww = _dense_axis_weights(cww, out_w, kind)
-    Uh = _chroma_upsample_matrix(luma_hw[0], chroma_hw[0])
-    Uw = _chroma_upsample_matrix(luma_hw[1], chroma_hw[1])
-    Wch = Wh @ Uh[ct : ct + chh]
-    Wcw = Ww @ Uw[cl : cl + cww]
-    return tuple(device_weights(m, device) for m in (Wh, Ww, Wch, Wcw))
+    """(Wh, Ww, Wch, Wcw) for `yuv_tile_rgba_cm` (`tile_matrices`) as bf16
+    device tensors, built once per (shapes, crop, size, device); the Python
+    row loops never run per frame."""
+    return tuple(device_weights(m, device)
+                 for m in tile_matrices(luma_hw, chroma_hw, crop, out_h, out_w, kind))
 
 
 def _rs(img: torch.Tensor, wr: torch.Tensor, wc: torch.Tensor, card: bool) -> torch.Tensor:
@@ -197,22 +217,33 @@ def yuv_tile_products(
     out_w: int,
     kind: str = "lanczos3",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The three (out_h, out_w) f32 GEMM products of `yuv_tile_rgba_cm`: the
-    luma crop and the two chroma planes resized (the chroma upsample composed
+    """The three (out_h, out_w) f32 products of `yuv_tile_rgba_cm`: the luma
+    crop and the two chroma planes resized (the chroma upsample composed
     into their weights), still on the u8 scale, before its colour tail
-    (`yuv_products_rgba_cm`)."""
+    (`yuv_products_rgba_cm`). Each plane's rows are summed over bf16
+    weights and u8 samples in f32 and rounded to bf16, its columns summed
+    over those in f32 and kept. On the card this tile alone is one launch of
+    the banded pass (`ops/hopper/tile_resize.py`, which resizes a run's
+    tiles together); elsewhere the plain version: each plane's two GEMMs
+    (`_rs`, the plain route), which `tile_resize` counts."""
+    if y.is_cuda:
+        from smelter_tpu_torch.ops.hopper import tile_resize
+
+        return tile_resize.resize_tiles([((y, u, v), crop, out_h, out_w)], kind)[0]
+    from smelter_tpu_torch.ops.hopper.tile_resize import count_planes
+
     ct, cl, chh, cww = crop
     Wh, Ww, Wch, Wcw = tile_weights(
         tuple(y.shape), tuple(u.shape), tuple(crop), out_h, out_w, kind, y.device
     )
-    card = y.is_cuda
-    return (_rs(y[ct : ct + chh, cl : cl + cww], Wh, Ww, card),
-            _rs(u, Wch, Wcw, card), _rs(v, Wch, Wcw, card))
+    count_planes(3)
+    return (_rs(y[ct : ct + chh, cl : cl + cww], Wh, Ww, False),
+            _rs(u, Wch, Wcw, False), _rs(v, Wch, Wcw, False))
 
 
 def yuv_products_rgba_cm(yt: torch.Tensor, ut: torch.Tensor, vt: torch.Tensor,
                          full_range: bool = False) -> torch.Tensor:
-    """The colour tail of `yuv_tile_rgba_cm` on its GEMM products
+    """The colour tail of `yuv_tile_rgba_cm` on its resized planes
     (`yuv_tile_products`): u8 scale, range expansion, BT.709 matrix, and an
     opaque alpha plane; channel-major (4, h, w) f32."""
     yt = yt * (1.0 / 255.0)
@@ -256,7 +287,7 @@ def yuv_tile_rgba_cm(
 class DeferredYuvSource:
     """Planar-YUV input whose RGBA conversion is deferred: static texture
     layouts crop+resize the subsampled planes directly (`tile_cm`, or its
-    GEMM products, `tile_products`, for the group blend); the
+    resized planes, `tile_products`, for the group blend); the
     layouts that need full-resolution RGBA mips (the sampled pass, traced
     sizes) call `mips`, which converts once per frame."""
 
@@ -273,7 +304,7 @@ class DeferredYuvSource:
         )
 
     def tile_products(self, crop, out_h: int, out_w: int):
-        """`tile_cm`'s three GEMM products, before its colour tail
+        """`tile_cm`'s three resized planes, before its colour tail
         (`yuv_tile_products`): what kernel K4 reads for a static tile."""
         return yuv_tile_products(*self.planes, crop, out_h, out_w)
 

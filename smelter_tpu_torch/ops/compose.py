@@ -5,10 +5,11 @@ blend in paint order with premultiplied OVER. Each layout whose rect is
 planner-stable (`static_rect` set) renders region-locally:
   - colour and box-shadow layers as an analytic rounded-rect SDF over their
     footprint (rotation is a coordinate rotation);
-  - texture layers as a GEMM resize of the source crop placed at an integer
-    origin, with SDF edges, borders and parent masks; a stable rotation
-    goes through the three-shear `rotate_static_cm` (kernel K5 on the card,
-    `ops/hopper/row_shear.py`).
+  - texture layers as a resize of the source crop placed at an integer
+    origin (a run's YUV tiles in one banded pass, `ops/hopper/
+    tile_resize.py`; an RGBA source's by GEMMs), with SDF edges, borders
+    and parent masks; a stable rotation goes through the three-shear
+    `rotate_static_cm` (kernel K5 on the card, `ops/hopper/row_shear.py`).
 A run of such layouts that opens the canvas paints its colour and shadow
 members in one pass of kernel K1 (`ops/hopper/scene_assembly.py`), which
 creates the canvas; the textures, and the colour and shadow layouts behind
@@ -48,7 +49,9 @@ What a compose runs is counted per run of its program
 again on each replay): `program.general.groups` (K4 groups),
 `.assembly_members` (K1's colour and shadow members), `.sdf_members`
 (the colour and shadow members K4 evaluates), `.tile_converts` (the
-deferred YUV tile converts) and `.shears` (K5 passes, `ops/rotate.py`).
+deferred YUV tile converts) and `.shears` (K5 passes, `ops/rotate.py`);
+`ops/hopper/tile_resize.py` counts `.tile_resize_planes` (the tile planes
+the converts resize).
 
 Corner-radius order is [top_left, top_right, bottom_right, bottom_left].
 """
@@ -199,9 +202,9 @@ def _src_mips(src) -> Sequence:
 
 def _src_tile_cm(src, crop, out_h: int, out_w: int) -> torch.Tensor:
     """Channel-major (4, out_h, out_w) f32 tile: the source's `crop` window
-    resized by GEMMs. Deferred planar-YUV sources crop and resize their
-    subsampled planes directly (color_convert.yuv_tile_rgba_cm); an (H, W, 4)
-    RGBA source (or a mip list, level 0 used) resizes its crop."""
+    resized. Deferred planar-YUV sources crop and resize their subsampled
+    planes directly (color_convert.yuv_tile_rgba_cm); an (H, W, 4) RGBA
+    source (or a mip list, level 0 used) resizes its crop by GEMMs."""
     if hasattr(src, "tile_cm"):
         count_each_run("program.general.tile_converts")
         return src.tile_cm(crop, out_h, out_w)
@@ -323,14 +326,17 @@ def _pixel_centers(Y0: int, X0: int, vh: int, vw: int, device):
     return px.expand(vh, vw), py.expand(vh, vw)
 
 
-def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence):
+def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence,
+                  products: Optional[tuple] = None):
     """One region-local layout of a group as a member of kernel K4
     (`ops/hopper/group_blend.GroupMember`): what torch computes for it here
-    (a tile's GEMM products, a stably rotated tile; nothing for a colour or
+    (a tile's resized planes, a stably rotated tile; nothing for a colour or
     shadow layout, which K4 evaluates from its parameters), and what K4 (or
-    its plain version) does with it. Its contribution is exactly zero
-    outside its footprint, so blending it over the union is identical to
-    blending it over its own `_layer_region`."""
+    its plain version) does with it. `products`: a YUV tile's resized
+    planes, made already with the rest of its run (`_run_tile_products`).
+    Its contribution is exactly zero outside its footprint, so blending it
+    over the union is identical to blending it over its own
+    `_layer_region`."""
     from smelter_tpu_torch.ops.hopper.group_blend import GroupMember
 
     top, left, h, w = static.static_rect  # type: ignore[misc]
@@ -350,16 +356,39 @@ def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence)
         count_each_run("program.general.sdf_members")
         return GroupMember("sdf", static, params, (), (top, left))
 
-    # non-rotated texture: region-local GEMM resize of the source crop; K4
-    # applies the edge, border and masks
+    # non-rotated texture: region-local resize of the source crop; K4
+    # applies the colour tail, the edge, border and masks
     src = sources[static.source_index]
     if hasattr(src, "tile_products"):
         count_each_run("program.general.tile_converts")
-        return GroupMember("yuv", static, params,
-                           tuple(src.tile_products(static.static_crop, h, w)),
-                           (top, left), full_range=src.full_range)
+        if products is None:
+            products = src.tile_products(static.static_crop, h, w)
+        return GroupMember("yuv", static, params, tuple(products), (top, left),
+                           full_range=src.full_range)
     return GroupMember("rgba", static, params,
                        (_src_tile_cm(src, static.static_crop, h, w),), (top, left))
+
+
+def _run_tile_products(groups, sources) -> list:
+    """The resized planes of every static, unrotated YUV tile of a run's
+    groups, all from one call of the banded pass (`ops/hopper/
+    tile_resize.py`: one launch a `MAX_PLANES` tile planes on the card, the
+    plain version on the CPU): for each group, {member index: planes}. They
+    do not depend on the canvas, so making them before the groups blend
+    changes no value and no paint order."""
+    from smelter_tpu_torch.ops.hopper import tile_resize
+
+    keys, tiles = [], []
+    for g, (members, _, _) in enumerate(groups):
+        for m, (st, _) in enumerate(members):
+            src = sources[st.source_index] if st.content == "texture" else None
+            if st.static_rotation is None and hasattr(src, "tile_products"):
+                keys.append((g, m))
+                tiles.append((src.planes, st.static_crop, *st.static_rect[2:]))
+    by_group: list = [{} for _ in groups]
+    for (g, m), planes in zip(keys, tile_resize.resize_tiles(tiles)):
+        by_group[g][m] = planes
+    return by_group
 
 
 def _prepare_rect_tile(
@@ -553,15 +582,20 @@ def _render_rotozoom_layout(static: LayoutStatic, params: LayoutParams,
     return _place_tile_traced(canvas, rotated, cy - S * 0.5, cx - S * 0.5)
 
 
-def _blend_group(canvas, members, union, sources, h: int, w: int):
+def _blend_group(canvas, members, union, sources, h: int, w: int,
+                 products: Optional[dict] = None):
     """OVER-blend one coalesced group: one canvas region read, one blend
     chain, one region write, in one pass of kernel K4 on a CUDA canvas
     (`ops/hopper/group_blend.py`; its plain version on a CPU canvas). The
     region decodes to f32, the chain blends in f32, and only the stored
-    value quantizes to a 16-bit canvas's storage."""
+    value quantizes to a 16-bit canvas's storage. `products`: {member
+    index: resized planes} of YUV tiles made already (`_run_tile_products`);
+    any other YUV tile is resized alone."""
     from smelter_tpu_torch.ops.hopper import group_blend
 
-    layers = [_group_member(st, p, sources) for st, p in members]
+    products = products or {}
+    layers = [_group_member(st, p, sources, products.get(k))
+              for k, (st, p) in enumerate(members)]
     count_each_run("program.general.groups")
     return group_blend.blend_group(canvas, layers, union, h, w)
 
@@ -771,9 +805,11 @@ def _assemble_local_run(canvas, run_items, sources, h: int, w: int, clip):
 
 
 def _assemble_groups(canvas, groups, sources, h: int, w: int):
-    """Assemble a run of coalesced groups onto the canvas in paint order."""
-    for members, union, _ in groups:
-        canvas = _blend_group(canvas, members, union, sources, h, w)
+    """Assemble a run of coalesced groups onto the canvas in paint order,
+    the run's YUV tiles resized first, together (`_run_tile_products`)."""
+    products = _run_tile_products(groups, sources)
+    for (members, union, _), planes in zip(groups, products):
+        canvas = _blend_group(canvas, members, union, sources, h, w, planes)
     return canvas
 
 

@@ -111,8 +111,12 @@ def library() -> ctypes.CDLL:
     lib.smelter_row_shear.restype = i
     lib.smelter_grid_resize.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.smelter_grid_resize.restype = i
-    lib.smelter_grid_resize_blocks_per_sm.argtypes = [i]
-    lib.smelter_grid_resize_blocks_per_sm.restype = i
+    lib.smelter_tile_resize.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, p]
+    lib.smelter_tile_resize.restype = i
+    for kernel in ("grid_resize", "tile_resize"):
+        blocks_per_sm = getattr(lib, f"smelter_{kernel}_blocks_per_sm")
+        blocks_per_sm.argtypes = [i]
+        blocks_per_sm.restype = i
     lib.smelter_cuda_error_string.argtypes = [i]
     lib.smelter_cuda_error_string.restype = ctypes.c_char_p
     return lib

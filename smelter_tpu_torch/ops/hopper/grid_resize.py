@@ -15,11 +15,14 @@ once.
 
 The weights are the GEMM route's bf16 matrices (`resample.
 _dense_axis_weights` rounded to bf16), each row cut to its band of nonzero
-columns (`axis_band`). `plan` lays them out for the kernel's strips of
-output rows and columns: per m-tile of 16 rows and per n-tile of 8 columns,
-a dense bf16 block over only the k-tiles of 16 source samples its bands
-reach (`_blocks`). The kernel thus sums every product the GEMM sums but
-those by an exact zero, on the tensor cores as cuBLAS sums them.
+columns (`axis_band`, `matrix_band`). `plan` lays them out for the kernel's
+strips of output rows and columns: per m-tile of 16 rows and per n-tile of
+8 columns, a dense bf16 block over only the k-tiles of 16 source samples
+its bands reach (`_blocks`). The kernel thus sums every product the GEMM
+sums but those by an exact zero, on the tensor cores as cuBLAS sums them.
+The strips, the table and the bands of any bf16 matrix (`plan_planes`)
+serve the tile converts' banded pass too (`tile_resize.py`), whose kernel
+shares this one's body (`csrc/banded_resize.cuh`).
 
 `GridResize` is the port's one resize, rounding and placement of an opaque
 YUV420 grid: the renderer's grid program, `make_flagship_compose`'s grid
@@ -62,6 +65,10 @@ SMEM_MAX = 227 * 1024  # a block's shared memory, at most
 SMEM_SM, SMEM_RESERVED = 228 * 1024, 1024  # an SM's, and what each block's costs besides
 
 Rect = Tuple[int, int, int, int]  # top, left, height, width
+# the bands of an axis as a hashable description: a function that returns
+# (first, weights) as `matrix_band` does, and its arguments; e.g.
+# (axis_band, in_size, out_size)
+Band = Tuple
 
 # kernel launches since the last reset (the main path's proof of use); a
 # CUDA graph's replays count the launches captured in it
@@ -108,29 +115,38 @@ def plan_grid_partition(rects, H: int, W: int):
     return ordered
 
 
+def matrix_band(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """An (out, in) matrix of bf16 values (held in f32) as bands: (first,
+    weights), `first` the (out,) int32 first source index of each output
+    sample and `weights` the (out, taps) f32 weights from there: the
+    nonzero columns of each row, padded with exact zeros to the widest row
+    (`first` is moved left where a band would pass the last source index).
+    The bands rebuild the matrix exactly. Read-only arrays."""
+    n_in = w.shape[1]
+    nonzero = w != 0
+    some = nonzero.any(axis=1)
+    lo = np.where(some, nonzero.argmax(axis=1), 0)
+    hi = np.where(some, n_in - 1 - nonzero[:, ::-1].argmax(axis=1), 0)
+    taps = int((hi - lo).max()) + 1
+    first = np.minimum(lo, n_in - taps).astype(np.int32)
+    weights = np.take_along_axis(w, first[:, None] + np.arange(taps), axis=1)
+    first.setflags(write=False)
+    weights.setflags(write=False)
+    return first, weights
+
+
 @functools.lru_cache(maxsize=64)
 def axis_band(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The Lanczos-3 resize of one axis as bands: (first, weights), `first`
-    the (out,) int32 first source index of each output sample and `weights`
-    the (out, taps) f32 weights from there, bf16 values: the nonzero columns
-    of each row of the GEMM route's bf16 matrix, padded with exact zeros to
-    the widest row (`first` is moved left where a band would pass the last
-    source index). An axis of unchanged size is one tap of weight 1, as
-    `resize_matmul` skips it. Read-only arrays, cached by size."""
+    """The Lanczos-3 resize of one axis as bands (`matrix_band` of the GEMM
+    route's bf16 matrix). An axis of unchanged size is one tap of weight 1,
+    as `resize_matmul` skips it. Cached by size."""
     if in_size <= 0 or out_size <= 0:
         raise ValueError(f"no band of a {in_size} -> {out_size} resize")
-    if in_size == out_size:
-        first = np.arange(out_size, dtype=np.int32)
-        weights = np.ones((out_size, 1), np.float32)
-    else:
+    if in_size != out_size:
         dense = resample._dense_axis_weights(in_size, out_size, "lanczos3")
-        w = resample.to_bf16_values(torch.from_numpy(dense)).numpy()
-        nonzero = w != 0
-        lo = nonzero.argmax(axis=1)
-        hi = in_size - 1 - nonzero[:, ::-1].argmax(axis=1)
-        taps = int((hi - lo).max()) + 1
-        first = np.minimum(lo, in_size - taps).astype(np.int32)
-        weights = np.take_along_axis(w, first[:, None] + np.arange(taps), axis=1)
+        return matrix_band(resample.to_bf16_values(torch.from_numpy(dense)).numpy())
+    first = np.arange(out_size, dtype=np.int32)
+    weights = np.ones((out_size, 1), np.float32)
     first.setflags(write=False)
     weights.setflags(write=False)
     return first, weights
@@ -173,13 +189,13 @@ class _Blocks:
     entries: Tuple[np.ndarray, ...]
 
 
-@functools.lru_cache(maxsize=64)
-def _blocks(n_in: int, n_out: int, n: int, tile: int, head: int, align: int) -> _Blocks:
-    """The `_Blocks` of an `n_in` -> `n_out` axis in blocks of `n` outputs,
-    tiles of `tile` outputs, headers of `head` ints and windows starting at
-    a multiple of `align`. Cached by its arguments."""
-    first, weights = axis_band(n_in, n_out)
-    taps = weights.shape[1]
+@functools.lru_cache(maxsize=256)
+def _blocks(band: Band, n: int, tile: int, head: int, align: int) -> _Blocks:
+    """The `_Blocks` of the axis whose bands `band` gives, in blocks of `n`
+    outputs, tiles of `tile` outputs, headers of `head` ints and windows
+    starting at a multiple of `align`. Cached by its arguments."""
+    first, weights = band[0](*band[1:])
+    n_out, taps = weights.shape
     start = np.arange(0, n_out, n)
     size = np.minimum(n, n_out - start)
     w0 = first[start] // align * align
@@ -242,10 +258,22 @@ def _dims(hb: _Blocks, wb: _Blocks) -> Tuple[int, ...]:
 
 @functools.lru_cache(maxsize=64)
 def plan(shapes: Tuple[Tuple[int, ...], ...]) -> Plan:
-    """The `Plan` of tile planes given as (in_h, in_w, out_h, out_w, plane,
-    top, left) each, `plane` 0, 1 or 2 for the output Y, U or V. Each plane
-    takes the first of `BLOCK_SHAPES` whose shared memory fits (raising if
-    none does)."""
+    """The `Plan` of grid tile planes given as (in_h, in_w, out_h, out_w,
+    plane, top, left) each, `plane` 0, 1 or 2 for the output Y, U or V: the
+    Lanczos-3 bands of their axes (`axis_band`), as `plan_planes` lays
+    them out."""
+    return plan_planes(tuple(((axis_band, in_h, out_h), (axis_band, in_w, out_w), p, top, left)
+                             for in_h, in_w, out_h, out_w, p, top, left in shapes))
+
+
+@functools.lru_cache(maxsize=64)
+def plan_planes(planes: Tuple[Tuple, ...]) -> Plan:
+    """The `Plan` of tile planes given as (rows, columns, plane, top, left)
+    each: the `Band`s of their height and width passes, the output plane
+    (the strip rows' `kDst`) and their place in it. Each plane takes the
+    first of `BLOCK_SHAPES` whose shared memory fits (raising if none
+    does). Planes whose rows or columns have the same bands share their
+    weights in the table."""
     offsets: dict = {}
     chunks: List[np.ndarray] = []
     size = 0
@@ -262,21 +290,28 @@ def plan(shapes: Tuple[Tuple[int, ...], ...]) -> Plan:
         return offsets[key]
 
     rows, counts, dims = [], [], []
-    for k, (in_h, in_w, out_h, out_w, p, top, left) in enumerate(shapes):
-        options = [(r, c, _blocks(in_h, out_h, r, 16, H_HEAD, 1),
-                    _blocks(in_w, out_w, c, 8, W_HEAD, 16)) for r, c in BLOCK_SHAPES]
-        sizes = [smem_bytes(*_dims(hb, wb)) for _, _, hb, wb in options]
+    for k, (h_band, w_band, p, top, left) in enumerate(planes):
+        # the shapes in order until one lets three blocks share an SM; where
+        # none does, all of them, for the first that lets two, else one
+        options, sizes = [], []
+        for r, c in BLOCK_SHAPES:
+            hb, wb = _blocks(h_band, r, 16, H_HEAD, 1), _blocks(w_band, c, 8, W_HEAD, 16)
+            options.append((r, c, hb, wb))
+            sizes.append(smem_bytes(*_dims(hb, wb)))
+            if sizes[-1] <= min(SMEM_MAX, SMEM_SM // 3 - SMEM_RESERVED):
+                break
         for share in (3, 2, 1):  # blocks an SM holds
             fits = [i for i, n in enumerate(sizes)
                     if n <= min(SMEM_MAX, SMEM_SM // share - SMEM_RESERVED)]
             if fits:
                 break
         if not fits:
-            raise ValueError(f"grid_resize: a {in_w}x{in_h} -> {out_w}x{out_h} resize needs "
-                             f"more shared memory than a block has ({sizes[-1]} B)")
+            raise ValueError(f"banded resize: tile plane {k} (rows {h_band[1:]}, columns "
+                             f"{w_band[1:]}) needs more shared memory than a block has "
+                             f"({sizes[-1]} B)")
         r, c, hb, wb = options[fits[0]]
-        h_at = place((in_h, out_h, r, "h"), hb)
-        w_at = place((in_w, out_w, c, "w"), wb)
+        h_at = place((h_band, r, "h"), hb)
+        w_at = place((w_band, c, "w"), wb)
         ci, ri = np.meshgrid(np.arange(len(wb.start)), np.arange(len(hb.start)), indexing="ij")
         ri, ci = ri.reshape(-1), ci.reshape(-1)
         n = len(ri)
@@ -295,14 +330,15 @@ def plan(shapes: Tuple[Tuple[int, ...], ...]) -> Plan:
 
 
 @functools.lru_cache(maxsize=64)
-def blocks_per_sm(device: torch.device, smem: int) -> int:
-    """The kernel's blocks an SM of `device` holds at `smem` bytes of shared
-    memory (asked once a card and size, in a program's warm-up: the call
-    also raises the kernel's shared memory limit, which a capture may not)."""
+def blocks_per_sm(device: torch.device, smem: int, kernel: str = "grid_resize") -> int:
+    """The blocks of `kernel` (grid_resize or tile_resize) an SM of `device`
+    holds at `smem` bytes of shared memory (asked once a card and size, in a
+    program's warm-up: the call also raises the kernel's shared memory
+    limit, which a capture may not)."""
     with torch.cuda.device(device):
-        n = build.library().smelter_grid_resize_blocks_per_sm(smem)
+        n = getattr(build.library(), f"smelter_{kernel}_blocks_per_sm")(smem)
     if n <= 0:
-        raise RuntimeError(f"grid_resize: no block of {smem} B of shared memory fits an SM "
+        raise RuntimeError(f"{kernel}: no block of {smem} B of shared memory fits an SM "
                            f"of {device} ({n})")
     return n
 

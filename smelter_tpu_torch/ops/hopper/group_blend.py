@@ -12,7 +12,7 @@ bytes: the union read and written once and each member's inputs read once.
 
 A member (`GroupMember`) is one layout with its torch-made inputs, if it
 has any, already computed by `compose._group_member`:
-  - "yuv": a static YUV tile's three f32 GEMM products
+  - "yuv": a static YUV tile's three f32 resized planes
     (`DeferredYuvSource.tile_products`); the kernel applies the colour tail
     (`color_convert.yuv_products_rgba_cm`), then the texture edge, border
     and masks of the layout's rect;

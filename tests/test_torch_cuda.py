@@ -975,16 +975,91 @@ def test_grid_resize_runs_once_a_replay_of_the_grid_program(cuda, n, out_res, pl
     assert mx <= 1
 
 
+# the tile converts' banded resize (`ops/hopper/tile_resize.py`): sites as
+# (luma (w, h), crop, out_h, out_w), the two tile sites of `_resize_sites`,
+# the multiview's two picture sizes at 4K, an upscale and an odd crop
+TILE_SITES = {
+    "tile cropped 270x510->156x277": ((510, 270), (3, 5, 250, 480), 156, 277),
+    "tile 1080x1920->540x960": ((1920, 1080), (0, 0, 1080, 1920), 540, 960),
+    "multiview bordered 1080x1920->528x938": ((1920, 1080), (0, 0, 1080, 1920), 528, 938),
+    "multiview shadowed 1080x1920->520x924": ((1920, 1080), (0, 0, 1080, 1920), 520, 924),
+    "upscale 360x640->810x1440": ((640, 360), (0, 0, 360, 640), 810, 1440),
+    "odd crop 1080x1920->377x615": ((1920, 1080), (7, 13, 1001, 1777), 377, 615),
+}
+
+
+@pytest.mark.parametrize("site", sorted(TILE_SITES))
+def test_tile_resize_matches_the_gemm_and_plain_routes(cuda, site):
+    """One tile through the kernel against the GEMM route on the card
+    (`color_convert._rs`, cuBLAS) and the plain route (f32 GEMMs on the same
+    bf16 values), within `chip_smoke.parity_vs_cpu`'s gate: <= 2 u8 steps
+    after `round_u8`, under 0.01% of the values at 2 (a sum of another order
+    can land on the other side of a bf16 tie between the axes). One launch,
+    no resize GEMM."""
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper import tile_resize
+    from smelter_tpu_torch.ops.hopper.grid_resize import round_u8
+
+    src, crop, oh, ow = TILE_SITES[site]
+    (y, u, v), = _grid_sources(cuda, 1, src, seed=len(site))
+    before = (tile_resize.LAUNCHES, resample.LAUNCHES)
+    got = cc.yuv_tile_products(y, u, v, crop, oh, ow)
+    torch.cuda.synchronize()
+    assert (tile_resize.LAUNCHES - before[0], resample.LAUNCHES - before[1]) == (1, 0)
+    w = cc.tile_weights(tuple(y.shape), tuple(u.shape), crop, oh, ow, "lanczos3", cuda)
+    ct, cl, chh, cww = crop
+    for card in (True, False):
+        want = (cc._rs(y[ct:ct + chh, cl:cl + cww], w[0], w[1], card),
+                cc._rs(u, w[2], w[3], card), cc._rs(v, w[2], w[3], card))
+        assert all(a.dtype == b.dtype == torch.float32 and a.shape == b.shape == (oh, ow)
+                   for a, b in zip(got, want))
+        d = torch.stack([(round_u8(a).to(torch.int32) - round_u8(b).to(torch.int32)).abs()
+                         for a, b in zip(got, want)])
+        mx, n_gt1 = int(d.max()), int((d > 1).sum())
+        print(f"tile_resize {site} vs {'GEMM' if card else 'plain'} route: max {mx} LSB, "
+              f"{int((d > 0).sum())} of {d.numel()} values differ, {n_gt1} by 2+")
+        assert mx <= 2 and n_gt1 * 10000 < d.numel()
+
+
+def test_tile_resize_batch_equals_each_tile_alone_and_replays_bit_equal(cuda):
+    """The multiview's 16 tiles at 4K in one call (one launch of 48 tile
+    planes) give each tile's products bit for bit as a call of that tile
+    alone, and a captured replay gives them again."""
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops.hopper import tile_resize
+    from smelter_tpu_torch.render.capture import capture
+
+    sizes = [(528, 938) if k % 2 else (520, 924) for k in range(16)]
+    planes = _grid_sources(cuda, 16, (1920, 1080), seed=26)
+    tiles = [(p, (0, 0, 1080, 1920), h, w) for p, (h, w) in zip(planes, sizes)]
+    before = tile_resize.LAUNCHES
+    got = tile_resize.resize_tiles(tiles)
+    torch.cuda.synchronize()
+    assert tile_resize.LAUNCHES - before == 1
+    for (p, crop, h, w), products in zip(tiles, got):
+        alone = cc.yuv_tile_products(*p, crop, h, w)
+        assert all(torch.equal(a, b) for a, b in zip(products, alone))
+
+    def fn(x):
+        return [t + x for products in tile_resize.resize_tiles(tiles) for t in products]
+
+    prog, _ = capture(fn, (torch.zeros((), device=cuda),), cuda)
+    replayed = prog(torch.zeros((), device=cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(replayed, [t for ps in got for t in ps]))
+
+
 @pytest.mark.parametrize("out_res", [(768, 432), (3840, 2160)])
 def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
     """The benchmark's styled multiview (16 Rescaler cards, bordered and
     shadowed; `benchmark/scenes/multiview.py`) through the renderer's
     general program, captured: on each replay the general counters equal
     the kernels' launches (a K4 launch a group, one K1 launch for its
-    members, six resize GEMMs a tile convert, no K5), K4 evaluates the 15
-    rings and shadows behind a picture (`program.general.sdf_members`), and
-    the frame meets the benchmark's plain reference within the cell's
-    limits."""
+    members, one `tile_resize` launch for the run's 16 tile converts, 3
+    tile planes each, no resize GEMM, no K5), K4 evaluates the 15 rings and
+    shadows behind a picture (`program.general.sdf_members`), and the frame
+    meets the benchmark's plain reference within the cell's limits."""
     import importlib.util
     import json
     from pathlib import Path
@@ -992,7 +1067,7 @@ def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
 
     from smelter_tpu_torch.core import types as tt
     from smelter_tpu_torch.ops import resample
-    from smelter_tpu_torch.ops.hopper import group_blend, row_shear
+    from smelter_tpu_torch.ops.hopper import group_blend, row_shear, tile_resize
     from smelter_tpu_torch.render.renderer import Renderer, RendererOptions
     from smelter_tpu_torch.scene import components as comp
     from smelter_tpu_torch.utils import tracing
@@ -1024,7 +1099,7 @@ def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
     torch.cuda.synchronize()
     tracing.reset()
     before = (group_blend.LAUNCHES, scene_assembly.LAUNCHES, resample.LAUNCHES,
-              row_shear.LAUNCHES, yuv_out.LAUNCHES)
+              row_shear.LAUNCHES, yuv_out.LAUNCHES, tile_resize.LAUNCHES)
     try:
         for k in range(1, 4):
             out = r.render(tt.FrameSet(pts=k / 32, frames=frames)).frames["out"].data
@@ -1034,12 +1109,12 @@ def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
         tracing.reset()
     launched = [after - b for after, b in zip(
         (group_blend.LAUNCHES, scene_assembly.LAUNCHES, resample.LAUNCHES,
-         row_shear.LAUNCHES, yuv_out.LAUNCHES), before)]
+         row_shear.LAUNCHES, yuv_out.LAUNCHES, tile_resize.LAUNCHES), before)]
     print(out_res, {k: v for k, v in c.items() if k.startswith("program.general")}, launched)
     assert c["program.calls.general"] == 3
-    assert launched == [c["program.general.groups"], 3, 6 * c["program.general.tile_converts"],
-                        0, 3]
+    assert launched == [c["program.general.groups"], 3, 0, 0, 3, 3]
     assert c["program.general.tile_converts"] == 3 * 16
+    assert c["program.general.tile_resize_planes"] == 3 * 3 * 16
     assert c["program.general.assembly_members"] % 3 == 0 and "program.general.shears" not in c
     # the 7 rings and 8 shadows behind a picture, evaluated inside K4
     assert c["program.general.sdf_members"] == 3 * 15
