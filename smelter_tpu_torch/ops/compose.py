@@ -49,9 +49,13 @@ What a compose runs is counted per run of its program
 again on each replay): `program.general.groups` (K4 groups),
 `.assembly_members` (K1's colour and shadow members), `.sdf_members`
 (the colour and shadow members K4 evaluates), `.tile_converts` (the
-deferred YUV tile converts) and `.shears` (K5 passes, `ops/rotate.py`);
-`ops/hopper/tile_resize.py` counts `.tile_resize_planes` (the tile planes
-the converts resize).
+deferred YUV tile converts), `.rgba_tiles` (the RGBA tiles resized by
+GEMMs: K4's "rgba" members and rotated RGBA tiles) and `.shears` (K5
+passes, `ops/rotate.py`); `ops/hopper/tile_resize.py` counts
+`.tile_resize_planes` (the tile planes the converts resize), and the frame
+program `.rgba_converts` and `.mip_levels` (the inputs of the RGBA input
+route and the mip levels built for them beyond level 0,
+`render/program.py`).
 
 Corner-radius order is [top_left, top_right, bottom_right, bottom_left].
 """
@@ -208,6 +212,7 @@ def _src_tile_cm(src, crop, out_h: int, out_w: int) -> torch.Tensor:
     if hasattr(src, "tile_cm"):
         count_each_run("program.general.tile_converts")
         return src.tile_cm(crop, out_h, out_w)
+    count_each_run("program.general.rgba_tiles")
     img = src[0] if isinstance(src, (list, tuple)) else src
     ct, cl, chh, cww = crop
     patch = img[ct : ct + chh, cl : cl + cww]

@@ -1134,8 +1134,13 @@ class OutputProgram:
                                 *planes, full_range=fmt.is_full_range,
                                 mip_levels=_mip_levels(res))
                         else:
+                            # the RGBA input route: every other format converts
+                            # at full resolution and is mipped
                             rgba = cc.convert_to_rgba_f32(fmt.value, planes)
-                            input_memo[p.input_id] = build_mips(rgba, _mip_levels(res))
+                            mips = build_mips(rgba, _mip_levels(res))
+                            count_each_run("program.general.rgba_converts")
+                            count_each_run("program.general.mip_levels", len(mips) - 1)
+                            input_memo[p.input_id] = mips
                     return input_memo[p.input_id]
                 if isinstance(p, (TextNode, ImageNode)):
                     tex = aux_textures[nid]
