@@ -56,6 +56,12 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      counts 48 (4K) or 12 (1080p) in `program.grid.tile_planes`, that a
      replay equals its program run eagerly bit for bit and that the frames
      are within 1 step of the plain chain on the card;
+  5c. drives the NV12 Tiles cell's path (`nv12_tiles_program_phase`): 16
+     1080p NV12 inputs on the card into one 4K Tiles through the general
+     program; checks that one replay launches `nv12_resize` once, K1 and K2
+     once, K4 once a tile's group, no other kernel and no resize GEMM, and
+     counts 16 `program.general.nv12_tiles` and 0 conversions and mip
+     levels, and that a replay equals its program run eagerly bit for bit;
   6. drives the renderer (`smelter_tpu_torch.render.renderer.Renderer`), the
      entry point a pipeline calls, on 16 host YUV420 inputs at 1080p into a
      4K YUV420 output: a Tiles grid under a highlight frame and a lower-third
@@ -129,7 +135,11 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
      their parity, printed as `{"grid_resize": [...]}`; the tile converts'
      banded resize (`tile_resize_rows`) at the multiview cell's geometry,
      the same way against its bound and the GEMM chain on the card, printed
-     as `{"tile_resize": [...]}`; and K4 and K5
+     as `{"tile_resize": [...]}`; the fused NV12 convert-and-resize pass
+     (`nv12_resize_rows`) at the NV12 Tiles cell's geometry, the same way
+     against its bound and the eager chain with its GEMMs (within
+     `nv12_resize.gemm_route_bound`), printed as
+     `{"nv12_resize": [...]}`; and K4 and K5
      on phase 4b's general_4k frame (all of its launches back to back, the
      device time a launch, the plain versions, the bounds from this run's
      bytes; K4 on each 16-bit canvas too);
@@ -271,15 +281,17 @@ animated-texture numbers, a JSON line of the pipeline's numbers
 phase (`{"nodes": ...}`), a JSON line of the captured programs of every
 phase (`{"captured_programs": ...}`), the 4K goldens' errors
 (`{"goldens_4k": ...}`), the multichip phase's (`{"multichip": ...}`), a
-JSON line of the kernels (K1-K5, grid_resize and tile_resize; `launches`
-from the pipeline's offline 4K run for K1-K3, from one general_4k replay for
-K4, K5 and tile_resize and from phase 5b's 4K grid replays for grid_resize,
+JSON line of the kernels (K1-K5, grid_resize, tile_resize and nv12_resize;
+`launches` from the pipeline's offline 4K run for K1-K3, from one general_4k
+replay for K4, K5 and tile_resize, from phase 5b's 4K grid replays for
+grid_resize and from phase 5c's NV12 Tiles replay for nv12_resize,
 each path's counts under `launches_by_path`, the nodes, multichip,
 bench, tools and soak phases' included, the tools' and the A/B tools' per tool;
 K1's and K2's 16-bit times, bounds and launches per replay under
 `storage_16bit`), after a JSON line of the resize GEMMs' sites
 (`{"resize_gemms": [...]}`), of the grid resize (`{"grid_resize":
-[...]}`) and of the tile resize (`{"tile_resize": [...]}`), the nvidia-smi
+[...]}`), of the tile resize (`{"tile_resize": [...]}`) and of the NV12
+pass (`{"nv12_resize": [...]}`), the nvidia-smi
 line, and
 last `{"ok": true, "device": {...}}`. Any failed phase ends the run with a
 non-zero exit and no "ok" line.
@@ -340,18 +352,20 @@ def check(cond: bool, what: str) -> None:
 
 
 KERNEL_NAMES = ("scene_assembly", "yuv_out", "sdf_layers", "group_blend", "row_shear",
-                "grid_resize", "tile_resize")
+                "grid_resize", "tile_resize", "nv12_resize")
 # K1-K5, the kernels of the general and RGBA routes; the YUV grid program
-# runs grid_resize alone, the general routes' YUV tiles tile_resize
+# runs grid_resize alone, the general routes' YUV tiles tile_resize and their
+# NV12 tiles nv12_resize
 GENERAL_KERNELS = KERNEL_NAMES[:5]
 
 
 def kernel_modules():
-    """{name: wrapper module} of the port's kernels, K1-K5, grid_resize and
-    tile_resize, each with its `LAUNCHES` count."""
+    """{name: wrapper module} of the port's kernels, K1-K5, grid_resize,
+    tile_resize and nv12_resize, each with its `LAUNCHES` count."""
     from smelter_tpu_torch.ops.hopper import (
         grid_resize,
         group_blend,
+        nv12_resize,
         row_shear,
         scene_assembly,
         sdf_layers,
@@ -360,7 +374,7 @@ def kernel_modules():
     )
 
     mods = (scene_assembly, yuv_out, sdf_layers, group_blend, row_shear, grid_resize,
-            tile_resize)
+            tile_resize, nv12_resize)
     return dict(zip(KERNEL_NAMES, mods))
 
 
@@ -1530,6 +1544,103 @@ def tile_resize_rows(dev, stamp):
     return [row]
 
 
+# the NV12 Tiles cell's tiles: 16 NV12 inputs of 1080p into the 960x540
+# tiles of a 4 x 4 grid at 4K (benchmark/configs/tiles16_4k_nv12.json)
+NV12_RESIZE_TILES = 16
+
+
+def nv12_resize_rows(dev, stamp):
+    """Phase 9's row of the fused NV12 convert-and-resize pass (`ops/hopper/
+    nv12_resize.py`) at the NV12 Tiles cell's geometry (16 whole 1080p
+    pictures into 960x540 tiles): held to the eager chain on the card (the
+    whole picture converted, `resize_matmul`'s bf16 cuBLAS GEMMs of the
+    crop; the library yardstick) by `nv12_resize.gemm_route_bound` (one
+    bf16 step of R, G and B where no height-pass tie reaches them) and
+    alpha's equality, and timed: the call
+    captured and replayed back to back ("ms"), the kernel alone on the device
+    (torch.profiler), the chain with cuBLAS's GEMMs ("library_ms") and with
+    the plain route's f32 GEMMs ("plain_ms") replayed the same way, against
+    the bound (each NV12 sample read once and each f32 product written once
+    at 3.35 TB/s). Gates: one launch, within the bound, under 1% of the
+    values different, alpha equal. The launch count of the cell's own path
+    is `nv12_tiles_program_phase`'s."""
+    import torch
+
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper import grid_resize, nv12_resize
+    from smelter_tpu_torch.render.capture import capture
+
+    def replayed_ms(fn):
+        prog, _ = capture(lambda _: fn(), (torch.zeros(1, device=dev),), dev)
+        t = kernel_ms(prog.run, n=20)
+        del prog
+        return t
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    crop, h, w = (0, 0, IN_H, IN_W), OUT_H // 4, OUT_W // 4
+    tiles = [((torch.randint(0, 256, (IN_H, IN_W), dtype=torch.uint8, generator=gen, device=dev),
+               torch.randint(0, 256, (IN_H // 2, IN_W // 2, 2), dtype=torch.uint8, generator=gen,
+                             device=dev)), crop, h, w) for _ in range(NV12_RESIZE_TILES)]
+
+    def chain(card):
+        return [resample._resize_matmul(cc.nv12_to_rgba(*planes).permute(2, 0, 1), h, w,
+                                        "lanczos3", card).to(torch.float32)
+                for planes, _, _, _ in tiles]
+
+    n0 = nv12_resize.LAUNCHES
+    got = nv12_resize.resize_tiles(tiles)
+    torch.cuda.synchronize()
+    launches = nv12_resize.LAUNCHES - n0
+    check(launches == 1, f"nv12_resize: {launches} launches for {len(tiles)} tiles, not 1")
+    steps, ratio, beyond, untied, differ, alpha_equal = [], 0.0, 0, 0, 0, True
+    for (planes, _, _, _), a, b in zip(tiles, got, chain(True)):
+        alpha_equal &= bool(torch.equal(a[3], b[3]))
+        # a bf16 step of the GEMM route's value, 2^-16 (a 256th of a u8
+        # step) at least, for the record
+        ulp = torch.clamp(torch.exp2(torch.floor(torch.log2(torch.clamp(
+            b[:3].abs(), min=2.0 ** -40))) - 7), min=2.0 ** -16)
+        steps.append(((a[:3] - b[:3]).abs() / ulp).reshape(-1))
+        # the gate: one bf16 step where no height-pass tie reaches a value
+        bound, tied = nv12_resize.gemm_route_bound(planes, crop, h, w)
+        d = (a[:3].double() - b[:3].double()).abs()
+        ratio = max(ratio, float((d / bound).max()))
+        over = d > bound - tied
+        beyond += int(over.sum())
+        untied += int((over & (tied == 0)).sum())
+        differ += int((d > 0).sum())
+    steps = torch.cat(steps)
+    max_steps, ppm = float(steps.max()), differ * 1e6 / steps.numel()
+    check(ratio <= 1.0 and untied == 0 and ppm < 1e4 and alpha_equal,
+          f"nv12_resize: {ratio} of the GEMM route's bound, {beyond} values beyond one bf16 "
+          f"step ({untied} where no tie reaches), {ppm} values a million differ, alpha equal "
+          f"{alpha_equal}")
+    kernel = lambda: nv12_resize.resize_tiles(tiles)  # noqa: E731
+    t, t_lib = replayed_ms(kernel), replayed_ms(lambda: chain(True))
+    t_plain = replayed_ms(lambda: chain(False))
+    t_dev = device_ms(kernel, "nv12_convert_resize_kernel", n=10)
+    n_bytes = len(tiles) * (IN_H * IN_W * 3 // 2 + 4 * h * w * 4)
+    t_bound, by = bound_ms(n_bytes)
+    planes = nv12_resize.plan(tiles)
+    plan = grid_resize.plan_planes(planes, nv12_resize.smem_bytes, nv12_resize.SHARES)
+    _, strips, _, smem = plan.launch(0, len(planes))
+    per_sm = grid_resize.blocks_per_sm(dev, smem, "nv12_convert_resize")
+    row = dict(cell="tiles16_4k_nv12", tiles=len(tiles), strips=strips, smem_bytes=smem,
+               blocks_per_sm=per_sm, launches=launches, ms=t, device_ms=t_dev,
+               plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, bound_by=by,
+               bytes=n_bytes, max_bf16_steps=max_steps, bound_ratio=ratio,
+               beyond_one_step=beyond, beyond_untied=untied, diff_ppm=ppm,
+               alpha_equal=alpha_equal)
+    print(f"time nv12_resize tiles16_4k_nv12 ({len(tiles)} tiles, {strips} strips, {smem} B "
+          f"of shared memory a block, {per_sm} blocks an SM): replayed {t:.4f} ms, device "
+          f"{t_dev} ms, eager chain with cuBLAS {t_lib:.4f} ms, with f32 GEMMs "
+          f"{t_plain:.4f} ms, bound {t_bound:.4f} ms by {by} ({n_bytes} B), {t_bound / t:.0%} "
+          f"of bound; against the GEMM route {max_steps} bf16 steps at most, {ratio:.4f} of "
+          f"its bound, {ppm:.3f} values a million differ, {beyond} by more than a step "
+          f"({untied} where no tie reaches), alpha equal {alpha_equal} {stamp}")
+    return [row]
+
+
 # the renderer's YUV grid program as each benchmark cell runs it: outputs
 # (each a Tiles of N_INPUTS / outputs of the 1080p inputs) and their size
 GRID_PROGRAM_CELLS = (("tiles16_4k", 1, (OUT_W, OUT_H)), ("tiles4to1_1080p", 4, (IN_W, IN_H)))
@@ -1634,6 +1745,71 @@ def grid_program_phase(dev, stamp, ticks=GRID_PROGRAM_TICKS):
                              max_lsb=max_lsb, diff_ppm=ppm,
                              eager_mismatches=stats["eager_mismatches"])
     return launches, numbers
+
+
+def nv12_tiles_program_phase(dev, stamp):
+    """Phase 5c: the NV12 Tiles cell's path (`tiles16_4k_nv12`): 16 1080p
+    NV12 inputs on the card into one 3840x2160 Tiles of 16, PLANAR_YUV420
+    out, through `Renderer.render` and the general program, captured. Every
+    kernel's launch count and the resize GEMMs' are set to 0 just before
+    one replay, which launches `nv12_resize` once for the 16 tiles, K1 and
+    K2 once, K4 once a group (16), no other kernel and no resize GEMM, and
+    counts 16 `program.general.nv12_tiles`, no full-resolution conversion
+    and no mip level (both registered at 0). One more tick under
+    `EagerCheck` holds the replay bit for bit to its program run eagerly.
+    Returns the replay's launches and the numbers."""
+    import torch
+
+    from smelter_tpu_torch.core import types as tt
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.render.renderer import Renderer, RendererOptions
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    frames = {f"input_{i}": tt.Frame(
+        data=(torch.randint(0, 256, (IN_H, IN_W), dtype=torch.uint8, generator=gen, device=dev),
+              torch.randint(0, 256, (IN_H // 2, IN_W // 2, 2), dtype=torch.uint8,
+                            generator=gen, device=dev)),
+        format=tt.PixelFormat.NV12, resolution=tt.Resolution(IN_W, IN_H), pts=0.0)
+        for i in range(N_INPUTS)}
+    r = Renderer(RendererOptions(async_compile=False), device=dev)
+    for i in range(N_INPUTS):
+        r.register_input(f"input_{i}")
+    r.update_scene("out_0", comp.Tiles(
+        background_color=tt.RGBAColor(0, 0, 0, 255), tile_aspect_ratio=(16, 9),
+        children=[comp.InputStream(input_id=f"input_{i}") for i in range(N_INPUTS)]),
+        tt.Resolution(OUT_W, OUT_H), tt.PixelFormat.PLANAR_YUV420)
+    r.render(tt.FrameSet(pts=0.0, frames=frames))  # the capture
+    torch.cuda.synchronize()
+    zero_launches()
+    resample.LAUNCHES = 0
+    tracing.reset()
+    r.render(tt.FrameSet(pts=1 / 32, frames=frames))
+    torch.cuda.synchronize()
+    launches = {**launch_counts(), "resize_gemms": resample.LAUNCHES}
+    counters = {k: v for k, v in tracing.counters().items() if k.startswith("program.")}
+    tracing.reset()
+    print(f"nv12 tiles program: one replay launched {launches}, counted {counters} {stamp}")
+    want = {**dict.fromkeys(KERNEL_NAMES, 0), "scene_assembly": 1, "yuv_out": 1,
+            "group_blend": N_INPUTS, "nv12_resize": 1, "resize_gemms": 0}
+    check(launches == want, f"nv12 tiles program: one replay launched {launches}, not {want}")
+    check(counters.get("program.calls.general") == 1
+          and counters.get("program.general.groups") == N_INPUTS
+          and counters.get("program.general.nv12_tiles") == N_INPUTS
+          and counters.get("program.general.rgba_converts") == 0
+          and counters.get("program.general.mip_levels") == 0
+          and "program.general.rgba_tiles" not in counters,
+          f"nv12 tiles program: one replay counted {counters}")
+    with EagerCheck("nv12 tiles program") as eager:
+        r.render(tt.FrameSet(pts=2 / 32, frames=frames))
+    stats = eager.report()
+    kinds = [kind for _, _, kind in eager.renders]
+    check(kinds == ["replay"], f"nv12 tiles program: renders {kinds}")
+    (program,) = r._programs["out_0"]._build_cache.values()
+    check(program.fn.route == "general", f"nv12 tiles program: route {program.fn.route}")
+    r.close()
+    return launches, dict(counters=counters, eager_mismatches=stats["eager_mismatches"])
 
 
 class EagerCheck:
@@ -4680,8 +4856,8 @@ def bench_phase(dev, stamp, n=N_INPUTS, in_w=IN_W, in_h=IN_H, out_w=OUT_W, out_h
         print(f"bench {label}: replay vs eager max abs err {mx}, one replay launched "
               f"{replay_launches}")
         check(mx == 0, f"bench {label}: the replay differs from the eager function by {mx}")
-        expected = ((1, 1, 0, GENERAL_GROUPS, GENERAL_SHEARS, 0, GENERAL_TILE_LAUNCHES)
-                    if label == "general_4k" else (0, 0, 0, 0, 0, 1, 0))
+        expected = ((1, 1, 0, GENERAL_GROUPS, GENERAL_SHEARS, 0, GENERAL_TILE_LAUNCHES, 0)
+                    if label == "general_4k" else (0, 0, 0, 0, 0, 1, 0, 0))
         check(tuple(replay_launches.values()) == expected,
               f"bench {label}: one replay launched {replay_launches}")
         if label == "grid":
@@ -5124,7 +5300,8 @@ def canvas_builders_phase(dev, stamp):
         check(stored == [_storage_dtype(name)], f"canvas {name}: the canvas was {stored}")
         check(launches == {"scene_assembly": 1, "yuv_out": 1, "sdf_layers": 0,
                            "group_blend": GENERAL_GROUPS, "row_shear": GENERAL_SHEARS,
-                           "grid_resize": 0, "tile_resize": GENERAL_TILE_LAUNCHES},
+                           "grid_resize": 0, "tile_resize": GENERAL_TILE_LAUNCHES,
+                           "nv12_resize": 0},
               f"canvas {name}: launches per replay {launches}")
         check(mx == 0, f"canvas {name}: the replay differs from the eager function by {mx}")
         check_planes(f"canvas {name}", replay, OUT_W, OUT_H)
@@ -5726,6 +5903,8 @@ def main() -> int:
 
     # phase 5b: the renderer's YUV grid program at the benchmark cells' geometries
     grid_launches, grid_program = grid_program_phase(dev, stamp)
+    # phase 5c: the NV12 Tiles cell's path, one replay counted
+    nv12_launches, nv12_program = nv12_tiles_program_phase(dev, stamp)
 
     # phase 16: the benchmark entry point, `python -m smelter_tpu_torch.bench`
     bench_launches, bench_numbers = bench_phase(dev, stamp)
@@ -6054,6 +6233,7 @@ def main() -> int:
     resize_rows, f32_names = resize_gemm_rows(site_logs, renders, gemm_launches, stamp)
     grid_rows = grid_resize_rows(dev, stamp)
     tile_rows = tile_resize_rows(dev, stamp)
+    nv12_rows = nv12_resize_rows(dev, stamp)
     for label, kernels in replay_gemms.items():
         check(not f32_names & set(kernels),
               f"one {label} replay ran the plain route's f32 GEMMs {f32_names & set(kernels)}")
@@ -6138,7 +6318,8 @@ def main() -> int:
                 "tools": {tool: n[name] for tool, n in tool_launches.items()},
                 "canvas_tools": {tool: n[name] for tool, n in canvas_launches.items()},
                 "soak": soak_launches[name],
-                "grid_program": {cell: n[name] for cell, n in grid_launches.items()}}
+                "grid_program": {cell: n[name] for cell, n in grid_launches.items()},
+                "nv12_tiles_program": nv12_launches[name]}
 
     grid_4k = next(row for row in grid_rows if row["cell"] == "tiles16_4k")
 
@@ -6205,6 +6386,15 @@ def main() -> int:
          "max_abs_err": tile_rows[0]["max_lsb"],
          **{k: tile_rows[0][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by", "bytes")}},
+        {"name": "nv12_resize", "route": "cuda",
+         "source": "smelter_tpu_torch/csrc/nv12_convert_resize.cu",
+         "replaces": "smelter_tpu/ops/color_convert.py nv12_to_rgba + "
+                     "smelter_tpu/ops/resample.py resize_matmul",
+         "launches": nv12_launches["nv12_resize"],
+         "launches_by_path": by_path("nv12_resize"), "nv12_tiles_program": nv12_program,
+         "max_abs_err": nv12_rows[0]["max_bf16_steps"],
+         **{k: nv12_rows[0][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "bytes")}},
     ]
     lossy = [k for k in TRACE_LOSSES if k]
     print(f"profiler traces of phases 5 and 9: {len(TRACE_LOSSES)}, of which {len(lossy)} lost "
@@ -6212,6 +6402,7 @@ def main() -> int:
     print(json.dumps({"resize_gemms": resize_rows}))
     print(json.dumps({"grid_resize": grid_rows}))
     print(json.dumps({"tile_resize": tile_rows}))
+    print(json.dumps({"nv12_resize": nv12_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -224,6 +224,136 @@ __device__ void start_strip(const Args& args, const int* d, uint8_t* raw, int* h
   copies_commit();
 }
 
+// The lanes' places in the mma fragments and ldmatrix's addresses.
+struct Lanes {
+  int warp, lane;
+  int gq, tq;      // the mma fragments' group and thread in group
+  int lrow, lcol;  // ldmatrix: lane l addresses row (l & 7) of matrix l >> 3
+  __device__ Lanes()
+      : warp(threadIdx.x >> 5), lane(threadIdx.x & 31), gq(lane >> 2), tq(lane & 3),
+        lrow((lane & 7) + ((lane >> 3) & 1) * 8), lcol((lane >> 4) * 8) {}
+};
+
+// The height pass of strip `d`: T[r][x] = bf16(sum_k Wh[r][k] * S[k][x])
+// over each m-tile's k-tiles, for the strip's rows r and every window
+// column x, from its row block's weights `hw`, for each of kCh channels (S
+// and T planes `s_plane` and `t_plane` apart; rows of `spitch` bf16). A
+// unit is an m-tile and two n-tiles of 8 columns, in every channel: the
+// weights' fragment is loaded once for the channels' products. A warp
+// runs kMaxUnits units at once with one channel, one with more. With
+// kOnesLast, the last channel's S is a window of ones and is not read:
+// each of its B fragments is bf16 1.0.
+template <int kCh, bool kOnesLast>
+__device__ __forceinline__ void height_pass(const Lanes& l, const int* d, const int* hw,
+                                            const uint16_t* S, int s_plane, uint16_t* T,
+                                            int t_plane, int spitch) {
+  constexpr int kUnits = kCh == 1 ? kMaxUnits : 1;
+  const int mtiles = (d[kRn] + 15) >> 4, hp = 16 * d[kKh] + 8;
+  const uint16_t* htiles = reinterpret_cast<const uint16_t*>(hw + kHHead);
+  const int npairs = d[kWpad] >> 4, units = mtiles * npairs;
+  for (int u0 = l.warp; u0 < units; u0 += kWarps * kUnits) {
+    // the units' tiles: rows of the weights and of the window, k-tiles
+    const uint16_t* a_row[kUnits];
+    const uint16_t* b_row[kUnits];
+    int nk[kUnits], nk_max = 0;
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const int u = min(u0 + j * kWarps, units - 1);
+      const int mi = u / npairs, q = u - mi * npairs;
+      nk[j] = u0 + j * kWarps < units ? hw[2 + mi] : 0;
+      nk_max = max(nk_max, nk[j]);
+      a_row[j] = htiles + mi * 16 * hp + l.lrow * hp + l.lcol;
+      b_row[j] = S + (16 * hw[mi] + l.lrow) * spitch + 16 * q + l.lcol;
+    }
+    float acc[kUnits][kCh][2][4] = {};
+    for (int kk = 0; kk < nk_max; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kUnits; ++j) {
+        if (kk < nk[j]) {
+          uint32_t a[4];
+          ldmatrix_x4(a, a_row[j] + 16 * kk);
+#pragma unroll
+          for (int c = 0; c < kCh; ++c) {
+            uint32_t bf[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
+            // matrices: k rows 0-7 and 8-15 of n-tile 2q, then of 2q + 1
+            if (!kOnesLast || c + 1 < kCh) {
+              ldmatrix_x4_trans(bf, b_row[j] + c * s_plane + 16 * kk * spitch);
+            }
+            mma_bf16(acc[j][c][0], a, bf);
+            mma_bf16(acc[j][c][1], a, bf + 2);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const int u = u0 + j * kWarps;
+      if (u < units) {
+        const int mi = u / npairs, q = u - mi * npairs;
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            uint16_t* out = T + c * t_plane + (16 * mi + l.gq) * spitch + 16 * q + 8 * n + 2 * l.tq;
+            *reinterpret_cast<uint32_t*>(out) = pack_bf16(acc[j][c][n][0], acc[j][c][n][1]);
+            *reinterpret_cast<uint32_t*>(out + 8 * spitch) =
+                pack_bf16(acc[j][c][n][2], acc[j][c][n][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The width pass of strip `d`: out[r][c] = sum_x T[r][x] * Ww[c][x] over
+// the n-tile's k-tiles of its column block's weights `ww`, for each of kCh
+// channels of T (planes `t_plane` apart), 8 output columns an n-tile, each
+// warp one n-tile at a time over every m-tile and channel: the weights'
+// fragment is loaded once for the channels' products. Each pair of f32
+// sums of columns cc and cc + 1 of row r goes to `store(ch, r, cc, lo,
+// hi)`.
+template <int kCh, typename Store>
+__device__ __forceinline__ void width_pass(const Lanes& l, const int* d, const int* ww,
+                                           const uint16_t* T, int t_plane, int spitch,
+                                           const Store& store) {
+  const int rn = d[kRn], cn = d[kCn], mtiles = (rn + 15) >> 4, wp = 16 * d[kKw] + 8;
+  const uint16_t* wtiles = reinterpret_cast<const uint16_t*>(ww + kWHead);
+  for (int jc = l.warp; jc < (cn + 7) >> 3; jc += kWarps) {
+    const int kt0 = ww[jc], nk = ww[16 + jc];
+    const uint16_t* b_row = wtiles + jc * 8 * wp + (l.lane & 7) * wp + ((l.lane >> 3) & 1) * 8;
+    const uint16_t* a_row = T + l.lrow * spitch + 16 * kt0 + l.lcol;
+    float acc[kCh][kMaxMTiles][4] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < nk; ++kk) {
+      uint32_t bf[2];
+      ldmatrix_x2(bf, b_row + 16 * kk);
+#pragma unroll
+      for (int mi = 0; mi < kMaxMTiles; ++mi) {
+        if (mi < mtiles) {
+#pragma unroll
+          for (int c = 0; c < kCh; ++c) {
+            uint32_t a[4];
+            ldmatrix_x4(a, a_row + c * t_plane + 16 * mi * spitch + 16 * kk);
+            mma_bf16(acc[c][mi], a, bf);
+          }
+        }
+      }
+    }
+    const int cc = 8 * jc + 2 * l.tq;
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+#pragma unroll
+      for (int mi = 0; mi < kMaxMTiles; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * mi + l.gq + 8 * h;
+          if (r < rn) store(c, r, cc, acc[c][mi][2 * h], acc[c][mi][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
 // A block's walk over its strips: the body of both kernels. `Args` holds
 // src and src_stride, `s` (StripArgs), and dst and dst_stride (elements
 // between rows), of the type `store_pair` writes, indexed by
@@ -243,10 +373,7 @@ __device__ __forceinline__ void resize_strips(const Args& args) {
   uint16_t* S = reinterpret_cast<uint16_t*>(smem + 2 * set_bytes);
   int* desc = reinterpret_cast<int*>(S + sa.hpad * (sa.wpad + 8));  // 3 x kStripInts
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;  // the mma fragments' group and thread in group
-  // ldmatrix: lane l addresses row (l & 7) of matrix l >> 3
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
+  const Lanes l;
   const int step = gridDim.x;
   const int* strips = sa.table + static_cast<long long>(sa.strips) * kStripInts;
 
@@ -276,12 +403,8 @@ __device__ __forceinline__ void resize_strips(const Args& args) {
                   desc + ((i + 2) % 3) * kStripInts);
     }
 
-    const int rn = d[kRn], cn = d[kCn], kh = d[kKh], kw = d[kKw];
     const int hpad = d[kHpad], wpad = d[kWpad];
-    const int mtiles = (rn + 15) >> 4;
-    const int spitch = wpad + 8, hp = 16 * kh + 8, wp = 16 * kw + 8;
-    const uint16_t* htiles = reinterpret_cast<const uint16_t*>(hw + kHHead);
-    const uint16_t* wtiles = reinterpret_cast<const uint16_t*>(ww + kWHead);
+    const int spitch = wpad + 8;
 
     // the window widened to bf16, 16 samples an item, in rows of `chunks` items
     {
@@ -299,88 +422,18 @@ __device__ __forceinline__ void resize_strips(const Args& args) {
     }
     __syncthreads();
 
-    // height pass: T[r][x] = bf16(sum_k Wh[r][k] * S[k][x]) over each m-tile's
-    // k-tiles, for the strip's rows r and every window column x. A unit is an
-    // m-tile and two n-tiles of 8 columns; a warp runs kMaxUnits at once.
-    const int npairs = wpad >> 4, units = mtiles * npairs;
-    for (int u0 = warp; u0 < units; u0 += kWarps * kMaxUnits) {
-      // the units' tiles: rows of the weights and of the window, k-tiles
-      const uint16_t* a_row[kMaxUnits];
-      const uint16_t* b_row[kMaxUnits];
-      int nk[kMaxUnits], nk_max = 0;
-#pragma unroll
-      for (int j = 0; j < kMaxUnits; ++j) {
-        const int u = min(u0 + j * kWarps, units - 1);
-        const int mi = u / npairs, q = u - mi * npairs;
-        nk[j] = u0 + j * kWarps < units ? hw[2 + mi] : 0;
-        nk_max = max(nk_max, nk[j]);
-        a_row[j] = htiles + mi * 16 * hp + lrow * hp + lcol;
-        b_row[j] = S + (16 * hw[mi] + lrow) * spitch + 16 * q + lcol;
-      }
-      float acc[2 * kMaxUnits][4] = {};
-      for (int kk = 0; kk < nk_max; ++kk) {
-#pragma unroll
-        for (int j = 0; j < kMaxUnits; ++j) {
-          if (kk < nk[j]) {
-            uint32_t a[4], bf[4];
-            ldmatrix_x4(a, a_row[j] + 16 * kk);
-            // matrices: k rows 0-7 and 8-15 of n-tile 2q, then of 2q + 1
-            ldmatrix_x4_trans(bf, b_row[j] + 16 * kk * spitch);
-            mma_bf16(acc[2 * j], a, bf);
-            mma_bf16(acc[2 * j + 1], a, bf + 2);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2 * kMaxUnits; ++j) {
-        const int u = u0 + (j >> 1) * kWarps;
-        if (u < units) {
-          const int mi = u / npairs, q = u - mi * npairs;
-          uint16_t* out = T + (16 * mi + gq) * spitch + 16 * q + 8 * (j & 1) + 2 * tq;
-          *reinterpret_cast<uint32_t*>(out) = pack_bf16(acc[j][0], acc[j][1]);
-          *reinterpret_cast<uint32_t*>(out + 8 * spitch) = pack_bf16(acc[j][2], acc[j][3]);
-        }
-      }
-    }
+    height_pass<1, false>(l, d, hw, S, 0, T, 0, spitch);
     __syncthreads();
 
-    // width pass and the store: out[r][c] = sum_x T[r][x] * Ww[c][x] over the
-    // n-tile's k-tiles, 8 output columns an n-tile, each warp one n-tile at
-    // a time over every m-tile
+    // the width pass, each output pair stored straight into its plane
     const int di = args.dst_index(d);
     auto* dst = args.dst[di];
     const long long dstride = args.dst_stride[di];
     dst += d[kDstY] * dstride + d[kDstX];
-    for (int jc = warp; jc < (cn + 7) >> 3; jc += kWarps) {
-      const int kt0 = ww[jc], nk = ww[16 + jc];
-      const uint16_t* b_row = wtiles + jc * 8 * wp + (lane & 7) * wp + ((lane >> 3) & 1) * 8;
-      const uint16_t* a_row = T + lrow * spitch + 16 * kt0 + lcol;
-      float acc[kMaxMTiles][4] = {};
-#pragma unroll 4
-      for (int kk = 0; kk < nk; ++kk) {
-        uint32_t bf[2];
-        ldmatrix_x2(bf, b_row + 16 * kk);
-#pragma unroll
-        for (int mi = 0; mi < kMaxMTiles; ++mi) {
-          if (mi < mtiles) {
-            uint32_t a[4];
-            ldmatrix_x4(a, a_row + 16 * mi * spitch + 16 * kk);
-            mma_bf16(acc[mi], a, bf);
-          }
-        }
-      }
-      const int cc = 8 * jc + 2 * tq;
-#pragma unroll
-      for (int mi = 0; mi < kMaxMTiles; ++mi) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * mi + gq + 8 * h;
-          if (r < rn) {
-            store_pair(dst + r * dstride + cc, acc[mi][2 * h], acc[mi][2 * h + 1], cc, cn);
-          }
-        }
-      }
-    }
+    const int cn = d[kCn];
+    width_pass<1>(l, d, ww, T, 0, spitch, [&](int, int r, int cc, float lo, float hi) {
+      store_pair(dst + r * dstride + cc, lo, hi, cc, cn);
+    });
     __syncthreads();  // S, T, this strip's buffers and row are free again
   }
 }

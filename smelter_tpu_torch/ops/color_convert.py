@@ -5,7 +5,9 @@ converters: u8 <-> f32, YUV <-> RGB, the chroma up- and down-sampling, the
 deferred-YUV tile convert (`yuv_tile_rgba_cm`, whose resizes are the banded
 pass of `ops/hopper/tile_resize.py` on the card), the full-resolution RGBA
 conversion of every input format (`convert_to_rgba_f32`,
-`DeferredYuvSource.mips`) and the canvas -> YUV420, NV12 and YUV444
+`DeferredYuvSource.mips`, `DeferredNv12Source.mips`), an NV12 input's
+static tiles in one fused convert-and-resize pass (`DeferredNv12Source`,
+`ops/hopper/nv12_resize.py`), and the canvas -> YUV420, NV12 and YUV444
 outputs. The YUV420 output (and so NV12, its interleaved form) runs kernel
 K2 (`ops/hopper/yuv_out.py`); YUV444 is elementwise, with no kernel. The
 canvas outputs also take the 16-bit storage of the root canvas
@@ -26,7 +28,7 @@ import torch
 
 from smelter_tpu_torch.config import check_finite
 from smelter_tpu_torch.core.types import PixelFormat
-from smelter_tpu_torch.render.capture import device_constant
+from smelter_tpu_torch.render.capture import count_each_run, device_constant
 from smelter_tpu_torch.ops.resample import (
     _dense_axis_weights,
     build_mips,
@@ -312,6 +314,34 @@ class DeferredYuvSource:
         if self._mips is None:
             rgba = planar_yuv_to_rgba(*self.planes, full_range=self.full_range)
             self._mips = build_mips(rgba, self._levels)
+        return self._mips
+
+
+class DeferredNv12Source:
+    """NV12 input (y (H, W) and the interleaved uv (H/2, W/2, 2) u8, the
+    layout GPU decoders write) whose RGBA conversion is deferred: a static
+    layout's tile (`tile_cm`) is made from the u8 planes by the fused
+    convert-and-resize pass (`ops/hopper/nv12_resize.py`, which `compose`
+    hands a run's tiles at once); the layouts that need the full-resolution
+    RGBA mips (the sampled pass, traced sizes) call `mips`, which converts
+    once per frame and counts the conversion and its levels beyond level 0
+    (`program.general.rgba_converts`, `.mip_levels`)."""
+
+    def __init__(self, y, uv, mip_levels: int = 1):
+        self.planes = (y, uv)
+        self._levels = mip_levels
+        self._mips = None
+
+    def tile_cm(self, crop, out_h: int, out_w: int) -> torch.Tensor:
+        from smelter_tpu_torch.ops.hopper import nv12_resize
+
+        return nv12_resize.resize_tiles([(self.planes, tuple(crop), out_h, out_w)])[0]
+
+    def mips(self) -> list:
+        if self._mips is None:
+            self._mips = build_mips(nv12_to_rgba(*self.planes), self._levels)
+            count_each_run("program.general.rgba_converts")
+            count_each_run("program.general.mip_levels", len(self._mips) - 1)
         return self._mips
 
 

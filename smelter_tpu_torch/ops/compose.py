@@ -52,9 +52,11 @@ again on each replay): `program.general.groups` (K4 groups),
 deferred YUV tile converts), `.rgba_tiles` (the RGBA tiles resized by
 GEMMs: K4's "rgba" members and rotated RGBA tiles) and `.shears` (K5
 passes, `ops/rotate.py`); `ops/hopper/tile_resize.py` counts
-`.tile_resize_planes` (the tile planes the converts resize), and the frame
-program `.rgba_converts` and `.mip_levels` (the inputs of the RGBA input
-route and the mip levels built for them beyond level 0,
+`.tile_resize_planes` (the tile planes the converts resize),
+`ops/hopper/nv12_resize.py` `.nv12_tiles` (the NV12 tiles its fused pass
+makes), and the frame program and `color_convert.DeferredNv12Source`
+`.rgba_converts` and `.mip_levels` (the inputs converted to
+full-resolution RGBA and the mip levels built for them beyond level 0,
 `render/program.py`).
 
 Corner-radius order is [top_left, top_right, bottom_right, bottom_left].
@@ -73,10 +75,11 @@ import torch.nn.functional as F
 from smelter_tpu_torch.ops.color_convert import (
     CANVAS_FIXED_OFFSET,
     CANVAS_FIXED_SCALE,
+    DeferredNv12Source,
     canvas_decode,
 )
 from smelter_tpu_torch.ops.resample import (
-    resize_matmul,
+    resize_crop_cm,
     resize_matmul_traced,
     sample_bilinear,
     sample_bilinear_mip,
@@ -207,16 +210,17 @@ def _src_mips(src) -> Sequence:
 def _src_tile_cm(src, crop, out_h: int, out_w: int) -> torch.Tensor:
     """Channel-major (4, out_h, out_w) f32 tile: the source's `crop` window
     resized. Deferred planar-YUV sources crop and resize their subsampled
-    planes directly (color_convert.yuv_tile_rgba_cm); an (H, W, 4) RGBA
-    source (or a mip list, level 0 used) resizes its crop by GEMMs."""
-    if hasattr(src, "tile_cm"):
+    planes directly (color_convert.yuv_tile_rgba_cm), deferred NV12 ones
+    convert and resize their u8 planes in one pass (`ops/hopper/
+    nv12_resize.py`, which counts them); an (H, W, 4) RGBA source (or a
+    mip list, level 0 used) resizes its crop by GEMMs."""
+    if hasattr(src, "tile_products"):
         count_each_run("program.general.tile_converts")
+    if hasattr(src, "tile_cm"):
         return src.tile_cm(crop, out_h, out_w)
     count_each_run("program.general.rgba_tiles")
     img = src[0] if isinstance(src, (list, tuple)) else src
-    ct, cl, chh, cww = crop
-    patch = img[ct : ct + chh, cl : cl + cww]
-    return resize_matmul(patch.permute(2, 0, 1), out_h, out_w).to(torch.float32)
+    return resize_crop_cm(img, crop, out_h, out_w)
 
 
 def render_single_layout(
@@ -338,10 +342,10 @@ def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence,
     (a tile's resized planes, a stably rotated tile; nothing for a colour or
     shadow layout, which K4 evaluates from its parameters), and what K4 (or
     its plain version) does with it. `products`: a YUV tile's resized
-    planes, made already with the rest of its run (`_run_tile_products`).
-    Its contribution is exactly zero outside its footprint, so blending it
-    over the union is identical to blending it over its own
-    `_layer_region`."""
+    planes, or an NV12 tile's RGBA, made already with the rest of its run
+    (`_run_tile_products`). Its contribution is exactly zero outside its
+    footprint, so blending it over the union is identical to blending it
+    over its own `_layer_region`."""
     from smelter_tpu_torch.ops.hopper.group_blend import GroupMember
 
     top, left, h, w = static.static_rect  # type: ignore[misc]
@@ -370,29 +374,39 @@ def _group_member(static: LayoutStatic, params: LayoutParams, sources: Sequence,
             products = src.tile_products(static.static_crop, h, w)
         return GroupMember("yuv", static, params, tuple(products), (top, left),
                            full_range=src.full_range)
-    return GroupMember("rgba", static, params,
-                       (_src_tile_cm(src, static.static_crop, h, w),), (top, left))
+    if products is None:
+        products = (_src_tile_cm(src, static.static_crop, h, w),)
+    return GroupMember("rgba", static, params, tuple(products), (top, left))
 
 
 def _run_tile_products(groups, sources) -> list:
-    """The resized planes of every static, unrotated YUV tile of a run's
-    groups, all from one call of the banded pass (`ops/hopper/
-    tile_resize.py`: one launch a `MAX_PLANES` tile planes on the card, the
-    plain version on the CPU): for each group, {member index: planes}. They
-    do not depend on the canvas, so making them before the groups blend
-    changes no value and no paint order."""
-    from smelter_tpu_torch.ops.hopper import tile_resize
+    """What the static, unrotated texture tiles of a run's groups read,
+    made before the groups blend, each kind by one call of its pass (one
+    launch on the card a `MAX_PLANES` tile planes, the plain version on the
+    CPU): a YUV tile's resized planes (`ops/hopper/tile_resize.py`), an
+    NV12 tile's RGBA (`ops/hopper/nv12_resize.py`);
+    for each group, {member index: products}. They do not depend on the
+    canvas, so making them first changes no value and no paint order."""
+    from smelter_tpu_torch.ops.hopper import nv12_resize, tile_resize
 
-    keys, tiles = [], []
+    yuv, nv12 = ([], []), ([], [])
     for g, (members, _, _) in enumerate(groups):
         for m, (st, _) in enumerate(members):
             src = sources[st.source_index] if st.content == "texture" else None
-            if st.static_rotation is None and hasattr(src, "tile_products"):
-                keys.append((g, m))
-                tiles.append((src.planes, st.static_crop, *st.static_rect[2:]))
+            if src is None or st.static_rotation is not None:
+                continue
+            tile = (getattr(src, "planes", None), tuple(st.static_crop), *st.static_rect[2:])
+            if hasattr(src, "tile_products"):
+                yuv[0].append((g, m))
+                yuv[1].append(tile)
+            elif isinstance(src, DeferredNv12Source):
+                nv12[0].append((g, m))
+                nv12[1].append(tile)
     by_group: list = [{} for _ in groups]
-    for (g, m), planes in zip(keys, tile_resize.resize_tiles(tiles)):
+    for (g, m), planes in zip(yuv[0], tile_resize.resize_tiles(yuv[1])):
         by_group[g][m] = planes
+    for (g, m), rgba in zip(nv12[0], nv12_resize.resize_tiles(nv12[1])):
+        by_group[g][m] = (rgba,)
     return by_group
 
 

@@ -113,7 +113,9 @@ def library() -> ctypes.CDLL:
     lib.smelter_grid_resize.restype = i
     lib.smelter_tile_resize.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.smelter_tile_resize.restype = i
-    for kernel in ("grid_resize", "tile_resize"):
+    lib.smelter_nv12_convert_resize.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    lib.smelter_nv12_convert_resize.restype = i
+    for kernel in ("grid_resize", "tile_resize", "nv12_convert_resize"):
         blocks_per_sm = getattr(lib, f"smelter_{kernel}_blocks_per_sm")
         blocks_per_sm.argtypes = [i]
         blocks_per_sm.restype = i

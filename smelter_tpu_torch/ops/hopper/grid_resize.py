@@ -44,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -242,13 +242,14 @@ class Plan:
     strip_base: int
     strips: Tuple[int, ...]
     dims: Tuple[Tuple[int, ...], ...]
+    smem: Callable[..., int] = smem_bytes  # a block's shared memory of the largest dims
 
     def launch(self, k0: int, k1: int) -> Tuple[int, int, Tuple[int, ...], int]:
         """(first strip row, strips, largest dims, shared memory bytes) of a
         launch of tile planes k0 .. k1."""
         dims = tuple(max(d[i] for d in self.dims[k0:k1]) for i in range(5))
         return (self.strip_base + sum(self.strips[:k0]), sum(self.strips[k0:k1]), dims,
-                smem_bytes(*dims))
+                self.smem(*dims))
 
 
 def _dims(hb: _Blocks, wb: _Blocks) -> Tuple[int, ...]:
@@ -266,13 +267,38 @@ def plan(shapes: Tuple[Tuple[int, ...], ...]) -> Plan:
                              for in_h, in_w, out_h, out_w, p, top, left in shapes))
 
 
+def strip_shape(h_band: Band, w_band: Band, smem: Callable[..., int] = smem_bytes,
+                shares: Tuple[int, ...] = (3, 2, 1)
+                ) -> Optional[Tuple[int, int, _Blocks, _Blocks]]:
+    """The strip of a tile plane whose rows and columns have the bands
+    `h_band` and `w_band`: (rows, columns, row blocks, column blocks) of
+    the first of `BLOCK_SHAPES` whose block's shared memory (`smem` of its
+    dims) lets `shares[0]` blocks share an SM; where none does, the first
+    that lets `shares[1]`, and so on; None where none fits a block."""
+    options, sizes = [], []
+    for r, c in BLOCK_SHAPES:
+        hb, wb = _blocks(h_band, r, 16, H_HEAD, 1), _blocks(w_band, c, 8, W_HEAD, 16)
+        options.append((r, c, hb, wb))
+        sizes.append(smem(*_dims(hb, wb)))
+        if sizes[-1] <= min(SMEM_MAX, SMEM_SM // shares[0] - SMEM_RESERVED):
+            break
+    for share in shares:  # blocks an SM holds
+        fits = [i for i, n in enumerate(sizes)
+                if n <= min(SMEM_MAX, SMEM_SM // share - SMEM_RESERVED)]
+        if fits:
+            return options[fits[0]]
+    return None
+
+
 @functools.lru_cache(maxsize=64)
-def plan_planes(planes: Tuple[Tuple, ...]) -> Plan:
+def plan_planes(planes: Tuple[Tuple, ...], smem: Callable[..., int] = smem_bytes,
+                shares: Tuple[int, ...] = (3, 2, 1)) -> Plan:
     """The `Plan` of tile planes given as (rows, columns, plane, top, left)
     each: the `Band`s of their height and width passes, the output plane
-    (the strip rows' `kDst`) and their place in it. Each plane takes the
-    first of `BLOCK_SHAPES` whose shared memory fits (raising if none
-    does). Planes whose rows or columns have the same bands share their
+    (the strip rows' `kDst`) and their place in it. Each plane takes its
+    `strip_shape` (three blocks an SM, else two, else one, by this file's
+    shared memory layout unless `smem` gives another kernel's), raising if
+    none fits. Planes whose rows or columns have the same bands share their
     weights in the table."""
     offsets: dict = {}
     chunks: List[np.ndarray] = []
@@ -291,25 +317,11 @@ def plan_planes(planes: Tuple[Tuple, ...]) -> Plan:
 
     rows, counts, dims = [], [], []
     for k, (h_band, w_band, p, top, left) in enumerate(planes):
-        # the shapes in order until one lets three blocks share an SM; where
-        # none does, all of them, for the first that lets two, else one
-        options, sizes = [], []
-        for r, c in BLOCK_SHAPES:
-            hb, wb = _blocks(h_band, r, 16, H_HEAD, 1), _blocks(w_band, c, 8, W_HEAD, 16)
-            options.append((r, c, hb, wb))
-            sizes.append(smem_bytes(*_dims(hb, wb)))
-            if sizes[-1] <= min(SMEM_MAX, SMEM_SM // 3 - SMEM_RESERVED):
-                break
-        for share in (3, 2, 1):  # blocks an SM holds
-            fits = [i for i, n in enumerate(sizes)
-                    if n <= min(SMEM_MAX, SMEM_SM // share - SMEM_RESERVED)]
-            if fits:
-                break
-        if not fits:
+        shape = strip_shape(h_band, w_band, smem, shares)
+        if shape is None:
             raise ValueError(f"banded resize: tile plane {k} (rows {h_band[1:]}, columns "
-                             f"{w_band[1:]}) needs more shared memory than a block has "
-                             f"({sizes[-1]} B)")
-        r, c, hb, wb = options[fits[0]]
+                             f"{w_band[1:]}) needs more shared memory than a block has")
+        r, c, hb, wb = shape
         h_at = place((h_band, r, "h"), hb)
         w_at = place((w_band, c, "w"), wb)
         ci, ri = np.meshgrid(np.arange(len(wb.start)), np.arange(len(hb.start)), indexing="ij")
@@ -326,15 +338,16 @@ def plan_planes(planes: Tuple[Tuple, ...]) -> Plan:
     table = np.concatenate(chunks + [np.zeros(pad, np.int32)]
                            + [r.astype(np.int32).reshape(-1) for r in rows])
     table.setflags(write=False)
-    return Plan(table, (size + pad) // STRIP_INTS, tuple(counts), tuple(dims))
+    return Plan(table, (size + pad) // STRIP_INTS, tuple(counts), tuple(dims), smem)
 
 
 @functools.lru_cache(maxsize=64)
 def blocks_per_sm(device: torch.device, smem: int, kernel: str = "grid_resize") -> int:
-    """The blocks of `kernel` (grid_resize or tile_resize) an SM of `device`
-    holds at `smem` bytes of shared memory (asked once a card and size, in a
-    program's warm-up: the call also raises the kernel's shared memory
-    limit, which a capture may not)."""
+    """The blocks of `kernel` (grid_resize, tile_resize or
+    nv12_convert_resize) an SM of `device` holds at `smem` bytes of shared
+    memory (asked once a card and size, in a program's warm-up: the call
+    also raises the kernel's shared memory limit, which a capture may
+    not)."""
     with torch.cuda.device(device):
         n = getattr(build.library(), f"smelter_{kernel}_blocks_per_sm")(smem)
     if n <= 0:

@@ -194,6 +194,14 @@ def resize_matmul(
     return _resize_matmul(img, out_h, out_w, kind, img.is_cuda)
 
 
+def resize_crop_cm(img: torch.Tensor, crop, out_h: int, out_w: int) -> torch.Tensor:
+    """The `crop` (top, left, height, width) of an (H, W, C) image resized
+    to a channel-major (C, out_h, out_w) f32 tile by `resize_matmul`."""
+    ct, cl, chh, cww = crop
+    patch = img[ct : ct + chh, cl : cl + cww]
+    return resize_matmul(patch.permute(2, 0, 1), out_h, out_w).to(torch.float32)
+
+
 def _resize_matmul(img, out_h: int, out_w: int, kind: str, card: bool) -> torch.Tensor:
     in_h, in_w = img.shape[-2], img.shape[-1]
     x = operand(img, card)

@@ -1117,8 +1117,9 @@ class OutputProgram:
                 return node_memo[nid]
 
             def _eval(node: Node, nid: int):
-                """A DeferredYuvSource, a mip list, the root's [canvas], or
-                None (an absent input, a web node without a page)."""
+                """A DeferredYuvSource or DeferredNv12Source, a mip list,
+                the root's [canvas], or None (an absent input, a web node
+                without a page)."""
                 p = node.params
                 is_root = nid == root_nid
                 if isinstance(p, InputStreamNode):
@@ -1133,6 +1134,14 @@ class OutputProgram:
                             input_memo[p.input_id] = cc.DeferredYuvSource(
                                 *planes, full_range=fmt.is_full_range,
                                 mip_levels=_mip_levels(res))
+                        elif fmt == PixelFormat.NV12:
+                            # static layouts convert and resize the u8 planes in
+                            # one pass; .mips() converts the whole picture and
+                            # counts it in the two counters registered here
+                            input_memo[p.input_id] = cc.DeferredNv12Source(
+                                *planes, mip_levels=_mip_levels(res))
+                            count_each_run("program.general.rgba_converts", 0)
+                            count_each_run("program.general.mip_levels", 0)
                         else:
                             # the RGBA input route: every other format converts
                             # at full resolution and is mipped
@@ -1232,7 +1241,7 @@ class OutputProgram:
 
 def _full_rgba(src):
     """Full-resolution (H, W, 4) f32 RGBA of an eval_node result (a mip
-    list, or a DeferredYuvSource converted on first use); a root's [canvas]
+    list, or a deferred source converted on first use); a root's [canvas]
     or [shader output] gives that."""
     if hasattr(src, "mips"):
         return src.mips()[0]

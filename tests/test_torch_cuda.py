@@ -1123,3 +1123,260 @@ def test_styled_multiview_counters_follow_the_kernels(cuda, out_res):
     mx, ppm = _lsb_and_ppm(out, tuple(torch.from_numpy(p).to(cuda) for p in want))
     print(out_res, "against the reference: max", mx, "steps,", ppm, "ppm")
     assert mx <= limits["max_lsb"] and ppm <= limits["diff_ppm"]
+
+
+# the fused NV12 convert-and-resize pass (`ops/hopper/nv12_resize.py`): sites
+# as (luma (w, h), crop, out_h, out_w, tiles): the NV12 Tiles cell's 16
+# tiles, a cropped tile, a size no multiple of 16, an upscale
+NV12_SITES = {
+    "cell 16 x 1080x1920->540x960": ((1920, 1080), (0, 0, 1080, 1920), 540, 960, 16),
+    "cropped 1080x1920->377x615": ((1920, 1080), (7, 13, 1001, 1777), 377, 615, 1),
+    "odd size 1080x1920->531x947": ((1920, 1080), (0, 0, 1080, 1920), 531, 947, 2),
+    "upscale 360x640->810x1440": ((640, 360), (0, 0, 360, 640), 810, 1440, 1),
+}
+
+
+def _nv12_sources(dev, n, src, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w, h = src
+    return [(torch.randint(0, 256, (h, w), dtype=torch.uint8, generator=gen, device=dev),
+             torch.randint(0, 256, (h // 2, w // 2, 2), dtype=torch.uint8, generator=gen,
+                           device=dev)) for _ in range(n)]
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps of `want`, a step being 2^-16 (a 256th of
+    a u8 step) at least: where the resize's f32 sums cancel to nearly 0,
+    their rounding in another order moves them by more than their own
+    bf16 step."""
+    step = torch.clamp(torch.exp2(torch.floor(torch.log2(torch.clamp(want.abs(), min=2.0 ** -40)))
+                                  - 7), min=2.0 ** -16)
+    return (got - want).abs() / step
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("site", sorted(NV12_SITES))
+def test_nv12_resize_matches_the_gemm_route(cuda, site, seed):
+    """The kernel against the parent's route on the card (the eager
+    conversion of the whole picture, `resize_matmul`'s bf16 cuBLAS GEMMs
+    of the crop), which sums the same bf16 products in f32 in another
+    order: R, G and B within `nv12_resize.gemm_route_bound`, which is one
+    bf16 step of the output (and the width pass's f32 error) where no
+    height-pass tie reaches it, so a value beyond one step is one a tie
+    reaches; at most 1% of the values differ; alpha equal; the tiles of a
+    call in one launch, no resize GEMM."""
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper import nv12_resize
+
+    src, crop, oh, ow, n = NV12_SITES[site]
+    tiles = [(p, crop, oh, ow) for p in _nv12_sources(cuda, n, src, seed=1000 * seed + len(site))]
+    before = (nv12_resize.LAUNCHES, resample.LAUNCHES)
+    got = nv12_resize.resize_tiles(tiles)
+    torch.cuda.synchronize()
+    assert (nv12_resize.LAUNCHES - before[0], resample.LAUNCHES - before[1]) == (1, 0)
+    worst, ratio, differ, beyond, untied, reached, total = 0.0, 0.0, 0, 0, 0, 0, 0
+    for (planes, _, _, _), rgba in zip(tiles, got):
+        want = resample.resize_crop_cm(cc.nv12_to_rgba(*planes), crop, oh, ow)
+        assert rgba.dtype == torch.float32 and rgba.shape == want.shape == (4, oh, ow)
+        assert torch.equal(rgba[3], want[3])
+        bound, tied = nv12_resize.gemm_route_bound(planes, crop, oh, ow)
+        d = (rgba[:3].double() - want[:3].double()).abs()
+        worst = max(worst, float(_bf16_steps(rgba[:3], want[:3]).max()))
+        ratio = max(ratio, float((d / bound).max()))
+        over = d > bound - tied  # beyond the one-step limit
+        beyond += int(over.sum())
+        untied += int((over & (tied == 0)).sum())
+        reached += int((tied > 0).sum())
+        differ += int((d > 0).sum())
+        total += d.numel()
+    print(f"nv12_resize {site} seed {seed} vs the GEMM route: {worst} bf16 steps at most, "
+          f"{ratio:.4f} of the bound, {differ} of {total} values differ, {beyond} beyond one "
+          f"step ({untied} of them where no tie reaches; ties reach {reached})")
+    assert ratio <= 1.0 and untied == 0 and differ * 100 < total
+
+
+def test_nv12_resize_converts_as_the_eager_chain_at_an_unchanged_size(cuda):
+    """At an unchanged size (one tap of 1 on each axis) the kernel's
+    products are the eager chain's picture on the card rounded to bf16,
+    bit for bit: its conversion repeats the chain's operations."""
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops.hopper import nv12_resize
+
+    (y, uv), = _nv12_sources(cuda, 1, (1920, 1080), seed=29)
+    for crop in ((0, 0, 1080, 1920), (3, 5, 777, 1001)):
+        rgba, = nv12_resize.resize_tiles([((y, uv), crop, crop[2], crop[3])])
+        ct, cl, ch, cw = crop
+        want = cc.nv12_to_rgba(y, uv)[ct:ct + ch, cl:cl + cw].permute(2, 0, 1)
+        assert torch.equal(rgba, want.to(torch.bfloat16).to(torch.float32))
+
+
+def test_nv12_resize_batch_equals_each_tile_alone_and_replays_bit_equal(cuda):
+    """The cell's 16 tiles in one call give each tile's RGBA bit for bit as
+    a call of that tile alone, and a captured replay gives them again."""
+    from smelter_tpu_torch.ops.hopper import nv12_resize
+    from smelter_tpu_torch.render.capture import capture
+
+    tiles = [(p, (0, 0, 1080, 1920), 540, 960)
+             for p in _nv12_sources(cuda, 16, (1920, 1080), seed=30)]
+    got = nv12_resize.resize_tiles(tiles)
+    for tile, rgba in zip(tiles, got):
+        assert torch.equal(rgba, nv12_resize.resize_tiles([tile])[0])
+
+    def fn(x):
+        return [t + x for t in nv12_resize.resize_tiles(tiles)]
+
+    prog, _ = capture(fn, (torch.zeros((), device=cuda),), cuda)
+    before = nv12_resize.LAUNCHES
+    replayed = prog(torch.zeros((), device=cuda))
+    torch.cuda.synchronize()
+    assert nv12_resize.LAUNCHES - before == 1
+    assert all(torch.equal(a, b) for a, b in zip(replayed, got))
+
+
+def test_nv12_resize_refuses_a_downscale_past_its_strips(cuda):
+    """A 1080p picture into 71x40 (27x) has no strip whose window fits a
+    block's shared memory: the card's call raises, also for a deferred
+    source's tile, launches nothing and takes no other route (no resize
+    GEMM, no conversion of the picture)."""
+    from smelter_tpu_torch.ops import color_convert as cc
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper import nv12_resize
+    from smelter_tpu_torch.utils import tracing
+
+    planes, = _nv12_sources(cuda, 1, (1920, 1080), seed=32)
+    crop = (0, 0, 1080, 1920)
+    src = cc.DeferredNv12Source(*planes)
+    before = (nv12_resize.LAUNCHES, resample.LAUNCHES)
+    tracing.reset()
+    try:
+        with pytest.raises(ValueError, match="shared memory"):
+            nv12_resize.resize_tiles([(planes, crop, 40, 71)])
+        with pytest.raises(ValueError, match="shared memory"):
+            src.tile_cm(crop, 40, 71)
+        torch.cuda.synchronize()
+        c = tracing.counters()
+    finally:
+        tracing.reset()
+    assert (nv12_resize.LAUNCHES, resample.LAUNCHES) == before
+    assert "program.general.rgba_converts" not in c and "program.general.nv12_tiles" not in c
+
+
+@pytest.mark.parametrize("out_res", [(768, 432), (3840, 2160)])
+def test_nv12_tiles_counters_follow_the_kernel(cuda, out_res):
+    """The benchmark's NV12 Tiles (16 NV12 inputs of 1080p) through the
+    renderer's general program, captured: each replay launches the fused
+    pass once for the 16 tiles, no resize GEMM, K1 and K2 once and K4 a
+    group; it counts 16 `nv12_tiles` and registers no conversion and no
+    mip level (both 0); the frame meets the benchmark's plain reference
+    within the cell's limits."""
+    import importlib.util
+    import json
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from smelter_tpu_torch.core import types as tt
+    from smelter_tpu_torch.ops import resample
+    from smelter_tpu_torch.ops.hopper import group_blend, nv12_resize
+    from smelter_tpu_torch.render.renderer import Renderer, RendererOptions
+    from smelter_tpu_torch.scene import components as comp
+    from smelter_tpu_torch.utils import tracing
+
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+
+    def load(path):
+        spec = importlib.util.spec_from_file_location(f"cuda_nv12_{path.parent.name}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    scene = load(bench / "scenes" / "tiles.py")
+    ref = load(bench / "references" / "tiles_nv12.py")
+    limits = json.loads((bench / "limits" / "tiles16_4k_nv12.steady.json").read_text())
+    cfg = {**json.loads((bench / "configs" / "tiles16_4k_nv12.json").read_text()),
+           "output_width": out_res[0], "output_height": out_res[1]}
+    ids = [f"input_{i}" for i in range(16)]
+    r = Renderer(RendererOptions(async_compile=False), device=cuda)
+    for iid in ids:
+        r.register_input(iid)
+    r.update_scene("out_0", scene.build(SimpleNamespace(comp=comp, types=tt), cfg, 0, "out_0"),
+                   tt.Resolution(*out_res), tt.PixelFormat.PLANAR_YUV420)
+    sources = _nv12_sources(cuda, 16, (1920, 1080), seed=31)
+    frames = {iid: tt.Frame(data=p, format=tt.PixelFormat.NV12,
+                            resolution=tt.Resolution(1920, 1080), pts=0.0)
+              for iid, p in zip(ids, sources)}
+    r.render(tt.FrameSet(pts=0.0, frames=frames))  # the capture
+    torch.cuda.synchronize()
+    tracing.reset()
+    mods = (nv12_resize, resample, scene_assembly, yuv_out, group_blend)
+    before = [m.LAUNCHES for m in mods]
+    try:
+        for k in range(1, 4):
+            out = r.render(tt.FrameSet(pts=k / 32, frames=frames)).frames["out_0"].data
+        torch.cuda.synchronize()
+        c = tracing.counters()
+    finally:
+        tracing.reset()
+    launched = [m.LAUNCHES - b for m, b in zip(mods, before)]
+    print(out_res, {k: v for k, v in c.items() if k.startswith("program.general")}, launched)
+    assert c["program.calls.general"] == 3
+    assert launched == [3, 0, 3, 3, c["program.general.groups"]]
+    assert c["program.general.nv12_tiles"] == 3 * 16
+    assert c["program.general.rgba_converts"] == c["program.general.mip_levels"] == 0
+    assert "program.general.rgba_tiles" not in c
+    want = ref.render(cfg, ids, {iid: ("NV12", p) for iid, p in zip(ids, sources)}, cuda,
+                      torch.bfloat16)
+    mx, ppm = _lsb_and_ppm(out, tuple(torch.from_numpy(p).to(cuda) for p in want))
+    print(out_res, "against the reference: max", mx, "steps,", ppm, "ppm")
+    assert mx <= limits["max_lsb"] and ppm <= limits["diff_ppm"]
+
+
+def _resize_digests(dev):
+    """{case: sha256 of its output bytes} of `grid_resize` on the two Tiles
+    cells' layouts and of `tile_resize` on the multiview's 16 tiles at 4K,
+    from u8 planes numpy's PCG64 draws from one seed (the same bytes on any
+    machine and version)."""
+    import hashlib
+
+    import numpy as np
+
+    from smelter_tpu_torch.ops.hopper import grid_resize, tile_resize
+
+    rng = np.random.default_rng(2026)
+
+    def planes(w, h):
+        return tuple(torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+                     for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+
+    def sha(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    for name in ("tiles16_4k", "tiles4to1_1080p"):
+        tiles, (w, h), src = GRID_LAYOUTS[name]
+        g = grid_resize.GridResize(tiles, h, w, (16, 128, 128))
+        out[f"grid_resize {name}"] = sha(g([planes(*src) for _ in tiles], dev))
+    sizes = [(528, 938) if k % 2 else (520, 924) for k in range(16)]
+    tiles = [(planes(1920, 1080), (0, 0, 1080, 1920), h, w) for h, w in sizes]
+    out["tile_resize multiview16_4k"] = sha(
+        [t for products in tile_resize.resize_tiles(tiles) for t in products])
+    return out
+
+
+# `_resize_digests` as the parent tree of the fused NV12 pass gave them on an
+# NVIDIA H100 80GB HBM3 (700 W): the banded resizes' body was split into
+# passes that the NV12 pass shares, and computes what it computed
+RESIZE_DIGESTS = {
+    "grid_resize tiles16_4k": "21c68a660e2378b22d385b8f0a256909356988c44ed25e59b86ddb25051b136c",
+    "grid_resize tiles4to1_1080p":
+        "91b383004e54a1ac1b396380016ea6c655bf23dd5c7473c552886476b08950e1",
+    "tile_resize multiview16_4k":
+        "a982349e87e9baf17235f103853e0fcaa5eb153e7238f4c3cb89e5959ef135ba",
+}
+
+
+def test_banded_resizes_give_the_bytes_they_gave(cuda):
+    assert _resize_digests(cuda) == RESIZE_DIGESTS

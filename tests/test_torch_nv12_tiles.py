@@ -8,10 +8,12 @@ configuration `benchmark/configs/tiles16_4k_nv12.json` gives it.
     ticks, within the cell's limits;
   - (b) the reference one precision below the stated bf16 (float8) fails
     those limits;
-  - (c) the general program's counters per call: 16 inputs converted to
-    full-resolution RGBA, their mip levels beyond level 0, 16 RGBA tiles;
-    and no call of the YUV grid program, which the same scene over I420
-    inputs takes, with none of those counters.
+  - (c) the general program's counters per call: 16 NV12 tiles made by
+    the fused convert-and-resize pass, no input converted to
+    full-resolution RGBA and no mip level built (both counters read 0),
+    no RGBA tile resized by GEMMs; and no call of the YUV grid program,
+    which the same scene over I420 inputs takes, with none of those
+    counters.
 """
 
 from __future__ import annotations
@@ -144,12 +146,14 @@ def test_the_reference_clamps_at_full_resolution():
 
 
 def test_general_counters_per_call():
-    """Each call of the general program counts the inputs it converts to
-    full-resolution RGBA (16), the mip levels it builds for them beyond
-    level 0 (one each at 108 rows: `_mip_levels` gives 2 there, and 5 at
-    1080 rows, so 64 a 4K frame), and the RGBA tiles it resizes by GEMMs
-    (16); the YUV grid program never runs. The same scene over I420
-    inputs takes the grid program, which counts none of them."""
+    """Each call of the general program counts the NV12 tiles its fused
+    pass makes (16), and registers the inputs it converts to
+    full-resolution RGBA and the mip levels it builds for them beyond
+    level 0 with none: no static upright tile reads them (`_mip_levels`
+    gives 2 levels at 108 rows and 5 at 1080, which each converted input
+    would build); no RGBA tile is resized by GEMMs and the YUV grid program
+    never runs. The same scene over I420 inputs takes the grid program,
+    which counts none of them."""
     assert program._mip_levels(tt.Resolution(192, 108)) == 2
     assert program._mip_levels(tt.Resolution(1920, 1080)) == 5
     planes = _nv12(2**31 + 30)
@@ -165,11 +169,14 @@ def test_general_counters_per_call():
             tracing.reset()
         assert c["program.calls"] == c[f"program.calls.{route}"] == 3
         per_call = {k: c.get(f"program.general.{k}", 0) / 3
-                    for k in ("rgba_converts", "mip_levels", "rgba_tiles", "tile_converts")}
+                    for k in ("rgba_converts", "mip_levels", "rgba_tiles", "tile_converts",
+                              "nv12_tiles")}
         if route == "general":
             assert "program.calls.grid" not in c
-            assert per_call == {"rgba_converts": 16, "mip_levels": 16, "rgba_tiles": 16,
-                                "tile_converts": 0}
+            assert per_call == {"rgba_converts": 0, "mip_levels": 0, "rgba_tiles": 0,
+                                "tile_converts": 0, "nv12_tiles": 16}
+            # registered, so that their readers read 0 and not nothing
+            assert c["program.general.rgba_converts"] == c["program.general.mip_levels"] == 0
         else:
             assert per_call == dict.fromkeys(per_call, 0)
             assert c["program.grid.tile_planes"] == 3 * 48
